@@ -3,13 +3,20 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Drives the port's main path once: a full-width smollm-360m cold start
-through the Cicada pipeline (cicada with the cast kernel, cicada with the
-dequant kernel, pisel), then greedy generation on the assembled params.
-It builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, checks that the
-main path launched every kernel, checks the card against the CPU end to
-end, and prints one JSON line of kernel numbers and, last, one JSON line
+Drives the port's paths once each, at the full width of smollm-360m:
+  * cold starts through the Cicada pipeline (cicada with the cast kernel,
+    cicada with the dequant kernel, pisel), then greedy generation on the
+    assembled params;
+  * an int8-resident (``compute_quant``) cicada cold start;
+  * warm generation of four concurrent requests through the
+    continuous-batching ``DecodeScheduler`` on the int8-resident params,
+    slotted, then paged with prefix reuse, one request resuming from the
+    cold start's in-pipeline first token.
+It builds the five CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds each against its plain PyTorch version on the card, checks that
+each path launched its kernels (counts set to 0 just before a path and
+read just after), checks the card against the CPU end to end, and prints
+one JSON line of kernel numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
 
 Without a CUDA device, or without the repository's ``src/repro_torch``
@@ -37,6 +44,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 BF16_ATOL = 2e-2
 F32_ATOL = 1e-4
 
+T_START = time.perf_counter()
+
 
 class Failure(Exception):
     pass
@@ -45,6 +54,10 @@ class Failure(Exception):
 def need(cond: bool, what: str):
     if not cond:
         raise Failure(what)
+
+
+def phase(title: str):
+    print(f"{title} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -165,6 +178,7 @@ def check_kernels(dev, report: dict):
         plain_ms=device_ms(lambda: wmod.plain(w, s,
                                               out_dtype=torch.float32)),
         library_ms=device_ms(lambda: (w.float() * s).to(torch.float32)),
+        library="(w.float() * s).to(dt)",
         bound_ms=b_ms, bound_by=b_by,
         shape="int8 (49152, 960) + f32 scale (960,) -> f32")
     wf = randn(n, m)
@@ -212,6 +226,7 @@ def check_kernels(dev, report: dict):
         plain_ms=device_ms(lambda: fmod.plain(q, k, v, causal=True)),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
+        library="SDPA, is_causal, enable_gqa",
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 q (1,128,15,64), k/v (1,128,5,64), causal")
     S = 1000
@@ -263,8 +278,11 @@ def check_kernels(dev, report: dict):
         plain_ms=device_ms(lambda: dmod.plain(q, kc, vc, p)),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             q4, kc[:, :, :rows], vc[:, :, :rows], enable_gqa=True)),
+        library="SDPA over the valid rows, enable_gqa",
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 q (1,15,64), cache (1,5,256,64), pos 159")
+    check_quant_matmul(dev, report, randn, g)
+    check_paged(dev, report, randn, g)
     for name, r in report.items():
         print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms on the "
               f"device ({r['call_ms']:.4f} ms per eager call), plain "
@@ -272,8 +290,158 @@ def check_kernels(dev, report: dict):
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (1 where want is all zero)."""
+    d = (got.float() - want.float()).abs().max().item()
+    return d / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_quant_matmul(dev, report: dict, randn, g):
+    import torch
+    from repro_torch.kernels import quant_matmul as qmod
+
+    def qweight(k, n):
+        w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        return w, torch.rand(n, generator=g, device=dev) * 0.02 + 1e-3
+
+    err = 0.0                               # max abs error
+    cases = [(4, 960, 49152), (128, 960, 2560), (1, 960, 960),
+             (4, 2560, 960), (100, 70, 33), (17, 300, 5), (5, 64, 8192)]
+    for (m, k, n) in cases:
+        w, s = qweight(k, n)
+        for dt, tol in ((torch.bfloat16, BF16_ATOL),
+                        (torch.float32, F32_ATOL)):
+            x = randn(m, k, dtype=dt)
+            got = qmod.quant_matmul(x, w, s)
+            want = qmod.plain(x, w, s)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            print(f"  quant_matmul ({m},{k})x({k},{n}) {str(dt)[6:]}: max "
+                  f"err {e:.3e} of max |out| (tol {tol})")
+            need(got.dtype == dt and math.isfinite(e) and e <= tol,
+                 f"quant_matmul ({m},{k},{n}) {dt} err {e}")
+    # a misaligned weight (byte loads) and an f32 result from bf16 x
+    buf = torch.randint(-127, 128, (300 * 64 + 1,), generator=g, device=dev,
+                        dtype=torch.int8)
+    w, s = buf[1:].view(300, 64), torch.rand(64, device=dev)
+    x = randn(17, 300, dtype=torch.bfloat16)
+    got = qmod.quant_matmul(x, w, s, out_dtype=torch.float32)
+    want = qmod.plain(x, w, s, out_dtype=torch.float32)
+    e = rel_err(got, want)
+    print(f"  quant_matmul misaligned (17,300)x(300,64) bf16->f32: max err "
+          f"{e:.3e} of max |out| (tol {F32_ATOL})")
+    need(got.dtype == torch.float32 and e <= F32_ATOL,
+         f"quant_matmul misaligned err {e}")
+    err = max(err, (got - want).abs().max().item())
+    # row independence: each row of an M=4 product equals the M=1 product
+    # of that row, bit for bit (the scheduler steps at B = n_slots)
+    for (k, n) in ((960, 49152), (2560, 960)):
+        w, s = qweight(k, n)
+        x = randn(4, k, dtype=torch.bfloat16)
+        full = qmod.quant_matmul(x, w, s)
+        rows = torch.cat([qmod.quant_matmul(x[i:i + 1], w, s)
+                          for i in range(4)])
+        torch.cuda.synchronize()
+        print(f"  quant_matmul row independence ({k},{n}): "
+              f"{'bit-equal' if torch.equal(full, rows) else 'DIFFERS'}")
+        need(torch.equal(full, rows),
+             f"quant_matmul rows depend on M at ({k},{n})")
+    # main-path timing shape: the head in a 4-slot decode step
+    m, k, n = 4, 960, 49152
+    w, s = qweight(k, n)
+    x = randn(m, k, dtype=torch.bfloat16)
+    wd = (w.float() * s).to(torch.bfloat16)      # outside the timed region
+    b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n,
+                       torch.bfloat16)
+    report["quant_matmul"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: qmod.quant_matmul(x, w, s)),
+        call_ms=call_ms(lambda: qmod.quant_matmul(x, w, s)),
+        plain_ms=device_ms(lambda: qmod.plain(x, w, s)),
+        library_ms=device_ms(lambda: torch.matmul(x, wd)),
+        library="torch.matmul on a bf16 copy of the weight dequantized "
+                "outside the timed region",
+        bound_ms=b_ms, bound_by=b_by,
+        shape="bf16 x (4,960) . int8 head (960,49152) + f32 scale")
+    m, k, n = 128, 960, 2560
+    w, s = qweight(k, n)
+    x = randn(m, k, dtype=torch.bfloat16)
+    wd = (w.float() * s).to(torch.bfloat16)
+    b2 = bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n,
+               torch.bfloat16)
+    print(f"  quant_matmul prefill x (128,960) . wg (960,2560) bf16: "
+          f"{device_ms(lambda: qmod.quant_matmul(x, w, s)):.4f} ms, "
+          f"torch.matmul on the dequantized bf16 weight "
+          f"{device_ms(lambda: torch.matmul(x, wd)):.4f} ms, bound "
+          f"{b2[0]:.6f} ms ({b2[1]})")
+
+
+def check_paged(dev, report: dict, randn, g):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dmod
+
+    B, H, K, dh, pt, NP = 4, 15, 5, 64, 16, 16
+    P = B * NP + 1                                 # + the scratch page
+    scratch = P - 1
+    err = 0.0
+
+    def make(pos, dt, seed):
+        gg = torch.Generator().manual_seed(seed)
+        perm = torch.randperm(P - 1, generator=gg)   # shuffled pool
+        tables = torch.full((B, NP), scratch, dtype=torch.int32)
+        for b, p in enumerate(pos):
+            n = p // pt + 1
+            tables[b, :n] = perm[b * NP:b * NP + n].to(torch.int32)
+        return (randn(B, H, dh, dtype=dt), randn(P, K, pt, dh, dtype=dt),
+                randn(P, K, pt, dh, dtype=dt), tables.to(dev),
+                torch.tensor(pos, dtype=torch.int32, device=dev))
+
+    for pos in ((37, 80, 123, 159), (0, 15, 16, 255)):
+        for dt, tol in ((torch.bfloat16, BF16_ATOL),
+                        (torch.float32, F32_ATOL)):
+            q, kp, vp, tb, p = make(pos, dt, sum(pos))
+            got = dmod.decode_attention_paged(q, kp, vp, tb, p)
+            want = dmod.plain_paged(q, kp, vp, tb, p)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            err = max(err, e)
+            print(f"  decode_attention_paged pos={pos} pt={pt} "
+                  f"{str(dt)[6:]}: max abs err {e:.3e} (tol {tol})")
+            need(math.isfinite(e) and e <= tol,
+                 f"decode_attention_paged pos={pos} {dt} err {e}")
+    # main-path timing shape: a 4-slot paged step of 128-token prompts
+    pos = (37, 80, 123, 159)
+    q, kp, vp, tb, p = make(pos, torch.bfloat16, 1)
+    rows = sum(x + 1 for x in pos)
+    b_ms, b_by = bound(2 * B * H * dh * 2 + 2 * rows * K * dh * 2
+                       + B * NP * 4 + B * 4, 4 * H * dh * rows,
+                       torch.bfloat16)
+    idx = tb.long()
+    kg = kp[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)  # gathered
+    vg = vp[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)  # outside
+    valid = (torch.arange(NP * pt, device=dev)[None, :]
+             <= p.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None]
+    report["decode_attention_paged"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: dmod.decode_attention_paged(q, kp, vp, tb, p)),
+        call_ms=call_ms(lambda: dmod.decode_attention_paged(q, kp, vp, tb,
+                                                            p)),
+        plain_ms=device_ms(lambda: dmod.plain_paged(q, kp, vp, tb, p)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=valid, enable_gqa=True)),
+        library="SDPA over the rows gathered from the pages outside the "
+                "timed region, masked past pos",
+        bound_ms=b_ms, bound_by=b_by,
+        shape="bf16 q (4,15,64), pools (65,5,16,64) shuffled, tables "
+              "(4,16), pos 37/80/123/159")
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: the main path
+# phases 4-5: cold starts (cast, dequant, pisel) and greedy generation
 # ---------------------------------------------------------------------------
 
 def cold_starts(dev, workdir: str):
@@ -359,7 +527,22 @@ def cold_starts(dev, workdir: str):
           f"{d:.3e}")
     need(d <= BF16_ATOL * max(1.0, b.abs().max().item()),
          "cicada and pisel loads of one store disagree")
-    return model, results[loads[0][0]].params, cfg
+    return dict(model=model, cfg=cfg, store=store, prompt=prompt,
+                batch=batch, cast=results[loads[0][0]],
+                dequant=results[loads[1][0]])
+
+
+def f32_oracle(dev, cs: dict):
+    """The f32 oracle of the int8 store: its dequantized weights with f32
+    compute (phase 6 measures the bf16 loads' error against it).  A check,
+    so it runs outside every path's count window."""
+    import torch
+    from repro_torch.models import transformer
+    f32_model = transformer.build(dataclasses.replace(
+        cs["cfg"], compute_dtype=torch.float32))
+    oracle, _ = f32_model.forward(cs["dequant"].params,
+                                  batch_dev(cs["batch"], dev))
+    return oracle.float()
 
 
 def batch_dev(batch, dev):
@@ -392,8 +575,273 @@ def generate(model, params, cfg):
     return out
 
 
+def param_bytes(params) -> int:
+    from repro_torch import tree as tree_util
+    from repro_torch.quant import QuantLeaf
+    return sum(l.nbytes if isinstance(l, QuantLeaf)
+               else l.numel() * l.element_size()
+               for l in tree_util.leaves(params))
+
+
 # ---------------------------------------------------------------------------
-# phase 6: the card against the CPU, end to end
+# phase 6: the int8-resident cold start
+# ---------------------------------------------------------------------------
+
+def quant_cold_start(dev, cs: dict):
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import GenerateSpec
+    from repro_torch.serving.decode import sample_first
+
+    model, cfg, batch = cs["model"], cs["cfg"], cs["batch"]
+    spec = GenerateSpec(prompt=cs["prompt"][0], n_new=1)
+    eng = ColdStartEngine(model, "smollm-int8", cs["store"],
+                          strategy="cicada", compute_quant=True)
+    eng.warmup(batch)
+    first = []
+    before = ops.registry.dispatch_snapshot()
+    res = eng.load(batch, on_logits=lambda lg: first.append(
+        (sample_first(lg, spec, 128), time.monotonic())))
+    after = ops.registry.dispatch_snapshot()
+    launched = {k: after[k] - before[k] for k in after}
+    tr = res.trace
+    need(len(first) == 1, "int8-resident: on_logits did not fire once")
+    e_final = tr.events_for("E")["final"]
+    need(e_final.t_start <= first[0][1] <= e_final.t_end,
+         "int8-resident: first token not sampled inside the final E")
+    logits = res.logits
+    need(tuple(logits.shape) == (1, 128, cfg.vocab_size) and
+         bool(torch.isfinite(logits.float()).all()),
+         "int8-resident: logits not finite/shaped")
+    need(launched["quant_matmul"] == 7 * cfg.n_layers + 1,
+         f"int8-resident load launched quant_matmul "
+         f"{launched['quant_matmul']} times, not {7 * cfg.n_layers + 1}")
+    need(launched["weight_transform"] == 0,
+         f"int8-resident load launched weight_transform "
+         f"{launched['weight_transform']} times")
+    # both bf16 loads of the int8 store against its f32 oracle.  bf16
+    # compute drifts from f32 with depth (the residual stream is rounded
+    # after every block; the JAX package drifts alike, see
+    # tests/test_torch_quant.py), so the two loads are not held to each
+    # other: the dequant-at-A load's error is the noise floor of this depth,
+    # and the int8-resident load, whose weights are not rounded to bf16,
+    # may exceed it by a tenth at most
+    deq, oracle = cs["dequant"].logits.float(), cs["oracle"]
+    scale = oracle.abs().max().item()
+    e_deq = (deq - oracle).abs().max().item() / scale
+    e_q = (logits.float() - oracle).abs().max().item() / scale
+    d = (logits.float() - deq).abs().max().item()
+    top = torch.topk(oracle[0, -1], 2)
+    margin = (top.values[0] - top.values[1]).item()
+    agree = {k: int((v.argmax(-1) == oracle.argmax(-1)).sum())
+             for k, v in (("int8-resident", logits.float()),
+                          ("dequant-at-A", deq))}
+    cast = cs["cast"]
+    summ, csumm = tr.summary(), cast.trace.summary()
+    qb, cb = param_bytes(res.params), param_bytes(cast.params)
+    print(f"  load {tr.total_time() * 1e3:.1f} ms (bf16-cast load "
+          f"{cast.trace.total_time() * 1e3:.1f} ms), first token "
+          f"{first[0][0]} at {(first[0][1] - tr.t0) * 1e3:.1f} ms, "
+          f"utilization {tr.utilization():.1%} (bf16-cast "
+          f"{cast.trace.utilization():.1%}), kernel launches in the load "
+          f"{launched}")
+    print("  stage work (s): " + ", ".join(
+        f"{k[5:]} {summ[k]:.3f} (bf16-cast {csumm[k]:.3f})"
+        for k in ("work_L", "work_R", "work_A", "work_E")))
+    print(f"  resident params {qb / 1e6:.1f} MB against {cb / 1e6:.1f} MB "
+          f"for the bf16-cast load ({qb / cb:.3f}x)")
+    print(f"  logits against the f32 oracle (max |logit| {scale:.3f}): "
+          f"int8-resident {e_q:.3e}, dequant-at-A {e_deq:.3e} relative "
+          f"(limit 1.1 x {e_deq:.3e}); int8-resident vs dequant-at-A max "
+          f"abs diff {d:.3e}; argmax equal to the oracle's at {agree} of "
+          f"128 positions; first token {first[0][0]}, oracle "
+          f"{int(top.indices[0])} (top-two margin {margin:.3e})")
+    print(tr.render_gantt(100))
+    need(e_q <= 1.1 * e_deq,
+         f"int8-resident logits {e_q:.3e} from the f32 oracle, beyond 1.1 x "
+         f"the dequant-at-A load's {e_deq:.3e}")
+    need(first[0][0] == int(top.indices[0]) or margin <= 2 * e_deq * scale,
+         f"int8-resident first token {first[0][0]} is not the oracle's "
+         f"{int(top.indices[0])}, whose margin {margin:.3e} is beyond the "
+         f"bf16 noise")
+    return res.params, first[0]
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the continuous-batching scheduler, slotted and paged
+# ---------------------------------------------------------------------------
+
+def first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def margin_ok(model, params, prompt, want, got, tol: float,
+              what: str) -> bool:
+    """Tokens equal, or the first difference is at a near-tie: the
+    top-two logit margin there (forward on ``model``) is within ``tol``
+    of max |logit|."""
+    import numpy as np
+    import torch
+    i = first_diff(want, got)
+    if i is None:
+        return True
+    seq = torch.as_tensor(np.concatenate([np.asarray(prompt), want[:i]]),
+                          device=model.device)[None]
+    lg, _ = model.forward(params, {"tokens": seq})
+    top = torch.topk(lg[0, -1].float(), 2).values
+    margin = (top[0] - top[1]).item()
+    limit = tol * lg.float().abs().max().item()
+    print(f"  {what}: first differing token at position {i}: logit margin "
+          f"{margin:.3e} (limit {limit:.3e})")
+    return margin <= limit
+
+
+def step_ms(results) -> dict:
+    """Host-clock ms per step by occupancy, from the emission times: all
+    tokens of one step share one time stamp; a step's length is the gap
+    since the previous step."""
+    import collections
+    count = collections.Counter(t for r in results
+                                for t in r.token_times[1:])
+    ts = sorted(count)
+    gaps = collections.defaultdict(list)
+    for a, b in zip(ts, ts[1:]):
+        gaps[count[b]].append((b - a) * 1e3)
+    return {occ: sorted(v)[len(v) // 2] for occ, v in sorted(gaps.items())}
+
+
+def run_concurrent(sched, specs, firsts):
+    import threading
+    out = [None] * len(specs)
+    errs = []
+
+    def run(i):
+        try:
+            f = firsts.get(i)
+            out[i] = sched.generate(
+                specs[i], first_token=None if f is None else f[0],
+                t_first=None if f is None else f[1])
+        except BaseException as e:          # reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(specs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def scheduler_slotted(cs: dict, params_q, first):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (DecodeScheduler, GenerateSpec,
+                                     reference_generate)
+
+    model, cfg = cs["model"], cs["cfg"]
+    base = cs["prompt"][0]                  # the cold start's 128 tokens
+    prompts = [base[:n] for n in (37, 64, 100, 128)]
+    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts]
+    sched = DecodeScheduler(model, params_q, n_slots=4, cache_len=256)
+    need(set(sched.kernel_modes().values()) == {"cuda"},
+         f"scheduler kernel modes {sched.kernel_modes()}")
+    ops.registry.reset_counts()
+    t0 = time.perf_counter()
+    solo = sched.generate(specs[0])
+    t1 = time.perf_counter()
+    results = run_concurrent(sched, specs, {3: first})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = ops.registry.dispatch_snapshot()
+    st = sched.stats()
+    ms1, ms4 = step_ms([solo]), step_ms(results)
+    print(f"  one request alone: 32 tokens in {(t1 - t0) * 1e3:.1f} ms; "
+          f"four concurrent: {(t2 - t1) * 1e3:.1f} ms; {st['steps']} steps "
+          f"in all, max occupancy {st['max_occupancy']}")
+    print(f"  ms per step by occupancy (host clock, median): alone "
+          f"{ms1}, concurrent {ms4}")
+    print(f"  kernel launches: {launches}")
+    need(st["max_occupancy"] == 4 and st["active"] == 0,
+         f"slotted scheduler stats {st}")
+    need(launches["decode_attention"] == cfg.n_layers * st["steps"],
+         f"decode_attention launched {launches['decode_attention']} times "
+         f"in {st['steps']} steps")
+    need(margin_ok(model, params_q, prompts[0], solo.tokens,
+                   results[0].tokens, BF16_ATOL,
+                   "prompt 37 at occupancy 1 and 4"),
+         "a request's tokens changed between occupancy 1 and 4")
+    for p, r in zip(prompts, results):
+        ref = reference_generate(model, params_q, p, n_new=32)
+        same = r.tokens == ref
+        print(f"  prompt {len(p)}: {'equal to' if same else 'DIFFERS from'}"
+              f" reference_generate: {r.tokens}")
+        need(len(r.tokens) == 32 and (same or margin_ok(
+            model, params_q, p, ref, r.tokens, BF16_ATOL,
+            f"slotted prompt {len(p)}")),
+             f"slotted prompt {len(p)} differs from reference_generate")
+    need(results[3].tokens[0] == first[0],
+         "the resumed request did not keep its in-pipeline first token")
+    return {"launches": launches, "tokens": [r.tokens for r in results],
+            "prompts": prompts, "ms": (ms1, ms4), "steps": st["steps"]}
+
+
+def scheduler_paged(cs: dict, params_q, first, slotted: dict):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeScheduler, GenerateSpec
+
+    model, cfg = cs["model"], cs["cfg"]
+    prompts = slotted["prompts"]
+    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts]
+    sched = DecodeScheduler(model, params_q, n_slots=4, cache_len=256,
+                            kv_page_tokens=16)
+    ops.registry.reset_counts()
+    t0 = time.perf_counter()
+    # the 128-token request first: it publishes the shared prefix pages
+    lead = sched.generate(specs[3], first_token=first[0], t_first=first[1])
+    t1 = time.perf_counter()
+    rest = run_concurrent(sched, specs[:3], {})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = ops.registry.dispatch_snapshot()
+    st = sched.stats()
+    results = rest + [lead]
+    print(f"  128-token request alone: {(t1 - t0) * 1e3:.1f} ms; then 37/64"
+          f"/100 concurrent: {(t2 - t1) * 1e3:.1f} ms; {st['steps']} steps,"
+          f" prefix hits {st['kv_prefix_hits']} pages, misses "
+          f"{st['kv_prefix_misses']}, pages used {st['kv_pages_used']} of "
+          f"{st['kv_pages_total']}")
+    print(f"  ms per step by occupancy (host clock, median): alone "
+          f"{step_ms([lead])}, concurrent {step_ms(rest)}")
+    print(f"  kernel launches: {launches}")
+    need(st["kv_prefix_hits"] > 0, f"no prefix hits: {st}")
+    need(st["kv_pages_pinned"] == 0 and st["active"] == 0,
+         f"paged scheduler left pages pinned: {st}")
+    need(launches["decode_attention_paged"] == cfg.n_layers * st["steps"],
+         f"decode_attention_paged launched "
+         f"{launches['decode_attention_paged']} times in {st['steps']} "
+         f"steps")
+    sched.kvpool.check_invariants()
+    for p, r, want in zip(prompts, results, slotted["tokens"]):
+        same = r.tokens == want
+        print(f"  prompt {len(p)}: paged tokens "
+              f"{'equal' if same else 'DIFFER from'} the slotted run's")
+        need(len(r.tokens) == 32 and (same or margin_ok(
+            model, params_q, p, want, r.tokens, BF16_ATOL,
+            f"paged prompt {len(p)}")),
+             f"paged prompt {len(p)} differs from the slotted run")
+    return {"launches": launches, "ms": (step_ms([lead]), step_ms(rest)),
+            "steps": st["steps"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the card against the CPU, end to end
 # ---------------------------------------------------------------------------
 
 def card_vs_cpu(dev, workdir: str):
@@ -411,35 +859,31 @@ def card_vs_cpu(dev, workdir: str):
     gpu_model = transformer.build(cfg)
     store = WeightStore(os.path.join(workdir, "store4"))
     deploy_model(store, cpu_model, "smollm4", seed=1)
+    deploy_model(store, cpu_model, "smollm4-int8", seed=1, quant="int8")
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 64))
     batch = {"tokens": torch.as_tensor(prompt)}
-    got = {}
-    for name, m, d in (("card", gpu_model, None), ("cpu", cpu_model, "cpu")):
-        eng = ColdStartEngine(m, "smollm4", store, strategy="cicada",
-                              device=d)
-        res = eng.load(batch)
-        toks = reference_generate(m, res.params, prompt[0], n_new=16,
-                                  device=d)
-        got[name] = (res.logits.float().cpu(), toks, res.params)
-    a, b = got["card"][0], got["cpu"][0]
-    rel = ((a - b).abs().max() / b.abs().max()).item()
-    print(f"  4-layer full-width f32: card vs CPU logits max rel diff "
-          f"{rel:.3e} (tol 2e-3)")
-    need(rel <= 2e-3, f"card and CPU logits differ by {rel}")
-    ta, tb = got["card"][1], got["cpu"][1]
-    print(f"  16 greedy tokens card {ta}\n                      cpu  {tb}")
-    if ta != tb:
-        i = next(j for j, (x, y) in enumerate(zip(ta, tb)) if x != y)
-        # logit margin of the CPU's choice at the first differing position
-        params = got["cpu"][2]
-        seq = torch.as_tensor(np.concatenate([prompt[0], tb[:i]]))[None]
-        lg, _ = cpu_model.forward(params, {"tokens": seq})
-        top = torch.topk(lg[0, -1].float(), 2).values
-        margin = (top[0] - top[1]).item()
-        print(f"  first differing token at position {i}: CPU logit margin "
-              f"{margin:.3e}")
-        need(margin <= 2e-3 * lg.abs().max().item(),
-             f"greedy tokens differ at {i} with margin {margin}")
+    for label, name, quant in (("f32", "smollm4", False),
+                               ("compute_quant int8", "smollm4-int8", True)):
+        got = {}
+        for side, m, d in (("card", gpu_model, None),
+                           ("cpu", cpu_model, "cpu")):
+            eng = ColdStartEngine(m, name, store, strategy="cicada",
+                                  compute_quant=quant, device=d)
+            res = eng.load(batch)
+            toks = reference_generate(m, res.params, prompt[0], n_new=16,
+                                      device=d)
+            got[side] = (res.logits.float().cpu(), toks, res.params)
+        a, b = got["card"][0], got["cpu"][0]
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        print(f"  4-layer full-width f32, {label}: card vs CPU logits max "
+              f"rel diff {rel:.3e} (tol 2e-3)")
+        need(rel <= 2e-3, f"{label}: card and CPU logits differ by {rel}")
+        ta, tb = got["card"][1], got["cpu"][1]
+        print(f"  16 greedy tokens card {ta}\n                      cpu  "
+              f"{tb}")
+        need(margin_ok(cpu_model, got["cpu"][2], prompt[0], tb, ta, 2e-3,
+                       f"{label} card vs CPU"),
+             f"{label}: greedy tokens differ away from a near-tie")
 
 
 # ---------------------------------------------------------------------------
@@ -472,37 +916,66 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("    " + line.strip())
 
-    print("[3] kernels against their plain versions")
+    phase("[3] kernels against their plain versions")
     report: dict = {}
     check_kernels(dev, report)
 
+    # each path runs with the counts set to 0 just before it and read just
+    # after; the kernels each must have launched
+    paths = {}
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as wd:
-        print("[4] full-width smollm-360m cold starts")
+        phase("[4] full-width smollm-360m cold starts")
         ops.registry.reset_counts()
-        model, params, cfg = cold_starts(dev, wd)
-        print("[5] greedy generation, 32 tokens")
-        generate(model, params, cfg)
-        launches = ops.registry.dispatch_snapshot()
-        print(f"    kernel launches on the main path: {launches}")
-        for name, n in launches.items():
-            need(n > 0, f"kernel {name} was not launched on the main path")
-        del model, params
-        print("[6] card against CPU, 4 layers at full width, f32")
+        cs = cold_starts(dev, wd)
+        phase("[5] greedy generation, 32 tokens")
+        generate(cs["model"], cs["cast"].params, cs["cfg"])
+        paths["cold starts + generation"] = (
+            ops.registry.dispatch_snapshot(),
+            ("flash_attention", "decode_attention", "weight_transform"))
+        cs["oracle"] = f32_oracle(dev, cs)
+        phase("[6] int8-resident (compute_quant) cicada cold start")
+        ops.registry.reset_counts()
+        params_q, first = quant_cold_start(dev, cs)
+        paths["int8-resident cold start"] = (
+            ops.registry.dispatch_snapshot(),
+            ("flash_attention", "quant_matmul"))
+        phase("[7] DecodeScheduler, slotted: 4 slots, prompts 37/64/100/128,"
+              " 32 greedy tokens each")
+        slotted = scheduler_slotted(cs, params_q, first)
+        paths["scheduler, slotted"] = (
+            slotted["launches"],
+            ("flash_attention", "quant_matmul", "decode_attention"))
+        phase("[8] DecodeScheduler, paged: 16-token pages, prefix reuse")
+        paged = scheduler_paged(cs, params_q, first, slotted)
+        paths["scheduler, paged"] = (
+            paged["launches"],
+            ("flash_attention", "quant_matmul", "decode_attention_paged"))
+        for path, (counts, kernels) in paths.items():
+            print(f"    launches on {path}: {counts}")
+            for name in kernels:
+                need(counts[name] > 0,
+                     f"kernel {name} was not launched on {path}")
+        launches = {n: sum(c[n] for c, _ in paths.values())
+                    for n in ops.registry.names()}
+        del cs, params_q
+        phase("[9] card against CPU, 4 layers at full width, f32")
         card_vs_cpu(dev, wd)
 
     kernels = []
     for name in ops.registry.names():
-        mod = ops.registry.spec(name).module
+        spec = ops.registry.spec(name)
         r = report[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches[name],
+            "name": name, "route": "cuda", "source": spec.source,
+            "replaces": spec.replaces, "launches": launches[name],
+            "launches_by_path": {p: c[name] for p, (c, _) in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "library": r.get("library"), "shape": r["shape"]})
     need(cuda_lib.status()["built"], "kernel library not loaded")
+    phase("done")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,14 @@ Three execution units run as threads (the paper's decomposition, as
     weights are applied (and layer i-1 executed): the triggering request
     is answered *while the model is still loading*.
 
-Single device: the reference's mesh (shard-granular) cold starts, its
-``WeightCache``, ``compute_quant`` and metrics registry come with later
-slices (ROADMAP queue 1 items 6, 8, 9 and 13).
+Under ``compute_quant`` A keeps int8 extents resident as
+:class:`~repro_torch.quant.QuantLeaf` (no ``weight_transform``), and the
+forward runs their contractions through ``quant_matmul``.
+
+Single device: the reference's mesh (shard-granular) cold starts (and
+with them its refusal of ``compute_quant`` on a mesh), its
+``WeightCache`` and the ``metrics=`` hook come with later slices (ROADMAP
+queue 1 items 6, 9 and 13).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.core.units import (APPLIED, OUTPUT, PipelineContext,
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import unit_seed
+from repro_torch.quant import QuantLeaf
 from repro_torch.store.store import Leaves, WeightStore, unflatten_unit
 
 PyTree = Any
@@ -58,9 +64,17 @@ class ColdStartEngine:
                  strategy: str = "cicada", io_workers: int = 4,
                  chunk_bytes: int = 1 << 20,
                  apply_dtype: Optional[torch.dtype] = None,
+                 compute_quant: bool = False,
                  device: DeviceLike = None):
         """apply_dtype: cast weights to this dtype at application time
         (None -> keep the stored dtype; int8 extents dequantize to f32).
+
+        compute_quant: keep int8 extents resident — A copies the int8
+        values (at the leaf's logical shape) and the scale to the device
+        as a :class:`~repro_torch.quant.QuantLeaf` and launches no
+        ``weight_transform`` for them, so params hold about a quarter of
+        the f32 bytes and the forward dispatches ``quant_matmul``.
+        Leaves the store serves as floats are handled as without it.
 
         device: where the model is loaded and run (default: the GPU;
         raises without one unless ``device="cpu"``)."""
@@ -71,6 +85,7 @@ class ColdStartEngine:
         self.io_workers = io_workers
         self.chunk_bytes = chunk_bytes
         self.apply_dtype = apply_dtype
+        self.compute_quant = compute_quant
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is built for {model.device}, engine "
@@ -104,13 +119,17 @@ class ColdStartEngine:
                       leaves: Leaves) -> PyTree:
         """The weight-application phase on the calling thread's stream:
         host-to-device copy (non-blocking from pinned memory) and the
-        ``weight_transform`` kernel for int8 and ``apply_dtype`` leaves."""
+        ``weight_transform`` kernel for int8 and ``apply_dtype`` leaves;
+        under ``compute_quant`` int8 leaves stay int8 as ``QuantLeaf``s."""
         dev = self.device
         shapes = {n: ab.shape for n, ab in _named(abstract)}
         flat = {}
         for name, (arr, scale) in leaves.items():
             d = arr.to(dev, non_blocking=True)
-            if scale is not None:                       # int8 extent
+            if scale is not None and self.compute_quant:
+                flat[name] = QuantLeaf(d.reshape(shapes[name]),
+                                       scale.to(dev, non_blocking=True))
+            elif scale is not None:                     # int8 extent
                 out_dt = self.apply_dtype or torch.float32
                 deq = ops.weight_transform(
                     d.reshape(-1, d.shape[-1]),

@@ -22,6 +22,19 @@
 // ring-buffer rule lies in (pos - window, pos] (decode_attention.py:70-72).
 // With B=1 and K=5 this fills 5 of the card's 132 SMs; splitting the cache
 // across blocks with a merge pass is later work.
+//
+// decode_attention_paged (repro_decode_attention_paged) replaces
+// src/repro/kernels/decode_attention.py::decode_attention_paged, which runs in
+// every step of the paged scheduler (src/repro/models/layers.py:179-210).  It
+// is the same device code over page pools (P, K, pt, dh) shared by the batch:
+// logical cache row s of batch row b lives in physical page tables[b, s / pt],
+// row s % pt.  The block reads its own table row (no scalar prefetch), and a
+// tile of TK rows may straddle pages, so unlike the TPU kernel the tile need
+// not divide pt.  Each tile's row offsets (one table read and one division
+// per row) are computed once into shared memory and used by the K and V
+// loads; the slotted kernel computes its (affine) offsets in place.  Rows past pos are masked exactly as in the slotted kernel, so
+// table entries past the row's pages (the scratch page) are never read.
+// It is bounded by the same bytes: the valid K/V rows, read once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,12 +64,33 @@ __device__ __forceinline__ bool slot_valid(int j, int pos, int window) {
   return j <= pos;
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ pos_arr,
-              T* __restrict__ o, int H, int K, int S_max, int window,
-              float scale) {
+// Row addressing: the element offset / DH of logical cache row s.
+// kStage: stage each tile's row offsets in shared memory (worth it only
+// where an offset costs a table read and a division).
+struct SlotRows {          // slotted cache (B, K, S_max, dh)
+  static constexpr bool kStage = false;
+  long long base;          // (b * K + kvh) * S_max
+  __device__ __forceinline__ long long operator()(int s) const {
+    return base + s;
+  }
+};
+
+struct PageRows {          // page pools (P, K, pt, dh) through a table row
+  static constexpr bool kStage = true;
+  const int* tbl;          // tables[b, :]
+  int K, kvh, pt;
+  __device__ __forceinline__ long long operator()(int s) const {
+    return ((long long)__ldg(tbl + s / pt) * K + kvh) * pt + s % pt;
+  }
+};
+
+// One (kv head, batch row) block; S_max is the logical extent of the cache.
+template <typename T, int DH, typename Rows>
+__device__ __forceinline__ void
+decode_body(const T* __restrict__ q, const T* __restrict__ kc,
+            const T* __restrict__ vc, const int* __restrict__ pos_arr,
+            T* __restrict__ o, int H, int K, int S_max, int window,
+            float scale, const Rows rows) {
   constexpr int NG = THREADS / TK;          // head groups in the score phase
   constexpr int G = THREADS / DH;           // head groups in the PV phase
   constexpr int ACC = MAX_REP / G;
@@ -66,13 +100,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   __shared__ float m_s[MAX_REP];
   __shared__ float l_s[MAX_REP];
   __shared__ float alpha_s[MAX_REP];
+  __shared__ long long roff[TK];      // the tile's row offsets / DH
 
   const int tid = threadIdx.x;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int rep = H / K;
   const int pos = pos_arr[b];
-  const long long cache_base = ((long long)b * K + kvh) * S_max;
   const long long q_base = ((long long)b * H + (long long)kvh * rep) * DH;
 
   for (int idx = tid; idx < rep * DH; idx += THREADS)
@@ -92,11 +126,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   for (int t0 = 0; t0 < n_keys; t0 += TK) {
     __syncthreads();                       // previous tile consumed
+    if constexpr (Rows::kStage) {
+      if (tid < TK) roff[tid] = t0 + tid < n_keys ? rows(t0 + tid) : 0;
+      __syncthreads();
+    }
     for (int idx = tid; idx < TK * DH; idx += THREADS) {
       const int j = idx / DH;
-      const int kp = t0 + j;
-      ks[j][idx % DH] =
-          kp < n_keys ? to_f32(kc[(cache_base + kp) * DH + idx % DH]) : 0.f;
+      const long long r = Rows::kStage ? roff[j] : rows(t0 + j);
+      ks[j][idx % DH] = t0 + j < n_keys ? to_f32(kc[r * DH + idx % DH]) : 0.f;
     }
     __syncthreads();
 
@@ -160,7 +197,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
       const int n = min(TK, n_keys - t0);
       for (int j = 0; j < n; ++j) {
-        const float vv = to_f32(vc[(cache_base + t0 + j) * DH + d]);
+        const long long r = Rows::kStage ? roff[j] : rows(t0 + j);
+        const float vv = to_f32(vc[r * DH + d]);
 #pragma unroll
         for (int i = 0; i < ACC; ++i) {
           const int r = g + G * i;
@@ -183,6 +221,28 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 }
 
 template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+              const T* __restrict__ vc, const int* __restrict__ pos_arr,
+              T* __restrict__ o, int H, int K, int S_max, int window,
+              float scale) {
+  const SlotRows rows{((long long)blockIdx.y * K + blockIdx.x) * S_max};
+  decode_body<T, DH>(q, kc, vc, pos_arr, o, H, K, S_max, window, scale, rows);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS)
+paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+             const T* __restrict__ vp, const int* __restrict__ tables,
+             const int* __restrict__ pos_arr, T* __restrict__ o, int H,
+             int K, int NP, int pt, int window, float scale) {
+  const PageRows rows{tables + (long long)blockIdx.y * NP, K,
+                      (int)blockIdx.x, pt};
+  decode_body<T, DH>(q, kp, vp, pos_arr, o, H, K, NP * pt, window, scale,
+                     rows);
+}
+
+template <typename T, int DH>
 int launch(const void* q, const void* kc, const void* vc, const void* pos,
            void* o, int B, int H, int K, int S_max, int window, float scale,
            cudaStream_t s) {
@@ -191,6 +251,20 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos,
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int*>(pos),
       static_cast<T*>(o), H, K, S_max, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int launch_paged(const void* q, const void* kp, const void* vp,
+                 const void* tables, const void* pos, void* o, int B, int H,
+                 int K, int NP, int pt, int window, float scale,
+                 cudaStream_t s) {
+  dim3 grid(K, B);
+  paged_kernel<T, DH><<<grid, THREADS, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), static_cast<const int*>(tables),
+      static_cast<const int*>(pos), static_cast<T*>(o), H, K, NP, pt, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -219,5 +293,34 @@ extern "C" int repro_decode_attention(const void* q, const void* kc,
   if (dtype == 1 && dh == 128)
     return launch<__nv_bfloat16, 128>(q, kc, vc, pos, o, B, H, K, S_max,
                                       window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q (B, H, dh), pools (P, K, pt, dh), o (B, H, dh), all contiguous; tables
+// (B, NP) and pos (B,) int32, every table entry a page id in [0, P).
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+extern "C" int repro_decode_attention_paged(const void* q, const void* kp,
+                                            const void* vp,
+                                            const void* tables,
+                                            const void* pos, void* o, int B,
+                                            int H, int K, int NP, int pt,
+                                            int dh, int dtype, int window,
+                                            float scale, void* stream) {
+  if (B <= 0 || K <= 0 || NP <= 0 || pt <= 0 || H % K != 0 ||
+      H / K > MAX_REP)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && dh == 64)
+    return launch_paged<float, 64>(q, kp, vp, tables, pos, o, B, H, K, NP,
+                                   pt, window, scale, s);
+  if (dtype == 0 && dh == 128)
+    return launch_paged<float, 128>(q, kp, vp, tables, pos, o, B, H, K, NP,
+                                    pt, window, scale, s);
+  if (dtype == 1 && dh == 64)
+    return launch_paged<__nv_bfloat16, 64>(q, kp, vp, tables, pos, o, B, H,
+                                           K, NP, pt, window, scale, s);
+  if (dtype == 1 && dh == 128)
+    return launch_paged<__nv_bfloat16, 128>(q, kp, vp, tables, pos, o, B, H,
+                                            K, NP, pt, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,6 +45,9 @@ SIGNATURES = {
                               LL, LL, LL, LL, LL, LL, LL, LL, LL,
                               I, I, F, P],
     "repro_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "repro_decode_attention_paged": [P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                     I, F, P],
+    "repro_quant_matmul": [P, P, P, P, I, I, I, I, I, P],
 }
 
 

@@ -4,8 +4,8 @@ honest definition).  Each mirrors its counterpart in the JAX package's
 ``kernels/ref.py`` operation for operation, so the two can be held
 against each other on the same inputs.
 
-The oracles of ``decode_attention_paged``, ``ssd``, ``rglru`` and
-``quant_matmul`` come with their kernels (ROADMAP queue 2).
+The oracles of ``ssd`` and ``rglru`` come with their kernels (ROADMAP
+queue 2).
 """
 from __future__ import annotations
 
@@ -88,6 +88,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H, dh).to(q.dtype)
 
 
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor,
+                           pos: torch.Tensor, *,
+                           window: int = 0) -> torch.Tensor:
+    """Block-paged decode attention: gather-then-attend oracle.
+
+    q: (B, H, dh); k_pages/v_pages: (P, K, pt, dh) physical page pools
+    shared across the batch; tables: (B, NP) int page ids per row
+    (logical extent NP * pt); pos: (B,).  Per row, its NP pages are
+    gathered into the contiguous logical cache and :func:`decode_attention`
+    runs on it, so masking, windows and GQA are the slotted oracle's.
+    """
+    B = q.shape[0]
+    K, pt, dh = k_pages.shape[1], k_pages.shape[2], k_pages.shape[3]
+    NP = tables.shape[1]
+    idx = tables.long()
+    kc = k_pages[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)
+    vc = v_pages[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)
+    return decode_attention(q, kc, vc, pos, window=window)
+
+
 def weight_transform(w: torch.Tensor, scale: Optional[torch.Tensor],
                      out_dtype: torch.dtype) -> torch.Tensor:
     """Dequantize / cast a stored weight to its compute representation.
@@ -98,3 +119,16 @@ def weight_transform(w: torch.Tensor, scale: Optional[torch.Tensor],
     if scale is not None:
         return (w.float() * scale[None, :].float()).to(out_dtype)
     return w.to(out_dtype)
+
+
+def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Dequant-then-matmul, the definition the fused kernel must match:
+    the f32 weight exactly as the dequant-at-load path makes it
+    (:func:`weight_transform`), contracted in f32.
+
+    x: (m, k) any float dtype; w: (k, n) int8; scale: (n,) f32 per
+    column.  Returns (m, n) in ``out_dtype`` (default x.dtype).
+    """
+    wf = w.float() * scale[None, :].float()
+    return (x.float() @ wf).to(out_dtype or x.dtype)

@@ -3,8 +3,11 @@ sliding window), SwiGLU / GELU MLPs, embedding and head.
 
 Parameters are plain dicts of tensors in the reference's layouts
 (``wq (d, H, dh)``, ``wo (H, dh, d)``, ``tok (V, d)``, caches
-``(B, K, S_max, dh)``); every function is a plain function on tensors.
-Attention goes through :mod:`repro_torch.kernels.ops`.
+``(B, K, S_max, dh)``, page pools ``(P, K, pt, dh)``); every function is
+a plain function on tensors.  A weight may be a ``quant.QuantLeaf``
+(``compute_quant``): its contractions go through ``quant.einsum`` and
+its embedding rows through ``quant.gather_rows``.  Attention and the
+int8 products go through :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import quant
 from repro_torch.kernels import ops
 
 PyTree = Any
@@ -120,21 +124,14 @@ def attn_init_(cfg, p: Dict[str, torch.Tensor], gen: torch.Generator):
     dense_init_(p["wo"], gen, fan_in=cfg.n_heads * cfg.dh)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
-    """x (B, S, d) @ w (d, *out) -> (B, S, *out), contiguous, in ``cd``."""
-    d = w.shape[0]
-    y = x.reshape(-1, d) @ w.to(cd).reshape(d, -1)
-    return y.reshape(x.shape[:-1] + w.shape[1:])
-
-
 def qkv_project(cfg, p: PyTree, x: torch.Tensor, positions: torch.Tensor,
                 *, rope: bool = True):
     """x: (B, S, D) -> q (B,S,H,dh), k/v (B,S,K,dh)."""
     cd = cfg.compute_dtype
     x = x.to(cd)
-    q = _project(x, p["wq"], cd)
-    k = _project(x, p["wk"], cd)
-    v = _project(x, p["wv"], cd)
+    q = quant.einsum(x, p["wq"], cd)
+    k = quant.einsum(x, p["wk"], cd)
+    v = quant.einsum(x, p["wv"], cd)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -143,11 +140,7 @@ def qkv_project(cfg, p: PyTree, x: torch.Tensor, positions: torch.Tensor,
 
 def attn_out(cfg, p: PyTree, o: torch.Tensor) -> torch.Tensor:
     """o: (B, S, H, dh) -> (B, S, D)."""
-    cd = cfg.compute_dtype
-    wo = p["wo"]
-    hd = wo.shape[0] * wo.shape[1]
-    y = o.to(cd).reshape(-1, hd) @ wo.to(cd).reshape(hd, -1)
-    return y.reshape(o.shape[:2] + (wo.shape[2],))
+    return quant.einsum(o, p["wo"], cfg.compute_dtype, n_contract=2)
 
 
 def attention_block(cfg, p: PyTree, x: torch.Tensor, positions: torch.Tensor,
@@ -195,6 +188,35 @@ def attention_decode(cfg, p: PyTree, x: torch.Tensor, pos: torch.Tensor,
     return y, k_cache, v_cache
 
 
+def attention_decode_paged(cfg, p: PyTree, x: torch.Tensor,
+                           pos: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor):
+    """Single-token decode through a block-paged KV pool.
+
+    x: (B, 1, D); k_pages/v_pages: (P, K, pt, dh) physical pools shared
+    across the batch; tables: (B, NP) int32 page ids per row; pos: (B,)
+    int32 current position.  Row b's token is written, in place, at page
+    ``tables[b, pos // pt]``, row ``pos % pt``: a B-row scatter, so the
+    cost follows the batch, not the pool.  Live rows never collide (each
+    owns its write page); inactive rows carry tables full of the scratch
+    page, so their writes (duplicate indices, any writer wins) land there
+    and are never read — the kernel masks positions past ``pos`` exactly
+    and live tables never reference scratch below ``pos``.
+    Returns (y, k_pages, v_pages).
+    """
+    q, k, v = qkv_project(cfg, p, x, pos[:, None])
+    pt = k_pages.shape[2]
+    pl = pos.long()
+    pg = tables.long().gather(1, (pl // pt)[:, None])[:, 0]
+    row = pl % pt
+    k_pages[pg, :, row] = k[:, 0].to(k_pages.dtype)
+    v_pages[pg, :, row] = v[:, 0].to(v_pages.dtype)
+    o = ops.decode_attention_paged(q[:, 0].contiguous(), k_pages, v_pages,
+                                   tables, pos)
+    y = attn_out(cfg, p, o[:, None])
+    return y, k_pages, v_pages
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -217,14 +239,14 @@ def mlp_block(cfg, p: PyTree, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.compute_dtype
     x = x.to(cd)
     if cfg.act in ("silu", "geglu"):
-        g = _project(x, p["wg"], cd)
-        u = _project(x, p["wu"], cd)
+        g = quant.einsum(x, p["wg"], cd)
+        u = quant.einsum(x, p["wu"], cd)
         act = F.silu if cfg.act == "silu" else \
             (lambda t: F.gelu(t, approximate="tanh"))
         h = act(g) * u
     else:
-        h = F.gelu(_project(x, p["wu"], cd), approximate="tanh")
-    return _project(h, p["wd"], cd)
+        h = F.gelu(quant.einsum(x, p["wu"], cd), approximate="tanh")
+    return quant.einsum(h, p["wd"], cd)
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +254,9 @@ def mlp_block(cfg, p: PyTree, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_lookup(cfg, p: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-    # gather then cast: elementwise, so equal to the reference's
-    # cast-then-gather without casting the whole table
-    return p["tok"][tokens].to(cfg.compute_dtype)
+    # gather then cast (or scale): elementwise, so equal to the
+    # reference's cast-then-gather without converting the whole table
+    return quant.gather_rows(p["tok"], tokens, cfg.compute_dtype)
 
 
 def head_logits(cfg, params: PyTree, x: torch.Tensor) -> torch.Tensor:
@@ -243,10 +265,13 @@ def head_logits(cfg, params: PyTree, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.compute_dtype
     x = x.to(cd)
     if cfg.tie_embeddings and not cfg.is_encoder:
-        w = params["embed"]["tok"].to(cd)
+        # the tied head contracts the table's scaled axis: a per-vocab
+        # scale cannot ride a (d, V) product, so a QuantLeaf dequantizes
+        tok = params["embed"]["tok"]
+        w = tok.astype(cd) if quant.is_quant(tok) else tok.to(cd)
         logits = x @ w.t()
     else:
-        logits = _project(x, params["final"]["head"]["w"], cd)
+        logits = quant.einsum(x, params["final"]["head"]["w"], cd)
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c

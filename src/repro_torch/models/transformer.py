@@ -14,6 +14,12 @@ on ``torch.device("meta")`` it is MiniLoader's shape-only structure
 (:meth:`LM.abstract_unit`), on a real device with ``init_`` it is the
 PISeL-faithful numerical initialization (:meth:`LM.init_unit`).
 
+The paged side (``decode_step_paged`` over page pools ``(n_units, P, K,
+pt, dh)``, ``gather_pages`` / ``pack_pages`` / ``copy_page``, and
+``prefill_continue`` for prefix reuse) follows the reference's
+``transformer.py:615-830``; like the slotted caches, pools and caches are
+written in place.
+
 Only the dense family runs in this slice; every other family raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -26,9 +32,11 @@ import torch
 from torch import nn
 
 from repro_torch import tree as tree_util
+from repro_torch.kernels import ops
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers
 from repro_torch.models.api import ArchConfig, Family
+from repro_torch.quant import QuantLeaf
 
 PyTree = Any
 
@@ -197,13 +205,62 @@ def block_prefill(cfg, kind: str, p: PyTree, x: torch.Tensor,
     return x + layers.mlp_block(cfg, p["mlp"], h), cache
 
 
+def _kind_paged(cfg, kind: str) -> bool:
+    """True when this layer kind's KV can live in a shared page pool:
+    full attention only (a sliding-window ring reuses physical slots
+    for rolling positions, so it stays slot-resident)."""
+    return kind == KIND and cfg.sliding_window == 0
+
+
+def block_decode_paged(cfg, kind: str, p: PyTree, x: torch.Tensor,
+                       pos: torch.Tensor, cache: PyTree, pages: PyTree,
+                       tables: torch.Tensor):
+    """Single-token decode with full-attention KV served from a page pool
+    (written in place).  ``pages`` is ``{"k", "v"}`` of ``(P, K, pt, dh)``
+    for paged kinds and ``None`` for kinds whose state stays slot-resident
+    (then ``cache`` is that state and this defers to :func:`block_decode`).
+    Returns (x, cache, pages)."""
+    if pages is None:
+        x, cache = block_decode(cfg, kind, p, x, pos, cache)
+        return x, cache, None
+    _check_kind(kind)
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    y, kp, vp = layers.attention_decode_paged(cfg, p["attn"], h, pos,
+                                              pages["k"], pages["v"], tables)
+    x = x + y
+    h = layers.apply_norm(cfg, p["norm2"], x)
+    return x + layers.mlp_block(cfg, p["mlp"], h), cache, {"k": kp, "v": vp}
+
+
+def block_chunk(cfg, kind: str, p: PyTree, x: torch.Tensor, cache_l: PyTree,
+                off: int, cs: int) -> Tuple[torch.Tensor, PyTree]:
+    """One full-attention block over a ``cs``-token segment starting at
+    absolute position ``off``, attending to the cache prefix + itself.
+    Writes the segment's K/V into rows ``[off, off + cs)`` of ``cache_l``
+    (in place); the queries sit at the last ``cs`` of ``off + cs`` key
+    positions, which ``flash_attention`` masks from absolute positions."""
+    _check_kind(kind)
+    positions = (off + torch.arange(cs, device=x.device))[None, :]
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    q, k, v = layers.qkv_project(cfg, p["attn"], h, positions)
+    kc, vc = cache_l["k"], cache_l["v"]
+    kc[:, :, off:off + cs] = k.transpose(1, 2).to(kc.dtype)
+    vc[:, :, off:off + cs] = v.transpose(1, 2).to(vc.dtype)
+    o = ops.flash_attention(q, kc[:, :, :off + cs].transpose(1, 2),
+                            vc[:, :, :off + cs].transpose(1, 2), causal=True)
+    x = x + layers.attn_out(cfg, p["attn"], o)
+    h = layers.apply_norm(cfg, p["norm2"], x)
+    return x + layers.mlp_block(cfg, p["mlp"], h), cache_l
+
+
 def _head(cfg, params: PyTree, x: torch.Tensor) -> torch.Tensor:
     x = layers.apply_norm(cfg, params["final"]["norm"], x)
     return layers.head_logits(cfg, params, x)
 
 
 def _index(tree: PyTree, i: int) -> PyTree:
-    return tree_util.tree_map(lambda a: a[i], tree)
+    """Unit ``i`` of a stacked tree (``None`` leaves stay ``None``)."""
+    return tree_util.tree_map(lambda a: None if a is None else a[i], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +421,138 @@ class LM:
         return _head(cfg, params, x), cache
 
 
+    # ----------------------------------------------------- paged KV decode
+    @property
+    def paged(self) -> bool:
+        """Whether the layers' KV can live in a page pool."""
+        return _kind_paged(self.cfg, KIND)
+
+    def paged_kinds(self) -> List[str]:
+        return [KIND] if self.paged else []
+
+    @property
+    def supports_prefix_cache(self) -> bool:
+        """Prefix reuse needs every layer's sequence state in pages."""
+        return not self.cfg.is_encoder and self.paged
+
+    def kv_page_bytes(self, page_tokens: int) -> int:
+        """Device bytes one page id costs across all paged layers (K and
+        V); 0 when no layer pages."""
+        if not self.paged:
+            return 0
+        cfg = self.cfg
+        item = torch.empty((), dtype=cfg.compute_dtype).element_size()
+        return (self.n_units * 2 * cfg.n_kv_heads * page_tokens * cfg.dh
+                * item)
+
+    def init_kv_pages(self, n_pages: int, page_tokens: int) -> PyTree:
+        """Physical page pools ``{"s0": {"k", "v"}}`` of ``(n_units,
+        n_pages, K, pt, dh)`` (``{"s0": None}`` when no layer pages).  The
+        caller sizes ``n_pages`` to the budget + 1 (the scratch page)."""
+        if not self.paged:
+            return {"s0": None}
+        cfg = self.cfg
+        shape = (self.n_units, n_pages, cfg.n_kv_heads, page_tokens, cfg.dh)
+        return {"s0": {n: torch.zeros(shape, dtype=cfg.compute_dtype,
+                                      device=self.device)
+                       for n in ("k", "v")}}
+
+    def init_cache_paged(self, batch: int, cache_len: int) -> PyTree:
+        """Slot-resident decode state with paged K/V leaves ``None`` (they
+        live in the pools): the structure of :meth:`init_cache`."""
+        if self.paged:
+            return {"s0": {"k": None, "v": None}}
+        return self.init_cache(batch, cache_len)
+
+    def init_request_cache(self, paged_len: int, state_len: int) -> PyTree:
+        """B=1 prefill cache for paged admission: sized to the request's
+        page span when the layers page, else to the slot state length."""
+        return self.init_cache(1, paged_len if self.paged else state_len)
+
+    def strip_paged(self, cache: PyTree) -> PyTree:
+        """A per-request cache projected onto the paged state structure
+        (paged K/V content moves by :meth:`pack_pages` instead)."""
+        return {"s0": {"k": None, "v": None}} if self.paged else cache
+
+    def gather_pages(self, cache: PyTree, pools: PyTree,
+                     ids: torch.Tensor) -> PyTree:
+        """Copy physical pages ``ids`` (in logical order) into rows
+        ``[0, len(ids) * pt)`` of a contiguous B=1 cache, in place — the
+        device half of a prefix hit."""
+        if self.paged:
+            m, idx = int(ids.numel()), ids.long()
+            for n in ("k", "v"):
+                pool, c = pools["s0"][n], cache["s0"][n]
+                L, _, K, pt, dh = pool.shape
+                c[:, 0, :, :m * pt] = pool[:, idx].transpose(1, 2).reshape(
+                    L, K, m * pt, dh).to(c.dtype)
+        return cache
+
+    def pack_pages(self, pools: PyTree, cache: PyTree, ids: torch.Tensor,
+                   first_page: int) -> PyTree:
+        """Copy B=1 cache rows ``[first_page * pt, (first_page + len(ids))
+        * pt)`` into physical pages ``ids``, in place — the device half
+        of admission."""
+        if self.paged:
+            m, idx = int(ids.numel()), ids.long()
+            for n in ("k", "v"):
+                pool, c = pools["s0"][n], cache["s0"][n]
+                L, _, K, pt, dh = pool.shape
+                lo = first_page * pt
+                seg = c[:, 0, :, lo:lo + m * pt].reshape(L, K, m, pt, dh)
+                pool[:, idx] = seg.transpose(1, 2).to(pool.dtype)
+        return pools
+
+    def copy_page(self, pools: PyTree, src: int, dst: int) -> PyTree:
+        """Device half of a copy-on-write fork: page ``src`` into ``dst``
+        across every paged layer, in place."""
+        if self.paged:
+            for n in ("k", "v"):
+                pools["s0"][n][:, dst] = pools["s0"][n][:, src]
+        return pools
+
+    @torch.no_grad()
+    def prefill_continue(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                         cache: PyTree, *, off: int
+                         ) -> Tuple[torch.Tensor, PyTree]:
+        """Resume a full-attention prefill at absolute position ``off``:
+        cache rows ``[0, off)`` already hold valid K/V (gathered from
+        shared prefix pages) and ``batch["tokens"]`` is the suffix.
+        Returns (logits for the suffix, cache filled through ``off +
+        suffix_len``, in place)."""
+        if not self.supports_prefix_cache:
+            raise ValueError("prefill_continue: full-attention decoder LMs "
+                             "only")
+        cfg = self.cfg
+        x = self.embed(params, batch)
+        cs = x.shape[1]
+        blocks = params["blocks"]["s0"]
+        for i in range(self.n_units):
+            x, _ = block_chunk(cfg, KIND, _index(blocks, i), x,
+                               _index(cache["s0"], i), off, cs)
+        return _head(cfg, params, x), cache
+
+    @torch.no_grad()
+    def decode_step_paged(self, params: PyTree, cache: PyTree,
+                          pools: PyTree, tables: torch.Tensor,
+                          tokens: torch.Tensor, pos: torch.Tensor):
+        """Batched single-token decode over the shared page pools.
+
+        cache: :meth:`init_cache_paged` state; pools: :meth:`init_kv_pages`
+        tensors; tables: (B, NP) int32 page ids per row; tokens (B, 1);
+        pos (B,) int32.  Writes in place.  Returns (logits, cache, pools).
+        """
+        cfg = self.cfg
+        x = self.embed(params, {"tokens": tokens})
+        blocks = params["blocks"]["s0"]
+        for i in range(self.n_units):
+            pages = None if pools["s0"] is None else _index(pools["s0"], i)
+            x, _, _ = block_decode_paged(cfg, KIND, _index(blocks, i), x,
+                                         pos, _index(cache["s0"], i), pages,
+                                         tables)
+        return _head(cfg, params, x), cache, pools
+
+
 def unit_seed(seed: int, index: int) -> int:
     """Seed of unit ``index``'s generator under a model seed."""
     return (int(seed) * 1_000_003 + index) % (1 << 63)
@@ -382,6 +571,14 @@ def build(cfg: ArchConfig, device: DeviceLike = None) -> LM:
     return _models[key]
 
 
+def _quant_pair(a):
+    """``(q, scale)`` of a reference ``QuantLeaf`` (an object with ``q``
+    and ``scale`` arrays), else ``None``."""
+    if hasattr(a, "q") and hasattr(a, "scale"):
+        return a.q, a.scale
+    return None
+
+
 def _as_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":            # ml_dtypes, as JAX exports it
@@ -394,13 +591,26 @@ def params_from_numpy(cfg: ArchConfig, tree: PyTree,
                       device: DeviceLike = None) -> PyTree:
     """Carry a reference parameter tree (numpy arrays, ``blocks/s0``
     leaves stacked ``(n_units, ...)``) into the port's params on
-    ``device``, checking it against the model's structure and shapes."""
+    ``device``, checking it against the model's structure and shapes.
+    A quantized leaf (the reference's ``QuantLeaf``, with numpy ``q`` and
+    ``scale``) becomes a :class:`~repro_torch.quant.QuantLeaf`."""
     dev = resolve_device(device)
+
+    def shape(leaf):
+        pair = _quant_pair(leaf)
+        return tuple(np.shape(pair[0] if pair is not None else leaf))
+
+    def carry(leaf):
+        pair = _quant_pair(leaf)
+        if pair is None:
+            return _as_tensor(leaf, dev)
+        return QuantLeaf(_as_tensor(pair[0], dev), _as_tensor(pair[1], dev))
+
     want = {"/".join(p): tuple(leaf.shape) for p, leaf in
             tree_util.leaves_with_path(LM(cfg, dev).abstract())}
-    got = {"/".join(p): tuple(np.shape(leaf)) for p, leaf in
+    got = {"/".join(p): shape(leaf) for p, leaf in
            tree_util.leaves_with_path(tree)}
     if want != got:
         raise ValueError(f"{cfg.name}: parameter tree does not match the "
                          f"model: expected {want}, got {got}")
-    return tree_util.tree_map(lambda a: _as_tensor(a, dev), tree)
+    return tree_util.tree_map(carry, tree)

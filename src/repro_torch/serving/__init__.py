@@ -1,11 +1,17 @@
 """Serving surface of the port (generation-first).
 
   api      GenerateSpec and CacheOverflowError
-  decode   sampling, request validation and the serial
-           ``reference_generate`` (the slotted ``DecodeScheduler`` is
-           ROADMAP queue 1 item 5, next slice)
+  kvpages  the KVPagePool page allocator (refcounts, backpressure,
+           copy-on-write, prefix index)
+  decode   the continuous-batching DecodeScheduler (slotted and paged),
+           sampling, request validation and the serial
+           ``reference_generate`` it is held against
 """
 from repro_torch.serving.api import CacheOverflowError, GenerateSpec  # noqa: F401
-from repro_torch.serving.decode import (reference_generate,  # noqa: F401
-                                        sample_first, sample_tokens,
-                                        validate_spec)
+from repro_torch.serving.decode import (DecodeScheduler,  # noqa: F401
+                                        GenResult, paged_page_count,
+                                        reference_generate, sample_first,
+                                        sample_tokens, validate_spec,
+                                        validate_spec_paged)
+from repro_torch.serving.kvpages import (KVPagePool,  # noqa: F401
+                                         KVPageStats, page_hashes)

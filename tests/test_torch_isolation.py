@@ -15,6 +15,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_lib, ops
 from repro_torch.models import transformer
 from repro_torch.models.api import get_config
+from repro_torch.serving import DecodeScheduler, GenerateSpec
 from repro_torch.serving.decode import reference_generate
 from repro_torch.store.store import WeightStore, deploy_model
 from torch_testlib import (PORT, ROOT, assert_imports_no_jax_and_no_reference,
@@ -41,11 +42,16 @@ def test_import_checks_cover_every_port_file():
 def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in cuda_lib.CSRC.glob("*.cu"))
     assert srcs == ["decode_attention.cu", "flash_attention.cu",
-                    "weight_transform.cu"]
+                    "quant_matmul.cu", "weight_transform.cu"]
+    assert ops.registry.names() == [
+        "decode_attention", "decode_attention_paged", "flash_attention",
+        "quant_matmul", "weight_transform"]
     for name in ops.registry.names():
-        mod = ops.registry.spec(name).module
-        assert (ROOT / mod.SOURCE).exists()
-        assert mod.REPLACES.startswith("src/repro/kernels/")
+        spec = ops.registry.spec(name)
+        assert (ROOT / spec.source).exists()
+        path, line = spec.replaces.split(":")
+        assert path.startswith("src/repro/kernels/")
+        assert "def " in (ROOT / path).read_text().splitlines()[int(line) - 1]
 
 
 @pytest.fixture
@@ -84,16 +90,26 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):
                                              dtype=np.float32))
     torch.testing.assert_close(
         ops.flash_attention(q, k, k, causal=True),
-        ops.registry.spec("flash_attention").module.plain(q, k, k, causal=True),
+        ops.registry.spec("flash_attention").plain(q, k, k, causal=True),
         rtol=0, atol=0)
     kc = k.transpose(1, 2).contiguous()
     pos = torch.tensor([5], dtype=torch.int32)
     torch.testing.assert_close(
         ops.decode_attention(q[:, 0], kc, kc, pos),
-        ops.registry.spec("decode_attention").module.plain(q[:, 0], kc, kc, pos),
+        ops.registry.spec("decode_attention").plain(q[:, 0], kc, kc, pos),
         rtol=0, atol=0)
-    w = torch.randint(-127, 128, (7, 5), dtype=torch.int8)
-    s = torch.rand(5)
+    pages = kc.reshape(2, 1, 9, 64)[:, :, :8]       # (P=2, K=1, pt=8, dh)
+    tables = torch.tensor([[1, 0]], dtype=torch.int32)
+    torch.testing.assert_close(
+        ops.decode_attention_paged(q[:, 0, :1], pages, pages, tables, pos),
+        ops.registry.spec("decode_attention_paged").plain(
+            q[:, 0, :1], pages, pages, tables, pos), rtol=0, atol=0)
+    x = torch.from_numpy(rng.standard_normal((3, 7), dtype=np.float32))
+    torch.testing.assert_close(
+        ops.quant_matmul(x, w := torch.randint(-127, 128, (7, 5),
+                                                dtype=torch.int8),
+                         s := torch.rand(5)),
+        ops.registry.spec("quant_matmul").plain(x, w, s), rtol=0, atol=0)
     assert torch.equal(ops.weight_transform(w, s, out_dtype=torch.float32),
                        (w.float() * s).float())
     # a whole cold start + generation on the CPU launches no kernel
@@ -105,8 +121,15 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):
     res = ColdStartEngine(m, "q", store, device="cpu").load(
         {"tokens": torch.tensor([[1, 2, 3, 4]])})
     reference_generate(m, res.params, [1, 2, 3], n_new=3, device="cpu")
+    qres = ColdStartEngine(m, "q", store, compute_quant=True,
+                           device="cpu").load({"tokens": torch.tensor([[1]])})
+    sched = DecodeScheduler(m, qres.params, n_slots=2, cache_len=16,
+                            kv_page_tokens=4)
+    sched.generate(GenerateSpec(prompt=[1, 2, 3], n_new=3))
+    assert set(sched.kernel_modes().values()) == {"plain"}
     assert ops.registry.dispatch_snapshot() == {
-        "decode_attention": 0, "flash_attention": 0, "weight_transform": 0}
+        "decode_attention": 0, "decode_attention_paged": 0,
+        "flash_attention": 0, "quant_matmul": 0, "weight_transform": 0}
     assert ops.registry.describe()["library"]["built"] is False
 
 
@@ -114,3 +137,9 @@ def test_wrappers_refuse_other_devices():
     meta = torch.empty((4, 4), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.weight_transform(meta, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.quant_matmul(meta.float(), meta, meta[0].float())
+    q = torch.empty((1, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.decode_attention_paged(q, q[None], q[None],
+                                   meta[:1].int(), meta[0, :1].int())
