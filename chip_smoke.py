@@ -11,13 +11,20 @@ Drives the port's paths once each, at the full width of smollm-360m:
   * warm generation of four concurrent requests through the
     continuous-batching ``DecodeScheduler`` on the int8-resident params,
     slotted, then paged with prefix reuse, one request resuming from the
-    cold start's in-pipeline first token.
-It builds the five CUDA kernels from ``src/repro_torch/kernels/csrc``,
+    cold start's in-pipeline first token;
+and at the full width of the two recurrent families, mamba2-780m (48 SSD
+layers, f32 store cast to bf16 at A) and recurrentgemma-2b (8 x (rglru,
+rglru, attn) + 2 rglru, int8 store dequantized to bf16 at A): a cicada
+cold start, greedy generation, and four concurrent requests through the
+slotted scheduler.
+It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card, checks that
 each path launched its kernels (counts set to 0 just before a path and
-read just after), checks the card against the CPU end to end, and prints
-one JSON line of kernel numbers and, last, one JSON line
-``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
+read just after; exact counts per forward, prefill and decode step for
+the recurrent families), checks the card against the CPU end to end
+(each family at 4 layers, f32), and prints one JSON line of kernel
+numbers and, last, one JSON line ``{"ok": true, "device": {...}}``.  Any
+failed phase exits non-zero.
 
 Without a CUDA device, or without the repository's ``src/repro_torch``
 beside it, it exits non-zero and prints no result.
@@ -193,7 +200,8 @@ def check_kernels(dev, report: dict):
         (1, 15, 5, 1000, 1000, 64, True, 0),
         (1, 15, 5, 100, 164, 64, True, 0), (1, 15, 5, 128, 128, 64, True, 16),
         (1, 15, 5, 128, 128, 64, False, 0), (1, 15, 5, 77, 77, 64, False, 16),
-        (2, 8, 2, 70, 70, 128, True, 0)]
+        (2, 8, 2, 70, 70, 128, True, 0), (1, 10, 1, 128, 128, 256, True, 0),
+        (1, 10, 1, 100, 164, 256, True, 0), (2, 4, 2, 77, 77, 256, False, 16)]
     for (B, H, K, S, T, dh, causal, win) in flash_cases:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
@@ -238,14 +246,31 @@ def check_kernels(dev, report: dict):
     print(f"  flash_attention S=1000 bf16 causal: "
           f"{device_ms(lambda: fmod.flash_attention(q, k, v)):.4f} ms, bound "
           f"{b_long:.4f} ms")
+    # recurrentgemma's attention E: 10 query heads of dh 256 over 1 kv head
+    S, H, K, dh = 128, 10, 1, 256
+    q = randn(1, S, H, dh, dtype=torch.bfloat16)
+    k = randn(1, S, K, dh, dtype=torch.bfloat16)
+    v = randn(1, S, K, dh, dtype=torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    extra_line("flash_attention", "bf16 q (1,128,10,256), k/v (1,128,1,256), "
+               "causal",
+               lambda: fmod.flash_attention(q, k, v, causal=True),
+               lambda: fmod.plain(q, k, v, causal=True),
+               lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True),
+               bound(2 * (2 * S * H * dh + 2 * S * K * dh),
+                     4 * dh * (S * (S + 1) // 2) * H, torch.bfloat16))
 
     # --- decode_attention ---------------------------------------------------
     de_err = 0.0
-    for (S_max, pos, win) in [(512, (0, 37, 300, 511), 0),
-                              (128, (5, 127, 300, 1000), 128)]:
+    for (S_max, pos, win, H, K, dh) in [
+            (512, (0, 37, 300, 511), 0, 15, 5, 64),
+            (128, (5, 127, 300, 1000), 128, 15, 5, 64),
+            (256, (0, 37, 159, 255), 0, 10, 1, 256),
+            (64, (5, 63, 100, 300), 64, 8, 2, 256)]:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
-            B, H, K, dh = 4, 15, 5, 64
+            B = 4
             q = randn(B, H, dh, dtype=dt)
             kc = randn(B, K, S_max, dh, dtype=dt)
             vc = randn(B, K, S_max, dh, dtype=dt)
@@ -255,7 +280,8 @@ def check_kernels(dev, report: dict):
             torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
             de_err = max(de_err, e)
-            print(f"  decode_attention B={B} S_max={S_max} pos={pos} "
+            print(f"  decode_attention B={B} H={H} K={K} dh={dh} "
+                  f"S_max={S_max} pos={pos} "
                   f"window={win} {str(dt)[6:]}: max abs err {e:.3e} "
                   f"(tol {tol})")
             need(math.isfinite(e) and e <= tol,
@@ -281,13 +307,39 @@ def check_kernels(dev, report: dict):
         library="SDPA over the valid rows, enable_gqa",
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 q (1,15,64), cache (1,5,256,64), pos 159")
+    # recurrentgemma's decode step: 10 query heads of dh 256 over 1 kv head
+    H, K, dh = 10, 1, 256
+    q = randn(1, H, dh, dtype=torch.bfloat16)
+    kc = randn(1, K, S_max, dh, dtype=torch.bfloat16)
+    vc = randn(1, K, S_max, dh, dtype=torch.bfloat16)
+    q4 = q[:, :, None]
+    extra_line("decode_attention", "bf16 q (1,10,256), cache (1,1,256,256), "
+               "pos 159",
+               lambda: dmod.decode_attention(q, kc, vc, p),
+               lambda: dmod.plain(q, kc, vc, p),
+               lambda: F.scaled_dot_product_attention(
+                   q4, kc[:, :, :rows], vc[:, :, :rows], enable_gqa=True),
+               bound(2 * (2 * H * dh) + 4 + 2 * 2 * rows * K * dh,
+                     4 * H * dh * rows, torch.bfloat16))
     check_quant_matmul(dev, report, randn, g)
     check_paged(dev, report, randn, g)
+    check_scans(dev, report, randn, g)
     for name, r in report.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms on the "
               f"device ({r['call_ms']:.4f} ms per eager call), plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"{r['plain_ms']:.4f} ms, library {lib}, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+
+def extra_line(name: str, shape: str, kernel, plain, library, bnd):
+    """Time a kernel at a second main-path shape and print it (the JSON
+    line carries one shape per kernel)."""
+    print(f"  {name} [{shape}]: kernel {device_ms(kernel):.4f} ms on the "
+          f"device ({call_ms(kernel):.4f} ms per eager call), plain "
+          f"{device_ms(plain):.4f} ms, library {device_ms(library):.4f} ms, "
+          f"bound {bnd[0]:.6f} ms ({bnd[1]})")
 
 
 def rel_err(got, want) -> float:
@@ -399,20 +451,24 @@ def check_paged(dev, report: dict, randn, g):
                 randn(P, K, pt, dh, dtype=dt), tables.to(dev),
                 torch.tensor(pos, dtype=torch.int32, device=dev))
 
-    for pos in ((37, 80, 123, 159), (0, 15, 16, 255)):
+    for pos, dims in (((37, 80, 123, 159), (15, 5, 64)),
+                      ((0, 15, 16, 255), (15, 5, 64)),
+                      ((37, 80, 123, 159), (10, 1, 256))):
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
+            H, K, dh = dims
             q, kp, vp, tb, p = make(pos, dt, sum(pos))
             got = dmod.decode_attention_paged(q, kp, vp, tb, p)
             want = dmod.plain_paged(q, kp, vp, tb, p)
             torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
             err = max(err, e)
-            print(f"  decode_attention_paged pos={pos} pt={pt} "
-                  f"{str(dt)[6:]}: max abs err {e:.3e} (tol {tol})")
+            print(f"  decode_attention_paged pos={pos} pt={pt} H={H} K={K} "
+                  f"dh={dh} {str(dt)[6:]}: max abs err {e:.3e} (tol {tol})")
             need(math.isfinite(e) and e <= tol,
                  f"decode_attention_paged pos={pos} {dt} err {e}")
     # main-path timing shape: a 4-slot paged step of 128-token prompts
+    H, K, dh = 15, 5, 64
     pos = (37, 80, 123, 159)
     q, kp, vp, tb, p = make(pos, torch.bfloat16, 1)
     rows = sum(x + 1 for x in pos)
@@ -438,6 +494,101 @@ def check_paged(dev, report: dict, randn, g):
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 q (4,15,64), pools (65,5,16,64) shuffled, tables "
               "(4,16), pos 37/80/123/159")
+
+
+def check_scans(dev, report: dict, randn, g):
+    """ssd_scan and rglru_scan against their plain (sequential) versions:
+    at the path shapes, at a multi-chunk S that the chunk does not divide,
+    at B = 2 and from a non-zero initial state (final state held too)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rmod
+    from repro_torch.kernels import ssd_scan as smod
+
+    def ssd_inputs(b, nh, S, dp, N, dt_):
+        return (randn(b, nh, S, dp, dtype=dt_),
+                randn(b, nh, S).abs() * 0.1 + 0.01,
+                -randn(nh).abs() - 0.1,
+                randn(b, S, N) * 0.3, randn(b, S, N) * 0.3)
+
+    err = 0.0
+    # (b, nh, S, dp, N, bc, h0): the path shape (S 128, chunk 128), a
+    # 300-step prompt over chunks of 128, two batch rows, a carried state
+    for (b, nh, S, dp, N, bc, with_h0) in [
+            (1, 48, 128, 64, 128, 128, False), (1, 48, 300, 64, 128, 128, False),
+            (2, 8, 100, 64, 128, 128, True), (1, 4, 37, 16, 16, 16, True)]:
+        for dt_, tol in ((torch.bfloat16, BF16_ATOL),
+                         (torch.float32, F32_ATOL)):
+            x, dt, A, B, C = ssd_inputs(b, nh, S, dp, N, dt_)
+            h0 = randn(b, nh, dp, N) * 0.5 if with_h0 else None
+            y, hS = ops.ssd_scan(x, dt, A, B, C, bc=bc, h0=h0,
+                                 return_state=True)
+            y_p, h_p = smod.plain(x, dt, A, B, C, h0=h0, return_state=True)
+            torch.cuda.synchronize()
+            e, eh = rel_err(y, y_p), rel_err(hS, h_p)
+            err = max(err, (y.float() - y_p.float()).abs().max().item())
+            print(f"  ssd_scan b={b} nh={nh} S={S} dp={dp} N={N} bc={bc} "
+                  f"h0={with_h0} {str(dt_)[6:]}: max err {e:.3e}, final "
+                  f"state {eh:.3e} of max |out| (tol {tol})")
+            need(y.dtype == dt_ and math.isfinite(e) and e <= tol and
+                 eh <= F32_ATOL * (1 if dt_ == torch.float32 else 10),
+                 f"ssd_scan S={S} {dt_} err {e}, state err {eh}")
+    # main-path timing shape: one mamba2-780m SSD block of a 128-token
+    # prefill; the bound counts the sequential recurrence's 5 dp N
+    # operations per step and head
+    b, nh, S, dp, N = 1, 48, 128, 64, 128
+    x, dt, A, B, C = ssd_inputs(b, nh, S, dp, N, torch.bfloat16)
+    b_ms, b_by = bound(2 * 2 * b * nh * S * dp + 4 * (b * nh * S + nh
+                                                      + 2 * b * S * N),
+                       5 * b * nh * S * dp * N, torch.float32)
+    report["ssd_scan"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: smod.ssd_scan(x, dt, A, B, C)),
+        call_ms=call_ms(lambda: smod.ssd_scan(x, dt, A, B, C)),
+        plain_ms=device_ms(lambda: smod.plain(x, dt, A, B, C)),
+        library_ms=None,
+        library="none: no single PyTorch call computes the SSD scan",
+        bound_ms=b_ms, bound_by=b_by,
+        shape="bf16 x (1,48,128,64), f32 dt (1,48,128), B/C (1,128,128)")
+
+    err = 0.0
+    for (Bz, S, W, bc, with_h0) in [(1, 128, 2560, 256, False),
+                                    (1, 300, 2560, 128, False),
+                                    (2, 100, 2560, 256, True),
+                                    (2, 37, 300, 16, True)]:
+        for dt_, tol in ((torch.bfloat16, BF16_ATOL),
+                         (torch.float32, F32_ATOL)):
+            a = (torch.rand(Bz, S, W, generator=g, device=dev) * 0.5
+                 + 0.5).to(dt_)
+            bb = randn(Bz, S, W, dtype=dt_)
+            h0 = randn(Bz, W) if with_h0 else None
+            y, hS = ops.rglru_scan(a, bb, bc=bc, h0=h0, return_state=True)
+            y_p, h_p = rmod.plain(a, bb, h0=h0, return_state=True)
+            torch.cuda.synchronize()
+            e, eh = rel_err(y, y_p), rel_err(hS, h_p)
+            err = max(err, (y.float() - y_p.float()).abs().max().item())
+            print(f"  rglru_scan B={Bz} S={S} W={W} bc={bc} h0={with_h0} "
+                  f"{str(dt_)[6:]}: max err {e:.3e}, final state {eh:.3e} "
+                  f"of max |out| (tol {tol})")
+            need(y.dtype == dt_ and math.isfinite(e) and e <= tol and
+                 eh <= F32_ATOL, f"rglru_scan S={S} {dt_} err {e}, state "
+                 f"err {eh}")
+    # main-path timing shape: one recurrentgemma-2b RG-LRU block of a
+    # 128-token prefill (the gates are f32)
+    Bz, S, W = 1, 128, 2560
+    a = torch.rand(Bz, S, W, generator=g, device=dev) * 0.5 + 0.5
+    bb = randn(Bz, S, W)
+    b_ms, b_by = bound(3 * 4 * Bz * S * W, 2 * Bz * S * W, torch.float32)
+    report["rglru_scan"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: rmod.rglru_scan(a, bb)),
+        call_ms=call_ms(lambda: rmod.rglru_scan(a, bb)),
+        plain_ms=device_ms(lambda: rmod.plain(a, bb)),
+        library_ms=None,
+        library="none: no single PyTorch call computes a first-order "
+                "linear recurrence",
+        bound_ms=b_ms, bound_by=b_by,
+        shape="f32 a, b (1,128,2560)")
 
 
 # ---------------------------------------------------------------------------
@@ -841,6 +992,174 @@ def scheduler_paged(cs: dict, params_q, first, slotted: dict):
 
 
 # ---------------------------------------------------------------------------
+# phases 10-11: the recurrent families (mamba2-780m, recurrentgemma-2b)
+# ---------------------------------------------------------------------------
+
+# arch -> the store the cold start reads (None: f32, cast to bf16 at A;
+# "int8": dequantized to bf16 at A)
+RECURRENT = {"mamba2-780m": None, "recurrentgemma-2b": "int8"}
+
+
+def kernel_counts(cfg) -> tuple:
+    """Launches of the recurrent families' kernels per forward or prefill,
+    and per decode step, from the layer kinds."""
+    kinds = cfg.layer_kinds()
+    per_forward = {"ssd_scan": kinds.count("ssd"),
+                   "rglru_scan": kinds.count("rglru"),
+                   "flash_attention": kinds.count("attn")}
+    per_step = {"decode_attention": kinds.count("attn")}
+    return ({k: v for k, v in per_forward.items() if v},
+            {k: v for k, v in per_step.items() if v})
+
+
+def need_counts(got: dict, want: dict, what: str):
+    for k, v in want.items():
+        need(got[k] == v, f"{what}: {k} launched {got[k]} times, not {v}")
+
+
+def delta(before: dict) -> dict:
+    from repro_torch.kernels import ops
+    after = ops.registry.dispatch_snapshot()
+    return {k: after[k] - before[k] for k in after}
+
+
+def recurrent_family(dev, workdir: str, arch: str) -> dict:
+    """Full-width cicada cold start of ``arch`` (first token inside the
+    final E), warm forward against the in-pipeline logits, greedy
+    generation, then four concurrent requests through the slotted
+    scheduler.  Returns the path's launch counts (zeroed at the start,
+    read at the end; the token checks against ``reference_generate`` run
+    after) and its numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import (DecodeScheduler, GenerateSpec,
+                                     reference_generate)
+    from repro_torch.serving.decode import sample_first
+    from repro_torch.store.store import (BandwidthModel, WeightStore,
+                                         deploy_model)
+
+    cfg = get_config(arch)
+    quant = RECURRENT[arch]
+    per_fwd, per_step = kernel_counts(cfg)
+    model = transformer.build(cfg)
+    t0 = time.perf_counter()
+    store = WeightStore(os.path.join(workdir, arch),
+                        BandwidthModel(bandwidth_mbps=2000))
+    deploy_model(store, transformer.build(cfg, device="cpu"), arch,
+                 quant=quant)
+    print(f"  deployed {arch} ({cfg.param_count() / 1e6:.1f} M params, "
+          f"layers {''.join(k[0] for k in cfg.layer_kinds())}) "
+          f"{quant or 'f32'} {store.model_nbytes(arch) / 1e9:.3f} GB in "
+          f"{time.perf_counter() - t0:.1f} s (set-up); kernels per forward "
+          f"{per_fwd}, per decode step {per_step}")
+
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 128))
+    batch = {"tokens": torch.as_tensor(prompt)}
+    spec = GenerateSpec(prompt=prompt[0], n_new=1)
+    eng = ColdStartEngine(model, arch, store, strategy="cicada",
+                          apply_dtype=torch.bfloat16)
+    eng.warmup(batch)
+    first = []
+    ops.registry.reset_counts()
+    res = eng.load(batch, on_logits=lambda lg: first.append(
+        (sample_first(lg, spec, 128), time.monotonic())))
+    in_load = ops.registry.dispatch_snapshot()
+    tr = res.trace
+    need(len(first) == 1, f"{arch}: on_logits did not fire once")
+    e_final = tr.events_for("E")["final"]
+    need(e_final.t_start <= first[0][1] <= e_final.t_end,
+         f"{arch}: first token not sampled inside the final E")
+    logits = res.logits
+    need(tuple(logits.shape) == (1, 128, cfg.vocab_size) and
+         bool(torch.isfinite(logits.float()).all()),
+         f"{arch}: logits {tuple(logits.shape)} not finite/shaped")
+    need_counts(in_load, per_fwd, f"{arch} cold start")
+    before = ops.registry.dispatch_snapshot()
+    warm, _ = model.forward(res.params, batch_dev(batch, dev))
+    need_counts(delta(before), per_fwd, f"{arch} warm forward")
+    diff = (warm.float() - logits.float()).abs().max().item()
+    scale = logits.float().abs().max().item()
+    summ = tr.summary()
+    print(f"  load {tr.total_time() * 1e3:.1f} ms, utilization "
+          f"{tr.utilization():.1%}, first token {first[0][0]} at "
+          f"{(first[0][1] - tr.t0) * 1e3:.1f} ms, resident params "
+          f"{param_bytes(res.params) / 1e6:.1f} MB, I/O floor "
+          f"{store.model_nbytes(arch) / 2000e3:.0f} ms at 2000 MB/s; warm "
+          f"forward vs in-pipeline logits max abs diff {diff:.3e} (max "
+          f"|logit| {scale:.3f}); kernel launches in the load {in_load}")
+    print("  stage work (s): " + ", ".join(
+        f"{k[5:]} {summ[k]:.3f}" for k in ("work_L", "work_R", "work_A",
+                                           "work_E"))
+          + f"; waits (s): A {summ['wait_A']:.3f}, E {summ['wait_E']:.3f}")
+    print(tr.render_gantt(100))
+    need(diff <= BF16_ATOL * max(1.0, scale),
+         f"{arch}: warm forward differs from in-pipeline logits")
+
+    params = res.params
+    before = ops.registry.dispatch_snapshot()
+    t1 = time.perf_counter()
+    toks = reference_generate(model, params, prompt[0], n_new=32)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t1) * 1e3
+    want = {k: per_fwd.get(k, 0) + 31 * per_step.get(k, 0)
+            for k in set(per_fwd) | set(per_step)}
+    need_counts(delta(before), want, f"{arch} reference_generate")
+    need(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+         f"{arch}: bad tokens {toks}")
+    print(f"  reference_generate, prompt 128: 32 greedy tokens in "
+          f"{gen_ms:.1f} ms (host clock, prefill + 31 decode steps): "
+          f"{toks}")
+
+    prompts = [prompt[0][:n] for n in (37, 64, 100, 128)]
+    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts]
+    sched = DecodeScheduler(model, params, n_slots=4, cache_len=256)
+    need(set(sched.kernel_modes().values()) == {"cuda"},
+         f"scheduler kernel modes {sched.kernel_modes()}")
+    before = ops.registry.dispatch_snapshot()
+    t1 = time.perf_counter()
+    solo = sched.generate(specs[0])
+    t2 = time.perf_counter()
+    results = run_concurrent(sched, specs, {3: first[0]})
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    st = sched.stats()
+    want = {k: 5 * per_fwd.get(k, 0) + st["steps"] * per_step.get(k, 0)
+            for k in set(per_fwd) | set(per_step)}
+    need_counts(delta(before), want, f"{arch} scheduler")
+    path = ops.registry.dispatch_snapshot()
+    ms1, ms4 = step_ms([solo]), step_ms(results)
+    print(f"  scheduler: one request alone 32 tokens in "
+          f"{(t2 - t1) * 1e3:.1f} ms; four concurrent {(t3 - t2) * 1e3:.1f} "
+          f"ms; {st['steps']} steps, max occupancy {st['max_occupancy']}; "
+          f"ms per step by occupancy (host clock, median): alone {ms1}, "
+          f"concurrent {ms4}")
+    print(f"  kernel launches on the path: {path}")
+    need(st["max_occupancy"] == 4 and st["active"] == 0,
+         f"{arch} scheduler stats {st}")
+    need(results[3].tokens[0] == first[0][0],
+         f"{arch}: the resumed request did not keep its first token")
+    need(margin_ok(model, params, prompts[0], solo.tokens, results[0].tokens,
+                   BF16_ATOL, f"{arch} prompt 37 at occupancy 1 and 4"),
+         f"{arch}: a request's tokens changed between occupancy 1 and 4")
+    for p, r in zip(prompts, results):
+        ref = toks if len(p) == 128 else reference_generate(
+            model, params, p, n_new=32)
+        same = r.tokens == ref
+        print(f"  prompt {len(p)}: {'equal to' if same else 'DIFFERS from'}"
+              f" reference_generate: {r.tokens}")
+        need(len(r.tokens) == 32 and (same or margin_ok(
+            model, params, p, ref, r.tokens, BF16_ATOL,
+            f"{arch} prompt {len(p)}")),
+             f"{arch} prompt {len(p)} differs from reference_generate")
+    return {"launches": path, "kernels": tuple(sorted(set(per_fwd)
+                                                      | set(per_step)))}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the card against the CPU, end to end
 # ---------------------------------------------------------------------------
 
@@ -884,6 +1203,46 @@ def card_vs_cpu(dev, workdir: str):
         need(margin_ok(cpu_model, got["cpu"][2], prompt[0], tb, ta, 2e-3,
                        f"{label} card vs CPU"),
              f"{label}: greedy tokens differ away from a near-tie")
+
+
+def card_vs_cpu_recurrent(dev, workdir: str, arch: str):
+    """``arch`` at 4 layers of full width in f32 (recurrentgemma: one
+    pattern unit and a one-layer tail), cicada cold start and 16 greedy
+    tokens on the card and on the CPU, from one store."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving.decode import reference_generate
+    from repro_torch.store.store import WeightStore, deploy_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=4,
+                              compute_dtype=torch.float32)
+    cpu_model = transformer.build(cfg, device="cpu")
+    gpu_model = transformer.build(cfg)
+    store = WeightStore(os.path.join(workdir, arch + "4"))
+    deploy_model(store, cpu_model, "m4", seed=1)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 64))
+    got = {}
+    for side, m, d in (("card", gpu_model, None), ("cpu", cpu_model, "cpu")):
+        res = ColdStartEngine(m, "m4", store, strategy="cicada",
+                              device=d).load({"tokens": torch.as_tensor(
+                                  prompt)})
+        toks = reference_generate(m, res.params, prompt[0], n_new=16,
+                                  device=d)
+        got[side] = (res.logits.float().cpu(), toks, res.params)
+    a, b = got["card"][0], got["cpu"][0]
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"  {arch} 4 layers ({''.join(k[0] for k in cfg.layer_kinds())}) "
+          f"full width f32: card vs CPU logits max rel diff {rel:.3e} (tol "
+          f"2e-3)")
+    need(rel <= 2e-3, f"{arch}: card and CPU logits differ by {rel}")
+    ta, tb = got["card"][1], got["cpu"][1]
+    print(f"  16 greedy tokens card {ta}\n                      cpu  {tb}")
+    need(margin_ok(cpu_model, got["cpu"][2], prompt[0], tb, ta, 2e-3,
+                   f"{arch} card vs CPU"),
+         f"{arch}: greedy tokens differ away from a near-tie")
 
 
 # ---------------------------------------------------------------------------
@@ -950,6 +1309,20 @@ def main() -> int:
         paths["scheduler, paged"] = (
             paged["launches"],
             ("flash_attention", "quant_matmul", "decode_attention_paged"))
+        del cs, params_q
+        phase("[9] card against CPU, 4 layers at full width, f32")
+        card_vs_cpu(dev, wd)
+        for i, arch in enumerate(RECURRENT):
+            phase(f"[{10 + i}] full-width {arch}: cicada cold start "
+                  f"({RECURRENT[arch] or 'f32'} store, bf16 at A), greedy "
+                  f"generation, slotted DecodeScheduler (4 requests)")
+            fam = recurrent_family(dev, wd, arch)
+            paths[arch] = (fam["launches"], fam["kernels"])
+            torch.cuda.empty_cache()
+        for i, arch in enumerate(RECURRENT):
+            phase(f"[{12 + i}] card against CPU, {arch} at 4 layers of full "
+                  f"width, f32")
+            card_vs_cpu_recurrent(dev, wd, arch)
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:
@@ -957,9 +1330,6 @@ def main() -> int:
                      f"kernel {name} was not launched on {path}")
         launches = {n: sum(c[n] for c, _ in paths.values())
                     for n in ops.registry.names()}
-        del cs, params_q
-        phase("[9] card against CPU, 4 layers at full width, f32")
-        card_vs_cpu(dev, wd)
 
     kernels = []
     for name in ops.registry.names():

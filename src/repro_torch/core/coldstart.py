@@ -44,6 +44,7 @@ from repro_torch.core.units import (APPLIED, OUTPUT, PipelineContext,
                                     standard_units)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels import ops
+from repro_torch.models.api import Family
 from repro_torch.models.transformer import unit_seed
 from repro_torch.quant import QuantLeaf
 from repro_torch.store.store import Leaves, WeightStore, unflatten_unit
@@ -87,6 +88,11 @@ class ColdStartEngine:
         self.apply_dtype = apply_dtype
         self.compute_quant = compute_quant
         self.device = resolve_device(device)
+        if compute_quant and model.cfg.family != Family.DENSE:
+            raise NotImplementedError(
+                f"{model.cfg.name}: compute_quant (int8-resident weights) is "
+                f"not ported for the {model.cfg.family.value!r} family yet — "
+                f"ROADMAP queue 1 item 12")
         if model.device != self.device:
             raise ValueError(f"model is built for {model.device}, engine "
                              f"runs on {self.device}")

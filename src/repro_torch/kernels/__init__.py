@@ -8,6 +8,8 @@ PyTorch version and a launch counter:
   weight_transform  int8 dequant or f32 cast: the A phase of a cold start
   quant_matmul      w8a16 matmul with the dequant fused: int8-resident
                     (compute_quant) projections and head
+  ssd_scan          the Mamba-2 SSD chunked scan (initial and final state)
+  rglru_scan        the RG-LRU linear recurrence (initial and final state)
 
 Model code calls them through :mod:`repro_torch.kernels.ops`.
 """

@@ -21,7 +21,12 @@
 // valid if j <= pos, or, with a window, if the position it holds under the
 // ring-buffer rule lies in (pos - window, pos] (decode_attention.py:70-72).
 // With B=1 and K=5 this fills 5 of the card's 132 SMs; splitting the cache
-// across blocks with a merge pass is later work.
+// across blocks with a merge pass is later work.  At dh <= 128 the P @ V
+// phase gives each thread one output dim for THREADS / dh groups of heads.
+// At dh 256 (recurrentgemma: rep 10 over one kv head) each thread owns
+// dh / THREADS dims for all heads, and the K tile is 32 rows and rep at most
+// 12, so that the shared memory stays within the 48 KB a block holds
+// statically.
 //
 // decode_attention_paged (repro_decode_attention_paged) replaces
 // src/repro/kernels/decode_attention.py::decode_attention_paged, which runs in
@@ -42,10 +47,15 @@
 
 namespace {
 
-constexpr int TK = 64;          // cache rows per tile
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_REP = 16;     // query heads per kv head
+
+// Per head dim: cache rows per tile and query heads per kv head.
+template <int DH>
+struct Tile {
+  static constexpr int TK = DH <= 128 ? 64 : 32;
+  static constexpr int MAX_REP = DH <= 128 ? 16 : 12;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -91,9 +101,13 @@ decode_body(const T* __restrict__ q, const T* __restrict__ kc,
             const T* __restrict__ vc, const int* __restrict__ pos_arr,
             T* __restrict__ o, int H, int K, int S_max, int window,
             float scale, const Rows rows) {
+  constexpr int TK = Tile<DH>::TK;
+  constexpr int MAX_REP = Tile<DH>::MAX_REP;
   constexpr int NG = THREADS / TK;          // head groups in the score phase
-  constexpr int G = THREADS / DH;           // head groups in the PV phase
+  constexpr bool WIDE = DH > THREADS;       // P @ V: dims per thread > 1
+  constexpr int G = WIDE ? 1 : THREADS / DH;  // head groups in the PV phase
   constexpr int ACC = MAX_REP / G;
+  constexpr int DPT = WIDE ? DH / THREADS : 1;
   __shared__ float qs[MAX_REP][DH];
   __shared__ float ks[TK][DH + 1];
   __shared__ float ps[MAX_REP][TK];
@@ -120,6 +134,13 @@ decode_body(const T* __restrict__ q, const T* __restrict__ kc,
   float acc[ACC];
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  float wacc[DPT][WIDE ? MAX_REP : 1];      // the wide P @ V's accumulator
+  if constexpr (WIDE) {
+#pragma unroll
+    for (int k = 0; k < DPT; ++k)
+#pragma unroll
+      for (int i = 0; i < MAX_REP; ++i) wacc[k][i] = 0.f;
+  }
 
   int n_keys = (window > 0 && pos >= window) ? S_max : min(pos + 1, S_max);
   if (n_keys < 0) n_keys = 0;
@@ -160,7 +181,7 @@ decode_body(const T* __restrict__ q, const T* __restrict__ kc,
       const int lane = tid & 31;
       for (int r = warp; r < rep; r += WARPS) {
         const float s0 = ps[r][lane];
-        const float s1 = ps[r][lane + 32];
+        const float s1 = TK > 32 ? ps[r][lane + TK / 2] : -INFINITY;
         float mx = fmaxf(s0, s1);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
@@ -174,7 +195,7 @@ decode_body(const T* __restrict__ q, const T* __restrict__ kc,
           alpha = expf(m_old - m_new);
         }
         ps[r][lane] = p0;
-        ps[r][lane + 32] = p1;
+        if constexpr (TK > 32) ps[r][lane + TK / 2] = p1;
         float sm = p0 + p1;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
@@ -188,8 +209,32 @@ decode_body(const T* __restrict__ q, const T* __restrict__ kc,
     }
     __syncthreads();
 
-    // P @ V: thread (d, group) for heads group, group + G, ...
-    if (g < G) {
+    if constexpr (WIDE) {
+      // P @ V, wide: thread t for dims t, t + THREADS, ... of every head
+#pragma unroll
+      for (int i = 0; i < MAX_REP; ++i) {
+        if (i < rep) {
+#pragma unroll
+          for (int k = 0; k < DPT; ++k) wacc[k][i] *= alpha_s[i];
+        }
+      }
+      const int n = min(TK, n_keys - t0);
+      for (int j = 0; j < n; ++j) {
+        const long long r = Rows::kStage ? roff[j] : rows(t0 + j);
+        float vv[DPT];
+#pragma unroll
+        for (int k = 0; k < DPT; ++k)
+          vv[k] = to_f32(vc[r * DH + tid + k * THREADS]);
+#pragma unroll
+        for (int i = 0; i < MAX_REP; ++i) {
+          if (i < rep) {
+#pragma unroll
+            for (int k = 0; k < DPT; ++k) wacc[k][i] += ps[i][j] * vv[k];
+          }
+        }
+      }
+    } else if (g < G) {
+      // P @ V: thread (d, group) for heads group, group + G, ...
 #pragma unroll
       for (int i = 0; i < ACC; ++i) {
         const int r = g + G * i;
@@ -208,7 +253,18 @@ decode_body(const T* __restrict__ q, const T* __restrict__ kc,
     }
   }
   __syncthreads();
-  if (g < G) {
+  if constexpr (WIDE) {
+#pragma unroll
+    for (int i = 0; i < MAX_REP; ++i) {
+      if (i < rep) {
+        const float l = l_s[i];
+#pragma unroll
+        for (int k = 0; k < DPT; ++k)
+          put(o + q_base + (long long)i * DH + tid + k * THREADS,
+              l > 0.f ? wacc[k][i] / l : 0.f);
+      }
+    }
+  } else if (g < G) {
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
       const int r = g + G * i;
@@ -278,7 +334,8 @@ extern "C" int repro_decode_attention(const void* q, const void* kc,
                                       void* o, int B, int H, int K, int S_max,
                                       int dh, int dtype, int window,
                                       float scale, void* stream) {
-  if (B <= 0 || K <= 0 || S_max <= 0 || H % K != 0 || H / K > MAX_REP)
+  if (B <= 0 || K <= 0 || S_max <= 0 || H % K != 0 ||
+      H / K > (dh <= 128 ? Tile<128>::MAX_REP : Tile<256>::MAX_REP))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && dh == 64)
@@ -292,6 +349,12 @@ extern "C" int repro_decode_attention(const void* q, const void* kc,
                                      window, scale, s);
   if (dtype == 1 && dh == 128)
     return launch<__nv_bfloat16, 128>(q, kc, vc, pos, o, B, H, K, S_max,
+                                      window, scale, s);
+  if (dtype == 0 && dh == 256)
+    return launch<float, 256>(q, kc, vc, pos, o, B, H, K, S_max, window,
+                              scale, s);
+  if (dtype == 1 && dh == 256)
+    return launch<__nv_bfloat16, 256>(q, kc, vc, pos, o, B, H, K, S_max,
                                       window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -307,7 +370,7 @@ extern "C" int repro_decode_attention_paged(const void* q, const void* kp,
                                             int dh, int dtype, int window,
                                             float scale, void* stream) {
   if (B <= 0 || K <= 0 || NP <= 0 || pt <= 0 || H % K != 0 ||
-      H / K > MAX_REP)
+      H / K > (dh <= 128 ? Tile<128>::MAX_REP : Tile<256>::MAX_REP))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && dh == 64)
@@ -321,6 +384,12 @@ extern "C" int repro_decode_attention_paged(const void* q, const void* kp,
                                            K, NP, pt, window, scale, s);
   if (dtype == 1 && dh == 128)
     return launch_paged<__nv_bfloat16, 128>(q, kp, vp, tables, pos, o, B, H,
+                                            K, NP, pt, window, scale, s);
+  if (dtype == 0 && dh == 256)
+    return launch_paged<float, 256>(q, kp, vp, tables, pos, o, B, H, K, NP,
+                                    pt, window, scale, s);
+  if (dtype == 1 && dh == 256)
+    return launch_paged<__nv_bfloat16, 256>(q, kp, vp, tables, pos, o, B, H,
                                             K, NP, pt, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,9 +10,11 @@
 // CUDA cores (no mma.sync, no wgmma/TMA), so it sits well above either bound
 // at long S; making it fast is later work.
 //
-// What the design does: one block per (64-row query tile, head, batch), two
-// threads per query row, each holding half of the row's q and accumulator
-// (dims 2i and 2i+1, so the pair reads neighbouring shared-memory words).
+// What the design does: one block per (64-row query tile, head, batch), TPR
+// threads per query row, each holding DH / TPR of the row's q and accumulator
+// (dims i * TPR + sub, so the row's threads read neighbouring shared-memory
+// words): two threads at dh 64 and 128, eight at dh 256 (recurrentgemma), so
+// that no thread holds more than 64 floats of q and accumulator.
 // K/V tiles of BK rows are staged in shared memory as f32, read once per
 // block for all 64 rows; the running max, denominator and accumulator stay
 // in registers in f32.  Masks come from absolute positions (queries are the
@@ -30,8 +32,16 @@
 namespace {
 
 constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 32;        // keys per shared-memory tile
-constexpr int THREADS = 2 * BQ;
+
+// Per head dim: threads per query row and keys per shared-memory tile (the
+// f32 K and V tiles stay within 48 KB of static shared memory).
+template <int DH>
+struct Tile {
+  static constexpr int TPR = DH <= 128 ? 2 : 8;
+  static constexpr int BK = DH <= 128 ? 32 : 16;
+  static constexpr int THREADS = BQ * TPR;
+  static_assert(TPR == 2 || TPR == 8, "row split by shifts and shuffles");
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -53,20 +63,23 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, int causal,
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<DH>::THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int H, int K, int S,
              int T_len, long long qsb, long long qss, long long qsh,
              long long ksb, long long kss, long long ksh, long long vsb,
              long long vss, long long vsh, int causal, int window,
              float scale) {
-  constexpr int HALF = DH / 2;
+  constexpr int TPR = Tile<DH>::TPR;
+  constexpr int BK = Tile<DH>::BK;
+  constexpr int THREADS = Tile<DH>::THREADS;
+  constexpr int DPT = DH / TPR;           // dims of the row per thread
   __shared__ float ks[BK][DH];
   __shared__ float vs[BK][DH];
 
   const int tid = threadIdx.x;
-  const int r = tid >> 1;
-  const int half = tid & 1;
+  const int r = tid >> (TPR == 2 ? 1 : 3);
+  const int sub = tid & (TPR - 1);
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -76,13 +89,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_off = T_len - S;
   const int qpos = q_off + qi;
 
-  float qr[HALF];
-  float acc[HALF];
+  float qr[DPT];
+  float acc[DPT];
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) {
+  for (int i = 0; i < DPT; ++i) {
     acc[i] = 0.f;
     qr[i] = row_ok ? to_f32(q[b * qsb + (long long)qi * qss + h * qsh +
-                              2 * i + half]) * scale
+                              i * TPR + sub]) * scale
                    : 0.f;
   }
   float m = -INFINITY;
@@ -123,8 +136,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < HALF; ++i) part += qr[i] * ks[j][2 * i + half];
+      for (int i = 0; i < DPT; ++i) part += qr[i] * ks[j][i * TPR + sub];
       part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if constexpr (TPR == 8) {
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        part += __shfl_xor_sync(0xffffffffu, part, 4);
+      }
       const int kp = t0 + j;
       const bool ok = row_ok && kp < k_end && kp >= k_begin &&
                       allowed(qpos, kp, causal, window);
@@ -136,13 +153,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m - m_new);
       l *= alpha;
 #pragma unroll
-      for (int i = 0; i < HALF; ++i) acc[i] *= alpha;
+      for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
 #pragma unroll
       for (int j = 0; j < BK; ++j) {
         const float p = expf(s[j] - m_new);
         l += p;
 #pragma unroll
-        for (int i = 0; i < HALF; ++i) acc[i] += p * vs[j][2 * i + half];
+        for (int i = 0; i < DPT; ++i) acc[i] += p * vs[j][i * TPR + sub];
       }
       m = m_new;
     }
@@ -151,8 +168,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
     T* orow = o + (((long long)b * S + qi) * H + h) * DH;
 #pragma unroll
-    for (int i = 0; i < HALF; ++i)
-      put(orow + 2 * i + half, l > 0.f ? acc[i] / l : 0.f);
+    for (int i = 0; i < DPT; ++i)
+      put(orow + i * TPR + sub, l > 0.f ? acc[i] / l : 0.f);
   }
 }
 
@@ -161,7 +178,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int K, int S, int T_len, const long long* st, int causal,
            int window, float scale, cudaStream_t s) {
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_kernel<T, DH><<<grid, THREADS, 0, s>>>(
+  flash_kernel<T, DH><<<grid, Tile<DH>::THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, K, S, T_len, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
@@ -196,6 +213,12 @@ extern "C" int repro_flash_attention(
                                      causal, window, scale, s);
   if (dtype == 1 && dh == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, K, S, T_len, st,
+                                      causal, window, scale, s);
+  if (dtype == 0 && dh == 256)
+    return launch<float, 256>(q, k, v, o, B, H, K, S, T_len, st, causal,
+                              window, scale, s);
+  if (dtype == 1 && dh == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, B, H, K, S, T_len, st,
                                       causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,6 +48,8 @@ SIGNATURES = {
     "repro_decode_attention_paged": [P, P, P, P, P, P, I, I, I, I, I, I, I,
                                      I, F, P],
     "repro_quant_matmul": [P, P, P, P, I, I, I, I, I, P],
+    "repro_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "repro_rglru_scan": [P, P, P, P, P, I, I, I, I, I, P],
 }
 
 

@@ -24,8 +24,12 @@ launches = cuda_lib.LaunchCounter()
 paged_launches = cuda_lib.LaunchCounter()
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
-MAX_REP = 16
+HEAD_DIMS = (64, 128, 256)
+
+
+def max_rep(dh: int) -> int:
+    """Query heads per kv head the kernel takes at head dim ``dh``."""
+    return 16 if dh <= 128 else 12
 
 
 def plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -45,9 +49,10 @@ def _check_heads(what: str, q: torch.Tensor, K: int, dh: int):
     if K == 0 or H % K or q.shape[2] != dh:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not match {K} "
                          f"kv heads of dim {dh}")
-    if H // K > MAX_REP or dh not in HEAD_DIMS:
-        raise ValueError(f"{what}: rep {H // K} (max {MAX_REP}) or head dim "
-                         f"{dh} ({HEAD_DIMS}) not supported by the kernel")
+    if dh not in HEAD_DIMS or H // K > max_rep(dh):
+        raise ValueError(f"{what}: head dim {dh} ({HEAD_DIMS}) or rep "
+                         f"{H // K} (max {max_rep(dh)}) not supported by "
+                         f"the kernel")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

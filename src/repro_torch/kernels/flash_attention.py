@@ -19,7 +19,7 @@ REPLACES = "src/repro/kernels/flash_attention.py:93"
 launches = cuda_lib.LaunchCounter()
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

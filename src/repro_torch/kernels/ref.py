@@ -4,8 +4,6 @@ honest definition).  Each mirrors its counterpart in the JAX package's
 ``kernels/ref.py`` operation for operation, so the two can be held
 against each other on the same inputs.
 
-The oracles of ``ssd`` and ``rglru`` come with their kernels (ROADMAP
-queue 2).
 """
 from __future__ import annotations
 
@@ -107,6 +105,65 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     kc = k_pages[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)
     vc = v_pages[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)
     return decode_attention(q, kc, vc, pos, window=window)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, *, h0: Optional[torch.Tensor] = None,
+        return_state: bool = False):
+    """Naive sequential SSD recurrence (the definition).
+
+    x:  (b, nh, S, dp)   inputs per head
+    dt: (b, nh, S)       positive step sizes (softplus already applied)
+    A:  (nh,)            negative decay rates (A = -exp(A_log))
+    B:  (b, S, N)        input projections (ngroups=1, shared over heads)
+    C:  (b, S, N)        output projections
+    h0: (b, nh, dp, N)   optional initial state
+    Recurrence per head:  h_t = exp(dt_t * A) * h_{t-1} + dt_t * x_t B_t^T
+                          y_t = h_t C_t   (D skip applied by the caller)
+    Returns y (b, nh, S, dp) in x's dtype [, h_S (b, nh, dp, N) f32].
+    """
+    b, nh, S, dp = x.shape
+    N = B.shape[-1]
+    h = (torch.zeros((b, nh, dp, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = B.float(), C.float()
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, :, t] * Af[None, :])             # (b, nh)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtf[:, :, t], xf[:, :, t],
+                           Bf[:, t])
+        h = h * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    y = (torch.stack(ys, dim=2) if ys else
+         torch.zeros((b, nh, 0, dp), device=x.device)).to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor, *,
+          h0: Optional[torch.Tensor] = None, return_state: bool = False):
+    """h_t = a_t * h_{t-1} + b_t, elementwise over the width dim.
+
+    a, b: (B, S, W); h0: (B, W).  Returns h at every step (B, S, W) in
+    a's dtype [, h_S (B, W) f32].  (The gates -- r_t, i_t, the
+    sqrt(1-a^2) input scale -- are the model's; this is the pure
+    first-order linear recurrence.)
+    """
+    Bsz, S, W = a.shape
+    h = (torch.zeros((Bsz, W), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, bf = a.float(), b.float()
+    ys = []
+    for t in range(S):
+        h = af[:, t] * h + bf[:, t]
+        ys.append(h)
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((Bsz, 0, W), device=a.device)).to(a.dtype)
+    if return_state:
+        return y, h
+    return y
 
 
 def weight_transform(w: torch.Tensor, scale: Optional[torch.Tensor],

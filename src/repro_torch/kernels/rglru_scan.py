@@ -1,0 +1,83 @@
+"""rglru_scan: the RG-LRU linear recurrence h_t = a_t * h_{t-1} + b_t over
+a, b (B, S, W), from an optional initial state h0 (B, W), returning h at
+every step (B, S, W) in a's dtype and, on request, the state after step
+``n_valid - 1`` (f32): a caller that padded S with trailing zero steps
+(which would reset h to 0) still gets the true final state.
+
+Kernel: ``csrc/rglru_scan.cu`` (see its note on what bounds it).  On CUDA
+tensors :func:`rglru_scan` launches that kernel or raises; on CPU tensors
+it computes :func:`plain`, the sequential definition
+(:func:`repro_torch.kernels.ref.rglru`).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import cuda_lib, ref
+
+SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
+REPLACES = "src/repro/kernels/rglru_scan.py:38"
+launches = cuda_lib.LaunchCounter()
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plain(a: torch.Tensor, b: torch.Tensor, *,
+          h0: Optional[torch.Tensor] = None, return_state: bool = False,
+          n_valid: Optional[int] = None):
+    n = a.shape[1] if n_valid is None else int(n_valid)
+    y, hn = ref.rglru(a[:, :n], b[:, :n], h0=h0, return_state=True)
+    if n < a.shape[1]:
+        y = torch.cat([y, ref.rglru(a[:, n:], b[:, n:], h0=hn)], dim=1)
+    return (y, hn) if return_state else y
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
+               h0: Optional[torch.Tensor] = None, return_state: bool = False,
+               n_valid: Optional[int] = None):
+    """a, b: (B, S, W); h0: (B, W) f32.  Returns y, or (y, h) with
+    ``return_state``, h the state after step ``n_valid - 1`` (default S
+    - 1)."""
+    if a.device.type == "cpu":
+        return plain(a, b, h0=h0, return_state=return_state,
+                     n_valid=n_valid)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    if a.dim() != 3 or a.dtype not in _DTYPE or b.shape != a.shape or \
+            b.dtype != a.dtype:
+        raise ValueError(f"rglru_scan: a, b must be (B, S, W) of one dtype "
+                         f"(float32 or bfloat16), got {a.dtype} "
+                         f"{tuple(a.shape)}, {b.dtype} {tuple(b.shape)}")
+    Bsz, S, W = a.shape
+    n = S if n_valid is None else int(n_valid)
+    if not 0 <= n <= S:
+        raise ValueError(f"rglru_scan: n_valid {n_valid} outside [0, {S}]")
+    for name, t in (("a", a), ("b", b)):
+        if t.device != a.device or not t.is_contiguous():
+            raise ValueError(f"rglru_scan: {name} must be contiguous on "
+                             f"{a.device}")
+    if h0 is not None and (tuple(h0.shape) != (Bsz, W) or
+                           h0.dtype != torch.float32 or
+                           h0.device != a.device or not h0.is_contiguous()):
+        raise ValueError(f"rglru_scan: h0 must be contiguous float32 "
+                         f"({Bsz}, {W}) on {a.device}, got {h0.dtype} "
+                         f"{tuple(h0.shape)} on {h0.device}")
+    y = torch.empty_like(a)
+    hS = (torch.empty((Bsz, W), dtype=torch.float32, device=a.device)
+          if return_state else None)
+    if a.numel() == 0:                  # nothing to scan: the state is h0
+        if hS is not None:
+            hS.copy_(h0 if h0 is not None else torch.zeros_like(hS))
+        return (y, hS) if return_state else y
+    lib = cuda_lib.library()
+    with torch.cuda.device(a.device):
+        rc = lib.repro_rglru_scan(
+            a.data_ptr(), b.data_ptr(), y.data_ptr(),
+            None if h0 is None else h0.data_ptr(),
+            None if hS is None else hS.data_ptr(), Bsz, S, W, n,
+            _DTYPE[a.dtype], cuda_lib.stream_ptr(a.device))
+    cuda_lib.check(rc, "rglru_scan")
+    launches.add()
+    return (y, hS) if return_state else y

@@ -1,5 +1,6 @@
-"""Building blocks of the dense LM: norms, RoPE, GQA attention (full or
-sliding window), SwiGLU / GELU MLPs, embedding and head.
+"""Building blocks of the LMs: norms, RoPE, GQA attention (full or
+sliding window), SwiGLU / GELU MLPs, the causal depthwise conv of the
+recurrent blocks, embedding and head.
 
 Parameters are plain dicts of tensors in the reference's layouts
 (``wq (d, H, dh)``, ``wo (H, dh, d)``, ``tok (V, d)``, caches
@@ -235,18 +236,56 @@ def mlp_init_(cfg, p: Dict[str, torch.Tensor], gen: torch.Generator):
     dense_init_(p["wd"], gen, fan_in=p["wd"].shape[0])
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximate GELU as the reference computes it
+    (``jax.nn.gelu``): op by op in x's dtype, its constants rounded to
+    that dtype, so that bf16 rounds where it does there (``F.gelu``
+    rounds once, and differs from it in about 40% of bf16 outputs)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def mlp_block(cfg, p: PyTree, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.compute_dtype
     x = x.to(cd)
     if cfg.act in ("silu", "geglu"):
         g = quant.einsum(x, p["wg"], cd)
         u = quant.einsum(x, p["wu"], cd)
-        act = F.silu if cfg.act == "silu" else \
-            (lambda t: F.gelu(t, approximate="tanh"))
+        act = F.silu if cfg.act == "silu" else gelu
         h = act(g) * u
     else:
-        h = F.gelu(quant.einsum(x, p["wu"], cd), approximate="tanh")
+        h = gelu(quant.einsum(x, p["wu"], cd))
     return quant.einsum(h, p["wd"], cd)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv (Mamba-2 / Griffin temporal conv)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, kernel, state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv.  x: (B, S, C); kernel: (W, C); state:
+    (B, W-1, C) prefix carried across calls (None -> zeros).  Returns
+    (y (B, S, C) in x's dtype, new_state (B, W-1, C)); the taps
+    accumulate in f32."""
+    B, S, C = x.shape
+    if quant.is_quant(kernel):           # conv taps are tiny: dequant whole
+        kernel = kernel.astype(torch.float32)
+    W = kernel.shape[0]
+    if state is None:
+        state = torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)                         # (B, S+W-1, C)
+    y = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for i in range(W):
+        y = y + xp[:, i:i + S].float() * kernel[i].float()
+    new_state = xp[:, S:] if W > 1 else xp[:, :0]
+    return y.to(x.dtype), new_state
+
+
+def conv_init_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Conv taps (W, C): the dense init with fan-in W."""
+    return dense_init_(t, gen, fan_in=t.shape[0])
 
 
 # ---------------------------------------------------------------------------

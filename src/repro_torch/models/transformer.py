@@ -1,27 +1,36 @@
 """LM assembly of the port: the stacked steady-state view and the
-streaming unit view of ``repro.models.transformer``, dense family.
+streaming unit view of ``repro.models.transformer``, for the dense, SSM
+(Mamba-2) and hybrid (Griffin) families.
 
 Parameters are nested dicts of tensors with the reference's tree
-structure and layouts: ``{"embed": {"tok"}, "blocks": {"s0": {...}},
-"final": {"norm", "head"}}``, every ``blocks/s0`` leaf stacked
-``(n_units, ...)``.  The forward passes loop over the stacked units in
-Python (PyTorch runs eagerly; there is no scan to keep small).
+structure and layouts: ``{"embed": {"tok"}, "blocks": {"s0": {...}, ...,
+"t0": {...}, ...}, "final": {"norm", "head"}}``.  Layers are grouped as
+the reference groups them: a repeating pattern of block kinds (length 1
+for uniform stacks, ``("rglru", "rglru", "attn")`` for Griffin) whose
+slot ``s{slot}`` leaves are stacked ``(n_units, ...)``, plus a tail of
+the layers left over (``t{t}``, unstacked).  The forward passes loop over
+the stacked units in Python (PyTorch runs eagerly; there is no scan to
+keep small).  Decode caches have the same grouping: attention K/V
+``(B, K, S_max, dh)``, SSD ``{"conv", "ssm"}`` and RG-LRU ``{"conv", "h"}``
+states, ``(n_units, B, ...)`` in the stacked groups and ``(B, ...)`` in
+the tail.
 
 The embed, block and final units are ``nn.Module``s (:class:`EmbedUnit`,
-:class:`BlockUnit`, :class:`FinalUnit`) that own their parameters in
-those layouts.  Constructing one is the pipeline's layer construction:
-on ``torch.device("meta")`` it is MiniLoader's shape-only structure
-(:meth:`LM.abstract_unit`), on a real device with ``init_`` it is the
-PISeL-faithful numerical initialization (:meth:`LM.init_unit`).
+:class:`BlockUnit` of one block kind, :class:`FinalUnit`) that own their
+parameters in those layouts.  Constructing one is the pipeline's layer
+construction: on ``torch.device("meta")`` it is MiniLoader's shape-only
+structure (:meth:`LM.abstract_unit`), on a real device with ``init_`` it
+is the PISeL-faithful numerical initialization (:meth:`LM.init_unit`).
 
 The paged side (``decode_step_paged`` over page pools ``(n_units, P, K,
 pt, dh)``, ``gather_pages`` / ``pack_pages`` / ``copy_page``, and
 ``prefill_continue`` for prefix reuse) follows the reference's
-``transformer.py:615-830``; like the slotted caches, pools and caches are
-written in place.
+``transformer.py:615-830`` for the dense family; like the slotted caches,
+pools and caches are written in place.  Paging the hybrid's attention
+layers waits (ROADMAP queue 1 item 12).
 
-Only the dense family runs in this slice; every other family raises
-``NotImplementedError`` naming its ROADMAP item.
+The MoE, audio, VLM and vision families raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ from torch import nn
 from repro_torch import tree as tree_util
 from repro_torch.kernels import ops
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import layers
+from repro_torch.models import griffin, layers, ssm
 from repro_torch.models.api import ArchConfig, Family
 from repro_torch.quant import QuantLeaf
 
@@ -42,13 +51,12 @@ PyTree = Any
 
 _PENDING = {
     Family.MOE: "ROADMAP queue 1 item 11 (MoE)",
-    Family.SSM: "ROADMAP queue 1 item 12 (mamba2, kernel ssd_scan)",
-    Family.HYBRID: "ROADMAP queue 1 item 12 (recurrentgemma, kernel "
-                   "rglru_scan)",
     Family.AUDIO: "ROADMAP queue 1 item 12 (hubert stub path)",
     Family.VLM: "ROADMAP queue 1 item 12 (internvl2 stub path)",
     Family.VISION: "ROADMAP queue 1 item 7 (vision family)",
 }
+PAGING_PENDING = ("ROADMAP queue 1 item 12 (paged decode of the recurrent "
+                  "families)")
 
 
 # ---------------------------------------------------------------------------
@@ -91,20 +99,39 @@ class EmbedUnit(UnitModule):
 
 
 class BlockUnit(UnitModule):
-    """One pre-norm attention + MLP block."""
+    """One pre-norm block of ``kind``: ``attn`` (attention + MLP), ``ssd``
+    (the Mamba-2 mixer) or ``rglru`` (the RG-LRU mixer + MLP)."""
 
-    def __init__(self, cfg: ArchConfig, device):
-        super().__init__(cfg, {"norm1": layers.norm_shapes(cfg),
-                               "attn": layers.attn_shapes(cfg),
-                               "norm2": layers.norm_shapes(cfg),
-                               "mlp": layers.mlp_shapes(cfg)}, device)
+    def __init__(self, cfg: ArchConfig, kind: str, device):
+        _check_kind(kind)
+        shapes: Dict[str, Any] = {"norm1": layers.norm_shapes(cfg)}
+        if kind == "attn":
+            shapes.update(attn=layers.attn_shapes(cfg),
+                          norm2=layers.norm_shapes(cfg),
+                          mlp=layers.mlp_shapes(cfg))
+        elif kind == "ssd":
+            shapes["ssd"] = ssm.ssd_shapes(cfg)
+        else:
+            shapes.update(rglru=griffin.rglru_shapes(cfg),
+                          norm2=layers.norm_shapes(cfg),
+                          mlp=layers.mlp_shapes(cfg))
+        super().__init__(cfg, shapes, device)
+        self.kind = kind
 
     def init_(self, gen: torch.Generator) -> "BlockUnit":
-        p = self.tree()
-        layers.norm_init_(self.cfg, p["norm1"])
-        layers.attn_init_(self.cfg, p["attn"], gen)
-        layers.norm_init_(self.cfg, p["norm2"])
-        layers.mlp_init_(self.cfg, p["mlp"], gen)
+        """The reference's ``block_params`` init rules, drawn in the order
+        norm1, mixer, norm2, MLP."""
+        cfg, p = self.cfg, self.tree()
+        layers.norm_init_(cfg, p["norm1"])
+        if self.kind == "attn":
+            layers.attn_init_(cfg, p["attn"], gen)
+        elif self.kind == "ssd":
+            ssm.ssd_init_(cfg, p["ssd"], gen)
+        else:
+            griffin.rglru_init_(cfg, p["rglru"], gen)
+        if "mlp" in p:
+            layers.norm_init_(cfg, p["norm2"])
+            layers.mlp_init_(cfg, p["mlp"], gen)
         return self
 
 
@@ -126,22 +153,27 @@ class FinalUnit(UnitModule):
 
 
 # ---------------------------------------------------------------------------
-# per-kind block functions (dense: "attn")
+# per-kind block functions: "attn", "ssd", "rglru"
 # ---------------------------------------------------------------------------
 
-KIND = "attn"          # the block kind of every dense layer
+KINDS = ("attn", "ssd", "rglru")
+ATTN = "attn"          # the block kind of every dense layer
 
 
 def _check_kind(kind: str):
-    if kind != KIND:
+    if kind not in KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r}: only dense 'attn' blocks are ported "
-            f"(see ROADMAP queue 1 items 11-12)")
+            f"block kind {kind!r}: only {KINDS} blocks are ported (see "
+            f"ROADMAP queue 1 items 11-12)")
 
 
 def block_params(cfg, kind: str, gen: torch.Generator) -> PyTree:
-    _check_kind(kind)
-    return BlockUnit(cfg, gen.device).init_(gen).tree()
+    return BlockUnit(cfg, kind, gen.device).init_(gen).tree()
+
+
+def _mlp_half(cfg, p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    h = layers.apply_norm(cfg, p["norm2"], x)
+    return x + layers.mlp_block(cfg, p["mlp"], h)
 
 
 def block_apply(cfg, kind: str, p: PyTree, x: torch.Tensor,
@@ -150,16 +182,26 @@ def block_apply(cfg, kind: str, p: PyTree, x: torch.Tensor,
     aux loss, which only MoE blocks make)."""
     _check_kind(kind)
     h = layers.apply_norm(cfg, p["norm1"], x)
-    x = x + layers.attention_block(cfg, p["attn"], h, positions,
-                                   window=cfg.sliding_window)
-    h = layers.apply_norm(cfg, p["norm2"], x)
-    return x + layers.mlp_block(cfg, p["mlp"], h)
+    if kind == "ssd":
+        return x + ssm.ssd_block(cfg, p["ssd"], h)
+    if kind == "rglru":
+        x = x + griffin.rglru_block(cfg, p["rglru"], h)
+    else:
+        x = x + layers.attention_block(cfg, p["attn"], h, positions,
+                                       window=cfg.sliding_window)
+    return _mlp_half(cfg, p, x)
 
 
 def kind_cache(cfg, kind: str, batch: int, cache_len: int,
                device) -> PyTree:
     """Zeroed decode cache for one layer of this kind."""
     _check_kind(kind)
+    if kind == "ssd":
+        conv, state = ssm.init_states(cfg, batch, device)
+        return {"conv": conv, "ssm": state}
+    if kind == "rglru":
+        conv, h = griffin.init_states(cfg, batch, device)
+        return {"conv": conv, "h": h}
     w = cfg.sliding_window
     n = min(cache_len, w) if w > 0 else cache_len
     shape = (batch, cfg.n_kv_heads, n, cfg.dh)            # kv-head-major
@@ -167,19 +209,34 @@ def kind_cache(cfg, kind: str, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
 
 
+def _store(cache: PyTree, **new: torch.Tensor) -> PyTree:
+    """Write recurrent states into their cache leaves in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return cache
+
+
 def block_decode(cfg, kind: str, p: PyTree, x: torch.Tensor,
                  pos: torch.Tensor, cache: PyTree
                  ) -> Tuple[torch.Tensor, PyTree]:
     """Single-token decode.  x: (B, 1, d); pos: (B,) int32.  Writes this
-    token's K/V into ``cache`` in place."""
+    token's K/V, or the layer's new recurrent state, into ``cache`` in
+    place."""
     _check_kind(kind)
     h = layers.apply_norm(cfg, p["norm1"], x)
-    y, kc, vc = layers.attention_decode(cfg, p["attn"], h, pos, cache["k"],
-                                        cache["v"],
-                                        window=cfg.sliding_window)
-    x = x + y
-    h = layers.apply_norm(cfg, p["norm2"], x)
-    return x + layers.mlp_block(cfg, p["mlp"], h), {"k": kc, "v": vc}
+    if kind == "ssd":
+        y, conv, state = ssm.ssd_decode(cfg, p["ssd"], h, cache["conv"],
+                                        cache["ssm"])
+        return x + y, _store(cache, conv=conv, ssm=state)
+    if kind == "rglru":
+        y, conv, hs = griffin.rglru_decode(cfg, p["rglru"], h, cache["conv"],
+                                           cache["h"])
+        _store(cache, conv=conv, h=hs)
+    else:
+        y, _, _ = layers.attention_decode(cfg, p["attn"], h, pos, cache["k"],
+                                          cache["v"],
+                                          window=cfg.sliding_window)
+    return _mlp_half(cfg, p, x + y), cache
 
 
 def block_prefill(cfg, kind: str, p: PyTree, x: torch.Tensor,
@@ -189,6 +246,15 @@ def block_prefill(cfg, kind: str, p: PyTree, x: torch.Tensor,
     (in place)."""
     _check_kind(kind)
     h = layers.apply_norm(cfg, p["norm1"], x)
+    if kind == "ssd":
+        y, (conv, state) = ssm.ssd_block(cfg, p["ssd"], h,
+                                         return_state=True)
+        return x + y, _store(cache, conv=conv, ssm=state)
+    if kind == "rglru":
+        y, (conv, hs) = griffin.rglru_block(cfg, p["rglru"], h,
+                                            return_state=True)
+        _store(cache, conv=conv, h=hs)
+        return _mlp_half(cfg, p, x + y), cache
     y, k, v = layers.attention_block(cfg, p["attn"], h, positions,
                                      window=cfg.sliding_window,
                                      return_kv=True)
@@ -201,15 +267,14 @@ def block_prefill(cfg, kind: str, p: PyTree, x: torch.Tensor,
         cache["k"].dtype)
     cache["v"][:, :, slots] = v[:, S - n:].transpose(1, 2).to(
         cache["v"].dtype)
-    h = layers.apply_norm(cfg, p["norm2"], x)
-    return x + layers.mlp_block(cfg, p["mlp"], h), cache
+    return _mlp_half(cfg, p, x), cache
 
 
 def _kind_paged(cfg, kind: str) -> bool:
     """True when this layer kind's KV can live in a shared page pool:
     full attention only (a sliding-window ring reuses physical slots
     for rolling positions, so it stays slot-resident)."""
-    return kind == KIND and cfg.sliding_window == 0
+    return kind == ATTN and cfg.sliding_window == 0
 
 
 def block_decode_paged(cfg, kind: str, p: PyTree, x: torch.Tensor,
@@ -223,7 +288,6 @@ def block_decode_paged(cfg, kind: str, p: PyTree, x: torch.Tensor,
     if pages is None:
         x, cache = block_decode(cfg, kind, p, x, pos, cache)
         return x, cache, None
-    _check_kind(kind)
     h = layers.apply_norm(cfg, p["norm1"], x)
     y, kp, vp = layers.attention_decode_paged(cfg, p["attn"], h, pos,
                                               pages["k"], pages["v"], tables)
@@ -239,7 +303,6 @@ def block_chunk(cfg, kind: str, p: PyTree, x: torch.Tensor, cache_l: PyTree,
     Writes the segment's K/V into rows ``[off, off + cs)`` of ``cache_l``
     (in place); the queries sit at the last ``cs`` of ``off + cs`` key
     positions, which ``flash_attention`` masks from absolute positions."""
-    _check_kind(kind)
     positions = (off + torch.arange(cs, device=x.device))[None, :]
     h = layers.apply_norm(cfg, p["norm1"], x)
     q, k, v = layers.qkv_project(cfg, p["attn"], h, positions)
@@ -272,14 +335,43 @@ class LM:
     ``device``."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
-        if cfg.family != Family.DENSE:
+        if cfg.family in _PENDING:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family.value!r} is not ported yet "
                 f"— {_PENDING[cfg.family]}")
         self.cfg = cfg
         self.device = device
-        self.n_units = cfg.n_layers
+        self.pattern, self.n_units, self.tail_kinds = self._groups(cfg)
+        for kind in set(self.pattern) | set(self.tail_kinds):
+            _check_kind(kind)
         self._abstract_units: Dict[str, PyTree] = {}
+
+    @staticmethod
+    def _groups(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+        """(pattern of block kinds, number of pattern units, tail kinds)."""
+        kinds = cfg.layer_kinds()
+        if cfg.family == Family.HYBRID:
+            pat = tuple(cfg.block_pattern or ("rglru", "rglru", "attn"))
+        else:
+            pat = (kinds[0],)
+        n_units = len(kinds) // len(pat)
+        return pat, n_units, tuple(kinds[n_units * len(pat):])
+
+    def layer_kind(self, j: int) -> str:
+        u = len(self.pattern)
+        if j < self.n_units * u:
+            return self.pattern[j % u]
+        return self.tail_kinds[j - self.n_units * u]
+
+    def _layers(self, tree: PyTree):
+        """(kind, layer view) of every layer of a grouped tree (params or
+        cache) in layer order: unit i's slot views of the stacked groups,
+        then the tail groups."""
+        for i in range(self.n_units):
+            for slot, kind in enumerate(self.pattern):
+                yield kind, _index(tree[f"s{slot}"], i)
+        for t, kind in enumerate(self.tail_kinds):
+            yield kind, tree[f"t{t}"]
 
     # ------------------------------------------------------- streaming view
     def unit_names(self) -> List[str]:
@@ -295,14 +387,13 @@ class LM:
             return EmbedUnit(self.cfg, device)
         if name == "final":
             return FinalUnit(self.cfg, device)
-        return BlockUnit(self.cfg, device)
+        return BlockUnit(self.cfg, self.layer_kind(int(name.split("_")[1])),
+                         device)
 
     def init_unit(self, name: str, gen: torch.Generator) -> PyTree:
         """PISeL-faithful construction: full numerical initialization, on
         the generator's device."""
-        if name in ("embed", "final"):
-            return self.unit_module(name, gen.device).init_(gen).tree()
-        return block_params(self.cfg, KIND, gen)
+        return self.unit_module(name, gen.device).init_(gen).tree()
 
     def abstract_unit(self, name: str) -> PyTree:
         """MiniLoader construction: the unit built on the meta device —
@@ -314,9 +405,15 @@ class LM:
         return self._abstract_units[name]
 
     def assemble(self, units: Dict[str, PyTree]) -> PyTree:
-        per = [units[f"block_{i:03d}"] for i in range(self.n_units)]
-        blocks = {"s0": tree_util.tree_map(lambda *xs: torch.stack(xs),
-                                           *per)}
+        u = len(self.pattern)
+        blocks: Dict[str, PyTree] = {}
+        for slot in range(u):
+            per = [units[f"block_{i * u + slot:03d}"]
+                   for i in range(self.n_units)]
+            blocks[f"s{slot}"] = tree_util.tree_map(
+                lambda *xs: torch.stack(xs), *per)
+        for t in range(len(self.tail_kinds)):
+            blocks[f"t{t}"] = units[f"block_{self.n_units * u + t:03d}"]
         return {"embed": units["embed"], "blocks": blocks,
                 "final": units["final"]}
 
@@ -344,7 +441,8 @@ class LM:
                 params["embed"] = {"tok": state["embed_tok"]}
             out["logits"] = _head(cfg, params, state["x"])
             return out
-        out["x"] = block_apply(cfg, KIND, uparams, state["x"],
+        kind = self.layer_kind(int(name.split("_")[1]))
+        out["x"] = block_apply(cfg, kind, uparams, state["x"],
                                state["positions"])
         return out
 
@@ -378,18 +476,23 @@ class LM:
         cfg = self.cfg
         x = self.embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        blocks = params["blocks"]["s0"]
-        for i in range(self.n_units):
-            x = block_apply(cfg, KIND, _index(blocks, i), x,
-                            positions)
+        for kind, p in self._layers(params["blocks"]):
+            x = block_apply(cfg, kind, p, x, positions)
         return (_head(cfg, params, x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     # ------------------------------------------------------- decode + cache
     def init_cache(self, batch: int, cache_len: int) -> PyTree:
-        per = [kind_cache(self.cfg, KIND, batch, cache_len,
-                          self.device) for _ in range(self.n_units)]
-        return {"s0": tree_util.tree_map(lambda *xs: torch.stack(xs), *per)}
+        cfg, dev = self.cfg, self.device
+        caches: Dict[str, PyTree] = {}
+        for slot, kind in enumerate(self.pattern):
+            per = [kind_cache(cfg, kind, batch, cache_len, dev)
+                   for _ in range(self.n_units)]
+            caches[f"s{slot}"] = tree_util.tree_map(
+                lambda *xs: torch.stack(xs), *per)
+        for t, kind in enumerate(self.tail_kinds):
+            caches[f"t{t}"] = kind_cache(cfg, kind, batch, cache_len, dev)
+        return caches
 
     @torch.no_grad()
     def prefill(self, params: PyTree, batch: Dict[str, torch.Tensor],
@@ -399,10 +502,9 @@ class LM:
         cfg = self.cfg
         x = self.embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        blocks = params["blocks"]["s0"]
-        for i in range(self.n_units):
-            x, _ = block_prefill(cfg, KIND, _index(blocks, i), x,
-                                 positions, _index(cache["s0"], i))
+        for (kind, p), (_, c) in zip(self._layers(params["blocks"]),
+                                     self._layers(cache)):
+            x, _ = block_prefill(cfg, kind, p, x, positions, c)
         return _head(cfg, params, x), cache
 
     @torch.no_grad()
@@ -410,25 +512,29 @@ class LM:
                     tokens: torch.Tensor, pos: torch.Tensor
                     ) -> Tuple[torch.Tensor, PyTree]:
         """tokens: (B, 1); pos: (B,) int32 absolute position of this token.
-        Writes the token's K/V into ``cache`` in place.  Returns
-        (logits (B, 1, V), cache)."""
+        Writes the token's K/V and the recurrent states into ``cache`` in
+        place.  Returns (logits (B, 1, V), cache)."""
         cfg = self.cfg
         x = self.embed(params, {"tokens": tokens})
-        blocks = params["blocks"]["s0"]
-        for i in range(self.n_units):
-            x, _ = block_decode(cfg, KIND, _index(blocks, i), x,
-                                pos, _index(cache["s0"], i))
+        for (kind, p), (_, c) in zip(self._layers(params["blocks"]),
+                                     self._layers(cache)):
+            x, _ = block_decode(cfg, kind, p, x, pos, c)
         return _head(cfg, params, x), cache
-
 
     # ----------------------------------------------------- paged KV decode
     @property
     def paged(self) -> bool:
-        """Whether the layers' KV can live in a page pool."""
-        return _kind_paged(self.cfg, KIND)
+        """Whether the layers' KV can live in a page pool (dense family;
+        the recurrent families raise, their paging waits)."""
+        if self.cfg.family != Family.DENSE:
+            raise NotImplementedError(
+                f"{self.cfg.name}: paged decode of the "
+                f"{self.cfg.family.value!r} family is not ported yet — "
+                f"{PAGING_PENDING}")
+        return _kind_paged(self.cfg, ATTN)
 
     def paged_kinds(self) -> List[str]:
-        return [KIND] if self.paged else []
+        return [ATTN] if self.paged else []
 
     @property
     def supports_prefix_cache(self) -> bool:
@@ -526,10 +632,9 @@ class LM:
         cfg = self.cfg
         x = self.embed(params, batch)
         cs = x.shape[1]
-        blocks = params["blocks"]["s0"]
-        for i in range(self.n_units):
-            x, _ = block_chunk(cfg, KIND, _index(blocks, i), x,
-                               _index(cache["s0"], i), off, cs)
+        for (kind, p), (_, c) in zip(self._layers(params["blocks"]),
+                                     self._layers(cache)):
+            x, _ = block_chunk(cfg, kind, p, x, c, off, cs)
         return _head(cfg, params, x), cache
 
     @torch.no_grad()
@@ -547,7 +652,7 @@ class LM:
         blocks = params["blocks"]["s0"]
         for i in range(self.n_units):
             pages = None if pools["s0"] is None else _index(pools["s0"], i)
-            x, _, _ = block_decode_paged(cfg, KIND, _index(blocks, i), x,
+            x, _, _ = block_decode_paged(cfg, ATTN, _index(blocks, i), x,
                                          pos, _index(cache["s0"], i), pages,
                                          tables)
         return _head(cfg, params, x), cache, pools

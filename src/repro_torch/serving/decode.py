@@ -238,12 +238,18 @@ def _subtree(tree: PyTree, path: Tuple[str, ...]) -> Any:
 
 
 def _join_slot(cache: PyTree, one: PyTree, slot: int):
-    """Copy a B=1 cache into batch row ``slot`` of the stacked cache
-    (leaves ``(n_units, B, ...)``), in place; ``None`` leaves (paged
-    K/V) are skipped."""
+    """Copy a B=1 cache into batch row ``slot`` of the batched cache, in
+    place.  The top-level key tells the layout: stacked pattern groups
+    (``s*``) have leaves ``(n_units, B, ...)``, tail layers (``t*``)
+    ``(B, ...)``.  ``None`` leaves (paged K/V) are skipped."""
     for path, big in tree_util.leaves_with_path(cache):
-        if big is not None:
-            big[:, slot].copy_(_subtree(one, path)[:, 0])
+        if big is None:
+            continue
+        small = _subtree(one, path)
+        if path[0].startswith("s"):
+            big[:, slot].copy_(small[:, 0])
+        else:
+            big[slot].copy_(small[0])
 
 
 class DecodeScheduler:

@@ -42,10 +42,11 @@ def test_import_checks_cover_every_port_file():
 def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in cuda_lib.CSRC.glob("*.cu"))
     assert srcs == ["decode_attention.cu", "flash_attention.cu",
-                    "quant_matmul.cu", "weight_transform.cu"]
+                    "quant_matmul.cu", "rglru_scan.cu", "ssd_scan.cu",
+                    "weight_transform.cu"]
     assert ops.registry.names() == [
         "decode_attention", "decode_attention_paged", "flash_attention",
-        "quant_matmul", "weight_transform"]
+        "quant_matmul", "rglru_scan", "ssd_scan", "weight_transform"]
     for name in ops.registry.names():
         spec = ops.registry.spec(name)
         assert (ROOT / spec.source).exists()
@@ -112,6 +113,17 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):
         ops.registry.spec("quant_matmul").plain(x, w, s), rtol=0, atol=0)
     assert torch.equal(ops.weight_transform(w, s, out_dtype=torch.float32),
                        (w.float() * s).float())
+    xs = torch.from_numpy(rng.standard_normal((1, 2, 5, 4), dtype=np.float32))
+    dt, A = torch.rand(1, 2, 5) * 0.1, -torch.rand(2) - 0.1
+    Bm = torch.from_numpy(rng.standard_normal((1, 5, 3), dtype=np.float32))
+    torch.testing.assert_close(
+        ops.ssd_scan(xs, dt, A, Bm, Bm),
+        ops.registry.spec("ssd_scan").plain(xs, dt, A, Bm, Bm),
+        rtol=0, atol=0)
+    a = torch.rand(2, 5, 3)
+    torch.testing.assert_close(
+        ops.rglru_scan(a, a), ops.registry.spec("rglru_scan").plain(a, a),
+        rtol=0, atol=0)
     # a whole cold start + generation on the CPU launches no kernel
     cfg = dataclasses.replace(get_config("smollm-360m", smoke=True),
                               compute_dtype=torch.float32)
@@ -127,9 +139,19 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):
                             kv_page_tokens=4)
     sched.generate(GenerateSpec(prompt=[1, 2, 3], n_new=3))
     assert set(sched.kernel_modes().values()) == {"plain"}
+    # and so does a recurrent (hybrid) one
+    hcfg = dataclasses.replace(get_config("recurrentgemma-2b", smoke=True),
+                               compute_dtype=torch.float32)
+    hm = transformer.build(hcfg, device="cpu")
+    deploy_model(store, hm, "h", quant="int8")
+    hres = ColdStartEngine(hm, "h", store, device="cpu").load(
+        {"tokens": torch.tensor([[1, 2, 3, 4]])})
+    DecodeScheduler(hm, hres.params, n_slots=2, cache_len=16).generate(
+        GenerateSpec(prompt=[1, 2, 3], n_new=3))
     assert ops.registry.dispatch_snapshot() == {
         "decode_attention": 0, "decode_attention_paged": 0,
-        "flash_attention": 0, "quant_matmul": 0, "weight_transform": 0}
+        "flash_attention": 0, "quant_matmul": 0, "rglru_scan": 0,
+        "ssd_scan": 0, "weight_transform": 0}
     assert ops.registry.describe()["library"]["built"] is False
 
 

@@ -87,14 +87,14 @@ LOADS = {"f32": ("m", None), "int8": ("q", None), "bf16-cast": ("m",
                                                                 "bfloat16")}
 
 
-def coldstart_setup(store_dir):
-    """Deploy smollm-360m smoke (f32 and int8) with the JAX package, load
-    every ``LOADS`` case with the JAX engine in ref mode, and return the
-    port's model, a port store on the same directory, the batch, and the
-    JAX engine's logits by case."""
-    jcfg = dataclasses.replace(jget_config(COLDSTART_ARCH, smoke=True),
+def coldstart_setup(store_dir, arch=COLDSTART_ARCH):
+    """Deploy ``arch``'s smoke config (f32 and int8) with the JAX package,
+    load every ``LOADS`` case with the JAX engine in ref mode, and return
+    the port's model, a port store on the same directory, the batch, and
+    the JAX engine's logits by case."""
+    jcfg = dataclasses.replace(jget_config(arch, smoke=True),
                                compute_dtype=jnp.float32)
-    tcfg = dataclasses.replace(tget_config(COLDSTART_ARCH, smoke=True),
+    tcfg = dataclasses.replace(tget_config(arch, smoke=True),
                                compute_dtype=torch.float32)
     jm = jtransformer.build(jcfg)
     js = jstore.WeightStore(store_dir)
