@@ -18,7 +18,10 @@ rglru, attn) + 2 rglru, int8 store dequantized to bf16 at A): a cicada
 cold start, greedy generation, and four concurrent requests through the
 slotted scheduler.
 It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, checks that
+holds each against its plain PyTorch version on the card (and the
+tensor-core kernels to their invariants: ``quant_matmul`` rows bit-equal
+at any M, a ``prefill_continue``-shaped ``flash_attention`` call
+bit-equal to the full prefill's last rows), checks that
 each path launched its kernels (counts set to 0 just before a path and
 read just after; exact counts per forward, prefill and decode step for
 the recurrent families), checks the card against the CPU end to end
@@ -241,11 +244,16 @@ def check_kernels(dev, report: dict):
     q = randn(1, S, H, dh, dtype=torch.bfloat16)
     k = randn(1, S, K, dh, dtype=torch.bfloat16)
     v = randn(1, S, K, dh, dtype=torch.bfloat16)
-    b_long = bound(2 * (2 * S * H * dh + 2 * S * K * dh),
-                   4 * dh * (S * (S + 1) // 2) * H, torch.bfloat16)[0]
-    print(f"  flash_attention S=1000 bf16 causal: "
-          f"{device_ms(lambda: fmod.flash_attention(q, k, v)):.4f} ms, bound "
-          f"{b_long:.4f} ms")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    extra_line("flash_attention", "bf16 q (1,1000,15,64), k/v (1,1000,5,64), "
+               "causal",
+               lambda: fmod.flash_attention(q, k, v, causal=True),
+               lambda: fmod.plain(q, k, v, causal=True),
+               lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True),
+               bound(2 * (2 * S * H * dh + 2 * S * K * dh),
+                     4 * dh * (S * (S + 1) // 2) * H, torch.bfloat16))
+    check_flash_continue(randn)
     # recurrentgemma's attention E: 10 query heads of dh 256 over 1 kv head
     S, H, K, dh = 128, 10, 1, 256
     q = randn(1, S, H, dh, dtype=torch.bfloat16)
@@ -333,13 +341,36 @@ def check_kernels(dev, report: dict):
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
 
-def extra_line(name: str, shape: str, kernel, plain, library, bnd):
+def check_flash_continue(randn):
+    """A prefill_continue-shaped call (the last 64 queries at T = 128, k/v
+    as transposed views of a kv-major cache) equals the last 64 rows of
+    the full S = T = 128 call bit for bit: K tiles sit at absolute key
+    positions, so a row's result does not depend on S or its q tile."""
+    import torch
+    from repro_torch.kernels import flash_attention as fmod
+    for H, K, dh in ((15, 5, 64), (10, 1, 256)):
+        q = randn(1, 128, H, dh, dtype=torch.bfloat16)
+        kc = randn(1, K, 256, dh, dtype=torch.bfloat16)       # kv-major
+        vc = randn(1, K, 256, dh, dtype=torch.bfloat16)
+        k, v = kc[:, :, :128].transpose(1, 2), vc[:, :, :128].transpose(1, 2)
+        full = fmod.flash_attention(q, k, v, causal=True)
+        cont = fmod.flash_attention(q[:, 64:], k, v, causal=True)
+        torch.cuda.synchronize()
+        same = torch.equal(cont, full[:, 64:])
+        print(f"  flash_attention continue S=64 at T=128 (H={H} K={K} "
+              f"dh={dh}, strided kv-major views) vs the last 64 rows of "
+              f"S=T=128: {'bit-equal' if same else 'DIFFERS'}")
+        need(same, f"flash_attention rows depend on S at dh {dh}")
+
+
+def extra_line(name: str, shape: str, kernel, plain, library_fn, bnd,
+               library: str = "library"):
     """Time a kernel at a second main-path shape and print it (the JSON
     line carries one shape per kernel)."""
     print(f"  {name} [{shape}]: kernel {device_ms(kernel):.4f} ms on the "
           f"device ({call_ms(kernel):.4f} ms per eager call), plain "
-          f"{device_ms(plain):.4f} ms, library {device_ms(library):.4f} ms, "
-          f"bound {bnd[0]:.6f} ms ({bnd[1]})")
+          f"{device_ms(plain):.4f} ms, {library} "
+          f"{device_ms(library_fn):.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})")
 
 
 def rel_err(got, want) -> float:
@@ -387,19 +418,20 @@ def check_quant_matmul(dev, report: dict, randn, g):
     need(got.dtype == torch.float32 and e <= F32_ATOL,
          f"quant_matmul misaligned err {e}")
     err = max(err, (got - want).abs().max().item())
-    # row independence: each row of an M=4 product equals the M=1 product
-    # of that row, bit for bit (the scheduler steps at B = n_slots)
-    for (k, n) in ((960, 49152), (2560, 960)):
+    # row independence: each row of an M-row product equals the M=1
+    # product of that row, bit for bit (the scheduler steps at B = n_slots)
+    for (k, n) in ((960, 49152), (960, 320), (2560, 960)):
         w, s = qweight(k, n)
-        x = randn(4, k, dtype=torch.bfloat16)
-        full = qmod.quant_matmul(x, w, s)
+        x = randn(64, k, dtype=torch.bfloat16)
         rows = torch.cat([qmod.quant_matmul(x[i:i + 1], w, s)
-                          for i in range(4)])
-        torch.cuda.synchronize()
-        print(f"  quant_matmul row independence ({k},{n}): "
-              f"{'bit-equal' if torch.equal(full, rows) else 'DIFFERS'}")
-        need(torch.equal(full, rows),
-             f"quant_matmul rows depend on M at ({k},{n})")
+                          for i in range(64)])
+        for m in (1, 3, 4, 16, 64):
+            full = qmod.quant_matmul(x[:m], w, s)
+            torch.cuda.synchronize()
+            same = torch.equal(full, rows[:m])
+            print(f"  quant_matmul row independence ({k},{n}) M={m}: "
+                  f"{'bit-equal' if same else 'DIFFERS'} to M=1")
+            need(same, f"quant_matmul rows depend on M at ({k},{n}) M={m}")
     # main-path timing shape: the head in a 4-slot decode step
     m, k, n = 4, 960, 49152
     w, s = qweight(k, n)
@@ -417,17 +449,21 @@ def check_quant_matmul(dev, report: dict, randn, g):
                 "outside the timed region",
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 x (4,960) . int8 head (960,49152) + f32 scale")
-    m, k, n = 128, 960, 2560
-    w, s = qweight(k, n)
-    x = randn(m, k, dtype=torch.bfloat16)
-    wd = (w.float() * s).to(torch.bfloat16)
-    b2 = bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n,
-               torch.bfloat16)
-    print(f"  quant_matmul prefill x (128,960) . wg (960,2560) bf16: "
-          f"{device_ms(lambda: qmod.quant_matmul(x, w, s)):.4f} ms, "
-          f"torch.matmul on the dequantized bf16 weight "
-          f"{device_ms(lambda: torch.matmul(x, wd)):.4f} ms, bound "
-          f"{b2[0]:.6f} ms ({b2[1]})")
+    # every distinct smollm-360m projection (q/o, k/v, gate/up, down) at a
+    # 4-slot decode step and at a 128-token prefill
+    for (m, k, n) in [(mm, kk, nn) for mm in (4, 128)
+                      for (kk, nn) in ((960, 960), (960, 320), (960, 2560),
+                                       (2560, 960))]:
+        w, s = qweight(k, n)
+        x = randn(m, k, dtype=torch.bfloat16)
+        wd = (w.float() * s).to(torch.bfloat16)
+        extra_line("quant_matmul", f"bf16 x ({m},{k}) . int8 ({k},{n})",
+                   lambda: qmod.quant_matmul(x, w, s),
+                   lambda: qmod.plain(x, w, s),
+                   lambda: torch.matmul(x, wd),
+                   bound(m * k * 2 + k * n + n * 4 + m * n * 2,
+                         2 * m * k * n, torch.bfloat16),
+                   library="torch.matmul (bf16 copy)")
 
 
 def check_paged(dev, report: dict, randn, g):

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into an object
 file (one ``nvcc`` per source, all started together), the objects are
 linked into ``librepro_torch_kernels.so``, and the library is loaded with
 ``ctypes``.  The build lands in ``build/repro_torch_kernels/<hash>/`` at
-the repository root, keyed by a hash of the sources and flags, so a
-checkout builds its kernels at first use and reuses them afterwards.
+the repository root, keyed by a hash of the flags, the sources and the
+``csrc/*.cuh`` headers they share, so a checkout builds its kernels at
+first use and reuses them afterwards.
 Nothing is built when this module is imported: :func:`library` builds on
 first call.
 
@@ -43,11 +44,11 @@ SIGNATURES = {
     "repro_wt_cast": [P, P, LL, I, P],
     "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I,
                               LL, LL, LL, LL, LL, LL, LL, LL, LL,
-                              I, I, F, P],
+                              I, I, F, I, I, P],
     "repro_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "repro_decode_attention_paged": [P, P, P, P, P, P, I, I, I, I, I, I, I,
                                      I, F, P],
-    "repro_quant_matmul": [P, P, P, P, I, I, I, I, I, P],
+    "repro_quant_matmul": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "repro_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "repro_rglru_scan": [P, P, P, P, P, I, I, I, I, I, P],
 }
@@ -57,9 +58,15 @@ def _sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include, so an
+    edit of either builds a new library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -9,6 +9,7 @@ on CPU tensors it computes :func:`plain`.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +21,27 @@ launches = cuda_lib.LaunchCounter()
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
+KEY_TILE = {64: 64, 128: 64, 256: 32}   # keys per K/V tile (bf16 design)
+WARPS = 4                               # warps (16 rows each) a block
+
+
+class Plan(NamedTuple):
+    """Launch of the bf16 kernel: ``warps`` warps of 16 (position, head)
+    rows a block, K/V tiles of ``key_tile`` keys at absolute positions,
+    ``blocks`` blocks in all."""
+    warps: int
+    key_tile: int
+    blocks: int
+
+
+def plan(B: int, S: int, H: int, K: int, dh: int) -> Plan:
+    """Blocks of :data:`WARPS` warps over the (position, head) rows of each
+    kv head, position-major, so the rep query heads of a kv head share
+    each K/V tile.  Four warps beat one or two on the H100 at every timed
+    S, though at S = 128 they leave SMs idle (``ab.py --sweep``).  The key
+    tile is fixed by dh, so the plan changes no row's result."""
+    tiles = -(-S * (H // K) // (16 * WARPS))
+    return Plan(WARPS, KEY_TILE[dh], tiles * K * B)
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -86,6 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if T == 0:
         return out.zero_()
+    p = plan(B, S, H, K, dh)
     lib = cuda_lib.library()
     with torch.cuda.device(q.device):
         rc = lib.repro_flash_attention(
@@ -93,7 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             B, H, K, S, T, dh, _DTYPE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), int(max(window, 0)), 1.0 / math.sqrt(dh),
-            cuda_lib.stream_ptr(q.device))
+            p.warps, p.key_tile, cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "flash_attention")
     launches.add()
     return out

@@ -10,7 +10,7 @@ CPU tensors it computes :func:`plain` (the oracle
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,7 +21,50 @@ REPLACES = "src/repro/kernels/quant_matmul.py:48"
 launches = cuda_lib.LaunchCounter()
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
-MAX_ROWS = 4 * 65535            # grid.y of 4-row tiles
+MAX_ROWS = 4 * 65535            # grid.y of 4-row tiles (the f32 design)
+SMS = 132                       # streaming multiprocessors of an H100
+TILE_N = 128                    # weight columns a block (bf16 design)
+KSTEP = 16                      # k per tensor-core step
+
+
+class Plan(NamedTuple):
+    """How the bf16 kernel sums over K: ``n_slices`` slices of
+    ``slice_k`` (a multiple of 16; the last may be shorter), each summed
+    from zero on the tensor cores, the slice sums added in slice order."""
+    slice_k: int
+    n_slices: int
+
+
+def plan(k: int, n: int) -> Plan:
+    """The split over K, from (K, N) alone, so that every row's result is
+    the same at any M.  One slice where the weight's column tiles already
+    fill the card; else slices short enough that a decode product (one row
+    tile) spreads over at least :data:`SMS` blocks, down to one step."""
+    tiles = -(-n // TILE_N)
+    want = -(-SMS // tiles)
+    if want <= 1:
+        slice_k = -(-k // KSTEP) * KSTEP
+    else:
+        slice_k = max(KSTEP, (k // want) // KSTEP * KSTEP)
+    return Plan(slice_k, -(-k // slice_k))
+
+
+class Launch(NamedTuple):
+    """How one call runs under its plan: ``bm`` rows of x a block, and
+    ``groups`` k groups (1: a block adds all the slices; ``n_slices``: a
+    block per slice, the partials added by a second pass over an f32
+    scratch).  It changes no addition and no order of additions."""
+    bm: int
+    groups: int
+
+
+def launch_shape(p: Plan, m: int, n: int) -> Launch:
+    """The launch of an m-row product under plan p: 8-row tiles up to 16
+    rows, else 32; the slices run in blocks of their own when the
+    (column, row) tiles alone would leave SMs idle."""
+    bm = 8 if m <= 16 else 32
+    tiles = -(-n // TILE_N) * -(-m // bm)
+    return Launch(bm, p.n_slices if tiles < SMS else 1)
 
 
 def plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
@@ -62,7 +105,7 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
-    if m > MAX_ROWS:
+    if x.dtype == torch.float32 and m > MAX_ROWS:
         raise ValueError(f"quant_matmul: {m} rows exceed the kernel's "
                          f"{MAX_ROWS}")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
@@ -70,12 +113,19 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
         if k == 0:
             out.zero_()
         else:
+            p = plan(k, n)
+            ls = launch_shape(p, m, n)
+            part = None
+            if x.dtype == torch.bfloat16 and ls.groups > 1:
+                part = torch.empty((ls.groups, m, n), dtype=torch.float32,
+                                   device=x.device)
             lib = cuda_lib.library()
             with torch.cuda.device(x.device):
                 rc = lib.repro_quant_matmul(
                     x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                    out.data_ptr(), m, k, n, _KIND[x.dtype],
-                    _KIND[out_dtype], cuda_lib.stream_ptr(x.device))
+                    out.data_ptr(), 0 if part is None else part.data_ptr(),
+                    m, k, n, _KIND[x.dtype], _KIND[out_dtype], p.slice_k,
+                    p.n_slices, *ls, cuda_lib.stream_ptr(x.device))
             cuda_lib.check(rc, "quant_matmul")
             launches.add()
     return out.reshape(lead + (n,))
