@@ -21,7 +21,8 @@ It builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card (and the
 tensor-core kernels to their invariants: ``quant_matmul`` rows bit-equal
 at any M, a ``prefill_continue``-shaped ``flash_attention`` call
-bit-equal to the full prefill's last rows), checks that
+bit-equal to the full prefill's last rows, decode rows bit-equal across
+the batch, the cache length and pages against slots), checks that
 each path launched its kernels (counts set to 0 just before a path and
 read just after; exact counts per forward, prefill and decode step for
 the recurrent families), checks the card against the CPU end to end
@@ -331,6 +332,7 @@ def check_kernels(dev, report: dict):
                      4 * H * dh * rows, torch.bfloat16))
     check_quant_matmul(dev, report, randn, g)
     check_paged(dev, report, randn, g)
+    check_decode_splits(dev, randn)
     check_scans(dev, report, randn, g)
     for name, r in report.items():
         lib = ("none" if r["library_ms"] is None
@@ -473,18 +475,12 @@ def check_paged(dev, report: dict, randn, g):
 
     B, H, K, dh, pt, NP = 4, 15, 5, 64, 16, 16
     P = B * NP + 1                                 # + the scratch page
-    scratch = P - 1
     err = 0.0
 
     def make(pos, dt, seed):
-        gg = torch.Generator().manual_seed(seed)
-        perm = torch.randperm(P - 1, generator=gg)   # shuffled pool
-        tables = torch.full((B, NP), scratch, dtype=torch.int32)
-        for b, p in enumerate(pos):
-            n = p // pt + 1
-            tables[b, :n] = perm[b * NP:b * NP + n].to(torch.int32)
+        tables = page_tables(pos, pt, NP, seed, dev)
         return (randn(B, H, dh, dtype=dt), randn(P, K, pt, dh, dtype=dt),
-                randn(P, K, pt, dh, dtype=dt), tables.to(dev),
+                randn(P, K, pt, dh, dtype=dt), tables,
                 torch.tensor(pos, dtype=torch.int32, device=dev))
 
     for pos, dims in (((37, 80, 123, 159), (15, 5, 64)),
@@ -530,6 +526,139 @@ def check_paged(dev, report: dict, randn, g):
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 q (4,15,64), pools (65,5,16,64) shuffled, tables "
               "(4,16), pos 37/80/123/159")
+
+
+def page_tables(pos, pt: int, np_: int, seed: int, dev):
+    """Page tables (B, np_) int32 on ``dev`` for rows at ``pos`` over a
+    pool of P = B np_ + 1 pages: row b's pages drawn from a shuffle of
+    the first P - 1, entries past its pages on the scratch page P - 1."""
+    import torch
+    B = len(pos)
+    perm = torch.randperm(B * np_,
+                          generator=torch.Generator().manual_seed(seed))
+    tables = torch.full((B, np_), B * np_, dtype=torch.int32)
+    for b, x in enumerate(pos):
+        n = min(x // pt + 1, np_)
+        tables[b, :n] = perm[b * np_:b * np_ + n].to(torch.int32)
+    return tables.to(dev)
+
+
+def paged_copy(kc, vc, pos, pt: int, seed: int):
+    """The slotted caches (B, K, S_max, dh) as shuffled page pools with
+    S_max / pt table entries a row (:func:`page_tables`); the pages no
+    row names, the scratch page among them, hold zeros.  Returns (k
+    pages, v pages, tables)."""
+    import torch
+    B, K, S_max, dh = kc.shape
+    np_ = S_max // pt
+    tables = page_tables(pos, pt, np_, seed, kc.device)
+    kp = torch.zeros((B * np_ + 1, K, pt, dh), dtype=kc.dtype,
+                     device=kc.device)
+    vp = torch.zeros_like(kp)
+    for b, x in enumerate(pos):
+        n = min(x // pt + 1, np_)
+        pages = tables[b, :n].long()
+        kp[pages] = kc[b, :, :n * pt].unflatten(1, (n, pt)).transpose(0, 1)
+        vp[pages] = vc[b, :, :n * pt].unflatten(1, (n, pt)).transpose(0, 1)
+    return kp, vp, tables
+
+
+def check_decode_splits(dev, randn):
+    """The decode kernels' split over the cache keeps a row's bits: each
+    row of a B = 4 call equals a B = 1 call of that row, a 256-slot cache
+    equals a 512-slot one over the same valid rows, and the paged kernel
+    equals the slotted one over the same rows (at 16 and at 32 table
+    entries a row), at dh 64 and 256, bf16 and f32.  Then both kernels at
+    smollm heads over a 2048-row cache (SmolLM-360M's context): held
+    against their plain versions in f32 and bf16 and timed in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dmod
+    pos = (5, 64, 159, 255)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    for H, K, dh in ((15, 5, 64), (10, 1, 256)):
+        for dt in (torch.bfloat16, torch.float32):
+            q = randn(4, H, dh, dtype=dt)
+            kl = randn(4, K, 512, dh, dtype=dt)
+            vl = randn(4, K, 512, dh, dtype=dt)
+            kc, vc = kl[:, :, :256].contiguous(), vl[:, :, :256].contiguous()
+            full = dmod.decode_attention(q, kc, vc, p)
+            rows = torch.cat([dmod.decode_attention(
+                q[i:i + 1], kc[i:i + 1], vc[i:i + 1], p[i:i + 1])
+                for i in range(4)])
+            longer = dmod.decode_attention(q, kl, vl, p)
+            kp, vp, tb = paged_copy(kc, vc, pos, 16, dh)
+            # the same pages, and 16 more entries on the scratch page
+            tb32 = torch.cat([tb, torch.full_like(tb, kp.shape[0] - 1)], 1)
+            paged = dmod.decode_attention_paged(q, kp, vp, tb, p)
+            paged32 = dmod.decode_attention_paged(q, kp, vp, tb32, p)
+            prow = torch.cat([dmod.decode_attention_paged(
+                q[i:i + 1], kp, vp, tb[i:i + 1], p[i:i + 1])
+                for i in range(4)])
+            torch.cuda.synchronize()
+            for what, got, want in (
+                    ("decode_attention B=4 rows vs B=1", full, rows),
+                    ("decode_attention S_max 256 vs 512", full, longer),
+                    ("decode_attention_paged vs decode_attention", paged,
+                     full),
+                    ("decode_attention_paged B=4 rows vs B=1", paged, prow),
+                    ("decode_attention_paged 16 vs 32 table entries",
+                     paged, paged32)):
+                same = torch.equal(got, want)
+                print(f"  {what} (H={H} K={K} dh={dh} {str(dt)[6:]}, pos "
+                      f"{pos}): {'bit-equal' if same else 'DIFFERS'}")
+                need(same, f"{what} differs at dh {dh} {dt}")
+    # smollm heads, 4 rows over a 2048-row cache (16 splits a row at the
+    # longest), slotted and 16-token pages: held against the plain versions
+    # in f32 and bf16, paged against slotted, then timed in bf16
+    H, K, dh, S_max = 15, 5, 64, 2048
+    pos = (2047, 1535, 1023, 511)
+    B, rows = len(pos), sum(x + 1 for x in pos)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    for dt, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
+        q = randn(B, H, dh, dtype=dt)
+        kc = randn(B, K, S_max, dh, dtype=dt)
+        vc = randn(B, K, S_max, dh, dtype=dt)
+        kp, vp, tb = paged_copy(kc, vc, pos, 16, 0)
+        got = dmod.decode_attention(q, kc, vc, p)
+        paged = dmod.decode_attention_paged(q, kp, vp, tb, p)
+        for what, o, want in (
+                ("decode_attention", got, dmod.plain(q, kc, vc, p)),
+                ("decode_attention_paged", paged,
+                 dmod.plain_paged(q, kp, vp, tb, p))):
+            torch.cuda.synchronize()
+            e = (o.float() - want.float()).abs().max().item()
+            print(f"  {what} B={B} H={H} K={K} dh={dh} S_max={S_max} pos="
+                  f"{pos} {str(dt)[6:]}: max abs err {e:.3e} (tol {tol})")
+            need(math.isfinite(e) and e <= tol,
+                 f"{what} S_max={S_max} {dt} err {e}")
+        same = torch.equal(paged, got)
+        print(f"  decode_attention_paged vs decode_attention (S_max={S_max} "
+              f"{str(dt)[6:]}): {'bit-equal' if same else 'DIFFERS'}")
+        need(same, f"decode_attention_paged differs at S_max={S_max} {dt}")
+    valid = (torch.arange(S_max, device=dev)[None, :]
+             <= p.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None]
+    shape = (f"bf16 q (4,15,64), cache (4,5,2048,64), pos "
+             f"{'/'.join(map(str, pos))}")
+    nbytes = 2 * B * H * dh * 2 + 2 * rows * K * dh * 2 + B * 4
+    extra_line("decode_attention", shape,
+               lambda: dmod.decode_attention(q, kc, vc, p),
+               lambda: dmod.plain(q, kc, vc, p),
+               lambda: F.scaled_dot_product_attention(
+                   q4, kc, vc, attn_mask=valid, enable_gqa=True),
+               bound(nbytes, 4 * H * dh * rows, torch.bfloat16),
+               library="SDPA masked past pos")
+    extra_line("decode_attention_paged", shape.replace(
+                   "cache (4,5,2048,64)", f"pools {tuple(kp.shape)}, 16-token "
+                   f"pages shuffled"),
+               lambda: dmod.decode_attention_paged(q, kp, vp, tb, p),
+               lambda: dmod.plain_paged(q, kp, vp, tb, p),
+               lambda: F.scaled_dot_product_attention(
+                   q4, kc, vc, attn_mask=valid, enable_gqa=True),
+               bound(nbytes + tb.numel() * 4, 4 * H * dh * rows,
+                     torch.bfloat16),
+               library="SDPA over the slotted rows, masked past pos")
 
 
 def check_scans(dev, report: dict, randn, g):

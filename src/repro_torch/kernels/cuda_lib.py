@@ -45,9 +45,10 @@ SIGNATURES = {
     "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I,
                               LL, LL, LL, LL, LL, LL, LL, LL, LL,
                               I, I, F, I, I, P],
-    "repro_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, I, F, P],
-    "repro_decode_attention_paged": [P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                     I, F, P],
+    "repro_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I,
+                               P],
+    "repro_decode_attention_paged": [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                     I, I, F, I, P],
     "repro_quant_matmul": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "repro_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "repro_rglru_scan": [P, P, P, P, P, I, I, I, I, I, P],

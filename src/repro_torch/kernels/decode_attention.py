@@ -4,8 +4,11 @@ ring-buffer rule when a window is set; and decode_attention_paged, the
 same over page pools (P, K, pt, dh) through a page table (B, NP).
 
 Kernels: ``csrc/decode_attention.cu`` (see its note on what bounds them).
+Each call is two launches: the cache split into :func:`plan`'s
+``split_len`` positions a block, each split's partial softmax statistics
+written to an f32 scratch, then a merge of a row's splits in split order.
 On CUDA tensors :func:`decode_attention` and
-:func:`decode_attention_paged` launch their kernel or raise; on CPU
+:func:`decode_attention_paged` launch their kernels or raise; on CPU
 tensors they compute :func:`plain` / :func:`plain_paged` (the oracles in
 :mod:`repro_torch.kernels.ref`).
 """
@@ -25,11 +28,58 @@ paged_launches = cuda_lib.LaunchCounter()
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
+CHUNK = 16                      # keys per tensor-core step
+MAX_SPLIT = 256                 # split lengths the kernels take
 
 
 def max_rep(dh: int) -> int:
     """Query heads per kv head the kernel takes at head dim ``dh``."""
     return 16 if dh <= 128 else 12
+
+
+def plan(K: int, rep: int, dh: int) -> int:
+    """``split_len``: the cache positions one block covers, a multiple of
+    :data:`CHUNK`, from the model's head geometry alone (never the batch,
+    the cache length, ``pos`` or the page size), so that a row's splits,
+    and every addition in them and in their merge, are the same whatever
+    the batch and cache it is decoded in.
+
+    Chosen by ``ab.py --sweep`` on an NVIDIA H100 80GB HBM3 at 700.00 W
+    (device ms at split 16 / 32 / 64 / 128 / 256).  smollm-360m's heads
+    (K 5, rep 3, dh 64) at a 160-row cache: 0.0067 / 0.0055 / 0.0050 /
+    0.0052 / 0.0055; paged, 4 rows: 0.0076 / 0.0057 / 0.0054 / 0.0057 /
+    0.0064; 4 rows over 2048: 0.0347 / 0.0204 / 0.0140 / 0.0102 /
+    0.0090.  recurrentgemma-2b's (K 1, rep 10, dh 256) at 160 rows:
+    0.0120 / 0.0096 / 0.0083 / 0.0104 / 0.0127.  So 128 up to dh 128
+    (within 0.0003 ms of the best at 160 rows, 0.0038 faster than 64 at
+    2048 rows; 256 is faster there but slower at 160) and 64 at dh 256.
+    dh 128 was not timed: it takes dh 64's split, a choice no sweep has
+    measured."""
+    del K, rep
+    return 64 if dh >= 256 else 128
+
+
+def _launch(fn, what: str, q, pools, extra, s_ext: int, K: int, dh: int,
+            window: int, counter):
+    """Size the splits from shapes alone, allocate their scratch, launch
+    the two kernels on q's stream, count the call once."""
+    B, H = q.shape[0], q.shape[1]
+    rep = H // K
+    split_len = plan(K, rep, dh)
+    n_split = -(-s_ext // split_len)
+    out = torch.empty_like(q)
+    part = torch.empty(B * K * n_split * rep * (dh + 2), dtype=torch.float32,
+                       device=q.device)
+    lib = cuda_lib.library()
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, fn)(
+            q.data_ptr(), *(t.data_ptr() for t in pools), out.data_ptr(),
+            part.data_ptr(), B, H, K, *extra, dh, _DTYPE[q.dtype],
+            int(max(window, 0)), 1.0 / math.sqrt(dh), split_len,
+            cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(rc, what)
+    counter.add()
+    return out
 
 
 def plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -87,19 +137,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous "
                              f"on {q.device}")
-    out = torch.empty_like(q)
     if B == 0:
-        return out
-    lib = cuda_lib.library()
-    with torch.cuda.device(q.device):
-        rc = lib.repro_decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, H, K, S_max, dh,
-            _DTYPE[q.dtype], int(max(window, 0)), 1.0 / math.sqrt(dh),
-            cuda_lib.stream_ptr(q.device))
-    cuda_lib.check(rc, "decode_attention")
-    launches.add()
-    return out
+        return torch.empty_like(q)
+    return _launch("repro_decode_attention", "decode_attention", q,
+                   (k_cache, v_cache, pos), (S_max,), S_max, K, dh, window,
+                   launches)
 
 
 def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -138,16 +180,9 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"decode_attention_paged: {name} must be "
                              f"contiguous on {q.device}")
-    out = torch.empty_like(q)
     if B == 0:
-        return out
-    lib = cuda_lib.library()
-    with torch.cuda.device(q.device):
-        rc = lib.repro_decode_attention_paged(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, q.shape[1],
-            K, tables.shape[1], pt, dh, _DTYPE[q.dtype], int(max(window, 0)),
-            1.0 / math.sqrt(dh), cuda_lib.stream_ptr(q.device))
-    cuda_lib.check(rc, "decode_attention_paged")
-    paged_launches.add()
-    return out
+        return torch.empty_like(q)
+    NP = tables.shape[1]
+    return _launch("repro_decode_attention_paged", "decode_attention_paged",
+                   q, (k_pages, v_pages, tables, pos), (NP, pt), NP * pt, K,
+                   dh, window, paged_launches)
