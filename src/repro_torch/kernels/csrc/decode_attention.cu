@@ -53,6 +53,20 @@
 // (pos - window, pos] (decode_attention.py:70-72).  Rows past n_keys are
 // zero-filled in shared memory and masked, so nothing past them is read.
 //
+// Any head dim up to 256, as the TPU kernels take: each body is instantiated
+// at a padded head dim DP of 32, 64, 128 or 256 (the next at or above dh;
+// flash_attention.py::padded_dim) and reads rows of the true dh.  Loads
+// past dh are zero-filled in registers or shared memory, the f32 partials
+// keep DP columns (zeros past dh), the merge stores only the dh real ones,
+// and the scale is the caller's 1/sqrt(dh).  The caches stay as they are:
+// nothing is padded per call.  bf16 rows that are not a multiple of 16
+// bytes long are staged by 8-byte cp.async copies, element by element
+// where not even a multiple of 8 (mma.cuh cp_chunk).
+// A bf16 call at dh = DP with 16-byte aligned rows runs the EXACT
+// instances, which have none of the masks: 64, 128 and 256 keep the code
+// (and so the arithmetic and the speed) they had; so does f32 at those
+// dims.
+//
 // decode_attention_paged (repro_decode_attention_paged) replaces
 // src/repro/kernels/decode_attention.py::decode_attention_paged, which runs in
 // every step of the paged scheduler (src/repro/models/layers.py:179-210).  It
@@ -97,7 +111,7 @@ __device__ __forceinline__ int n_keys_of(int pos, int S_ext, int window) {
   return n < 0 ? 0 : n;
 }
 
-// Row addressing: the element offset / DH of logical cache row s.
+// Row addressing: the element offset / dh of logical cache row s.
 // kStage: stage the split's row offsets in shared memory (worth it only
 // where an offset costs a table read and a division).
 struct SlotRows {          // slotted cache (B, K, S_max, dh)
@@ -147,12 +161,12 @@ struct Tile {
 };
 
 // One (split, kv head, batch row) block over rows [t_begin, t_end).
-template <typename T, int DH, typename Rows>
+template <typename T, int DH, bool EXACT, typename Rows>
 __device__ __forceinline__ void
 fma_split(const T* __restrict__ q, const T* __restrict__ kc,
           const T* __restrict__ vc, int pos, const Partials pt_, int H,
           int K, int window, float scale_log2, int t_begin, int t_end,
-          long long blk, const Rows rows) {
+          long long blk, const Rows rows, int dh) {
   constexpr int TK = Tile<DH>::TK;
   constexpr int MAX_REP = Tile<DH>::MAX_REP;
   constexpr int NG = THREADS / TK;          // head groups in the score phase
@@ -172,10 +186,16 @@ fma_split(const T* __restrict__ q, const T* __restrict__ kc,
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = H / K;
-  const long long q_base = ((long long)b * H + (long long)kvh * rep) * DH;
+  const int dhr = EXACT ? DH : dh;          // the row length
+  const long long q_base = ((long long)b * H + (long long)kvh * rep) * dhr;
 
-  for (int idx = tid; idx < rep * DH; idx += THREADS)
-    qs[idx / DH][idx % DH] = to_f32(q[q_base + idx]) * scale_log2;
+  for (int idx = tid; idx < rep * DH; idx += THREADS) {
+    const int r = idx / DH;
+    const int e = idx % DH;
+    qs[r][e] = EXACT || e < dh
+                   ? to_f32(q[q_base + r * dhr + e]) * scale_log2
+                   : 0.f;
+  }
   if (tid < rep) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -201,8 +221,11 @@ fma_split(const T* __restrict__ q, const T* __restrict__ kc,
     }
     for (int idx = tid; idx < TK * DH; idx += THREADS) {
       const int j = idx / DH;
+      const int e = idx % DH;
       const long long r = Rows::kStage ? roff[j] : rows(t0 + j);
-      ks[j][idx % DH] = t0 + j < t_end ? to_f32(kc[r * DH + idx % DH]) : 0.f;
+      ks[j][e] = t0 + j < t_end && (EXACT || e < dh)
+                     ? to_f32(kc[r * dhr + e])
+                     : 0.f;
     }
     __syncthreads();
 
@@ -272,7 +295,9 @@ fma_split(const T* __restrict__ q, const T* __restrict__ kc,
         float vv[DPT];
 #pragma unroll
         for (int k = 0; k < DPT; ++k)
-          vv[k] = to_f32(vc[r * DH + tid + k * THREADS]);
+          vv[k] = EXACT || tid + k * THREADS < dh
+                      ? to_f32(vc[r * dhr + tid + k * THREADS])
+                      : 0.f;
 #pragma unroll
         for (int i = 0; i < MAX_REP; ++i) {
           if (i < rep) {
@@ -290,7 +315,7 @@ fma_split(const T* __restrict__ q, const T* __restrict__ kc,
       }
       for (int j = 0; j < n; ++j) {
         const long long r = Rows::kStage ? roff[j] : rows(t0 + j);
-        const float vv = to_f32(vc[r * DH + d]);
+        const float vv = EXACT || d < dh ? to_f32(vc[r * dhr + d]) : 0.f;
 #pragma unroll
         for (int i = 0; i < ACC; ++i) {
           const int r = g + G * i;
@@ -355,13 +380,13 @@ struct Tc {
   }
 };
 
-template <int DH, typename Rows>
+template <int DH, bool EXACT, typename Rows>
 __device__ __forceinline__ void
 tc_split(const __nv_bfloat16* __restrict__ q,
          const __nv_bfloat16* __restrict__ kc,
          const __nv_bfloat16* __restrict__ vc, int pos, const Partials pt_,
          int H, int K, int window, float scale_log2, int t_begin, int t_end,
-         long long blk, const Rows rows, int vec) {
+         long long blk, const Rows rows, int vb, int dh) {
   using C = Tc<DH>;
   constexpr int PITCH = C::PITCH;
   constexpr int CPITCH = C::CPITCH;
@@ -388,22 +413,19 @@ tc_split(const __nv_bfloat16* __restrict__ q,
       wbase + warp * C::WARP_BYTES);        // [2][CHUNK][PITCH]
   __nv_bfloat16* Vs = Ks + 2 * CHUNK * PITCH;
 
-  auto copy16 = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, bool ok) {
-    if (vec) {
-      mma::cp_async16(dst, ok ? src : q, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = ok ? src[e] : __float2bfloat16_rn(0.f);
-    }
+  // chunk ch (8 columns) of a row, zero past dh or for a row not there
+  const int dhr = EXACT ? DH : dh;          // the row length
+  auto copy16 = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int ch,
+                    bool ok) {
+    mma::cp_chunk<EXACT>(dst, src, ok, dh - ch * 8, vb, q);
   };
 
   // q rows: head kvh * rep + r for r < rep, zero rows up to 16
-  const long long q_base = ((long long)b * H + (long long)kvh * rep) * DH;
+  const long long q_base = ((long long)b * H + (long long)kvh * rep) * dhr;
   for (int c = tid; c < CHUNK * CH; c += nthr) {
     const int r = c / CH;
-    copy16(Qs + r * PITCH + (c % CH) * 8, q + q_base + (long long)r * DH +
-           (c % CH) * 8, r < rep);
+    copy16(Qs + r * PITCH + (c % CH) * 8, q + q_base + (long long)r * dhr +
+           (c % CH) * 8, c % CH, r < rep);
   }
   mma::cp_commit();
   if constexpr (Rows::kStage) {
@@ -427,8 +449,8 @@ tc_split(const __nv_bfloat16* __restrict__ q,
         long long r = 0;
         if (ok)
           r = Rows::kStage ? roff[c0 + row] : rows(t_begin + c0 + row);
-        copy16(kd + row * PITCH + ch * 8, kc + r * DH + ch * 8, ok);
-        copy16(vd + row * PITCH + ch * 8, vc + r * DH + ch * 8, ok);
+        copy16(kd + row * PITCH + ch * 8, kc + r * dhr + ch * 8, ch, ok);
+        copy16(vd + row * PITCH + ch * 8, vc + r * dhr + ch * 8, ch, ok);
       }
     }
     mma::cp_commit();                       // empty groups keep the count
@@ -636,10 +658,11 @@ struct PageArgs {
 // order (the max first, then the rescaled sums added split by split); 0 for
 // a head with no valid key.  Partials are read through L2 (__ldcg): other
 // SMs wrote them.
-template <typename T, int DH>
+template <typename T, int DH, bool EXACT>
 __device__ __forceinline__ void
 merge_rows(const float* __restrict__ part, long long acc_total,
-           T* __restrict__ o, int b, int kvh, int H, int K, int ns, int NS) {
+           T* __restrict__ o, int b, int kvh, int H, int K, int ns, int NS,
+           int dh) {
   const int rep = H / K;
   const long long blk0 = ((long long)b * K + kvh) * NS;
   const long long split_ml = 2LL * rep;     // ml stride from split to split
@@ -647,6 +670,7 @@ merge_rows(const float* __restrict__ part, long long acc_total,
   for (int i = threadIdx.x; i < rep * (DH / 4); i += blockDim.x) {
     const int r = i / (DH / 4);
     const int d = (i % (DH / 4)) * 4;
+    if (!EXACT && d >= dh) continue;        // padding columns: not stored
     const float* ml = part + acc_total + (blk0 * rep + r) * 2;
     const float* ap = part + (blk0 * rep + r) * DH + d;
     // one pass, split by split: the running max, and the sum and the
@@ -673,11 +697,12 @@ merge_rows(const float* __restrict__ part, long long acc_total,
       mx = mn;
     }
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* out = o + ((long long)b * H + (long long)kvh * rep + r) * DH + d;
+    T* out = o + ((long long)b * H + (long long)kvh * rep + r) *
+                     (EXACT ? DH : dh) + d;
     put(out, a.x * inv);
-    put(out + 1, a.y * inv);
-    put(out + 2, a.z * inv);
-    put(out + 3, a.w * inv);
+    if (EXACT || d + 1 < dh) put(out + 1, a.y * inv);
+    if (EXACT || d + 2 < dh) put(out + 2, a.z * inv);
+    if (EXACT || d + 3 < dh) put(out + 3, a.w * inv);
   }
 }
 
@@ -692,13 +717,14 @@ struct OnTc<__nv_bfloat16> {
 };
 
 // grid (NS, K, B): the splits' partials; merge_kernel merges them
-template <typename T, int DH, typename Args>
+template <typename T, int DH, bool EXACT, typename Args>
 __global__ void __launch_bounds__(OnTc<T>::value ? 32 * TC_MAX_WARPS
                                                  : THREADS)
 split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
              const T* __restrict__ vc, const int* __restrict__ pos_arr,
              float* __restrict__ part, long long acc_total, int H, int K,
-             int window, float scale_log2, int L, const Args args, int vec) {
+             int window, float scale_log2, int L, const Args args, int vb,
+             int dh) {
   // the merge may launch now; it waits for this grid's partials
   asm volatile("griddepcontrol.launch_dependents;");
   const int kvh = blockIdx.y;
@@ -711,29 +737,29 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const long long blk = ((long long)b * K + kvh) * gridDim.x + blockIdx.x;
   const Partials pt_{part, acc_total};
   if constexpr (OnTc<T>::value)
-    tc_split<DH>(q, kc, vc, pos, pt_, H, K, window, scale_log2, t_begin,
-                 t_end, blk, args.rows(b, K, kvh), vec);
+    tc_split<DH, EXACT>(q, kc, vc, pos, pt_, H, K, window, scale_log2,
+                        t_begin, t_end, blk, args.rows(b, K, kvh), vb, dh);
   else
-    fma_split<T, DH>(q, kc, vc, pos, pt_, H, K, window, scale_log2, t_begin,
-                     t_end, blk, args.rows(b, K, kvh));
+    fma_split<T, DH, EXACT>(q, kc, vc, pos, pt_, H, K, window, scale_log2,
+                            t_begin, t_end, blk, args.rows(b, K, kvh), dh);
 }
 
 // grid (K, B): the merge as a programmatic dependent of split_kernel
-template <typename T, int DH>
+template <typename T, int DH, bool EXACT>
 __global__ void __launch_bounds__(1024)
 merge_kernel(const float* __restrict__ part, long long acc_total,
              const int* __restrict__ pos_arr, T* __restrict__ o, int H, int K,
-             int S_ext, int window, int L, int NS) {
+             int S_ext, int window, int L, int NS, int dh) {
   const int ns = (n_keys_of(pos_arr[blockIdx.y], S_ext, window) + L - 1) / L;
   asm volatile("griddepcontrol.wait;" ::: "memory");
-  merge_rows<T, DH>(part, acc_total, o, blockIdx.y, blockIdx.x, H, K, ns,
-                    NS);
+  merge_rows<T, DH, EXACT>(part, acc_total, o, blockIdx.y, blockIdx.x, H, K,
+                           ns, NS, dh);
 }
 
-template <typename T, int DH, typename Args>
+template <typename T, int DH, bool EXACT, typename Args>
 int launch(const void* q, const void* kc, const void* vc, const void* pos,
-           void* o, void* part, int B, int H, int K, int window, float scale,
-           int L, const Args& args, cudaStream_t s) {
+           void* o, void* part, int B, int H, int K, int dh, int window,
+           float scale, int L, const Args& args, int vb, cudaStream_t s) {
   constexpr bool TC = OnTc<T>::value;
   const int S_ext = args.extent();
   const int NS = (S_ext + L - 1) / L;
@@ -747,22 +773,18 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos,
     static bool opted_in = false;           // above 48 KB: opt in once
     if (!opted_in) {
       cudaError_t e = cudaFuncSetAttribute(
-          split_kernel<T, DH, Args>,
+          split_kernel<T, DH, EXACT, Args>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           Tc<DH>::smem(TC_MAX_WARPS));
       if (e != cudaSuccess) return (int)e;
       opted_in = true;
     }
   }
-  const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
-                          reinterpret_cast<uintptr_t>(kc) |
-                          reinterpret_cast<uintptr_t>(vc);
-  const int vec = (align & 15) == 0;
-  split_kernel<T, DH, Args><<<dim3(NS, K, B), threads, smem, s>>>(
+  split_kernel<T, DH, EXACT, Args><<<dim3(NS, K, B), threads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int*>(pos),
       static_cast<float*>(part), acc_total, H, K, window, scale_log2, L, args,
-      vec);
+      vb, dh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
@@ -778,9 +800,10 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(
-      &cfg, merge_kernel<T, DH>, static_cast<const float*>(part), acc_total,
+      &cfg, merge_kernel<T, DH, EXACT>, static_cast<const float*>(part),
+      acc_total,
       static_cast<const int*>(pos), static_cast<T*>(o), H, K, S_ext, window,
-      L, NS);
+      L, NS, dh);
 }
 
 template <typename Args>
@@ -788,30 +811,50 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* pos,
              void* o, void* part, int B, int H, int K, int dh, int dtype,
              int window, float scale, int L, const Args& args,
              cudaStream_t s) {
+  // the padded head dim of the instance (flash_attention.py::padded_dim)
+  const int dp = dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
   if (B <= 0 || K <= 0 || H % K != 0 || args.extent() <= 0 || L <= 0 ||
       L % CHUNK != 0 || L > MAX_SPLIT || B > 65535 || K > 65535 ||
-      dtype < 0 || dtype > 1 ||
-      H / K > (dh <= 128 ? Tile<128>::MAX_REP : Tile<256>::MAX_REP))
+      dtype < 0 || dtype > 1 || dh < 1 || dh > 256 ||
+      H / K > (dp <= 128 ? Tile<128>::MAX_REP : Tile<256>::MAX_REP))
     return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-#define REPRO_DA(T, DH)                                                    \
-  return launch<T, DH>(q, kc, vc, pos, o, part, B, H, K, window, scale, L, \
-                       args, s)
-  if (dtype == 0 && dh == 64) REPRO_DA(float, 64);
-  if (dtype == 0 && dh == 128) REPRO_DA(float, 128);
-  if (dtype == 0 && dh == 256) REPRO_DA(float, 256);
-  if (dh == 64) REPRO_DA(bf, 64);
-  if (dh == 128) REPRO_DA(bf, 128);
-  if (dh == 256) REPRO_DA(bf, 256);
+  // copy width: the base addresses and the byte length of a row
+  const int vb = mma::copy_width(
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kc) |
+      reinterpret_cast<uintptr_t>(vc) |
+      (unsigned long long)dh * (dtype == 0 ? 4 : 2));
+  // the EXACT instances: the true dh is the instance's, and bf16 rows take
+  // 16-byte copies (f32 loads element by element either way)
+  const bool exact = dh == dp && (dtype == 0 || vb == 16);
+#define REPRO_DA(DP)                                                        \
+  if (dp == DP) {                                                           \
+    if (dtype == 0)                                                         \
+      return exact ? launch<float, DP, true>(q, kc, vc, pos, o, part, B, H, \
+                                             K, dh, window, scale, L, args, \
+                                             vb, s)                         \
+                   : launch<float, DP, false>(q, kc, vc, pos, o, part, B,   \
+                                              H, K, dh, window, scale, L,   \
+                                              args, vb, s);                 \
+    if (exact)                                                              \
+      return launch<bf, DP, true>(q, kc, vc, pos, o, part, B, H, K, dh,     \
+                                  window, scale, L, args, vb, s);           \
+    return launch<bf, DP, false>(q, kc, vc, pos, o, part, B, H, K, dh,      \
+                                 window, scale, L, args, vb, s);            \
+  }
+  REPRO_DA(32);
+  REPRO_DA(64);
+  REPRO_DA(128);
+  REPRO_DA(256);
 #undef REPRO_DA
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, H, dh), caches (B, K, S_max, dh), o (B, H, dh), all contiguous;
-// pos (B,) int32; part f32 scratch of B K NS rep (dh + 2) floats, NS =
-// ceil(S_max / split_len).  dtype: 0 = float32, 1 = bfloat16; split_len from
+// q (B, H, dh), caches (B, K, S_max, dh), o (B, H, dh), all contiguous, dh
+// in [1, 256]; pos (B,) int32; part f32 scratch of B K NS rep (DP + 2)
+// floats, DP the padded head dim and NS = ceil(S_max / split_len).  dtype: 0 = float32, 1 = bfloat16; split_len from
 // decode_attention.py::plan (a multiple of 16, at most 256).  Two launches:
 // the splits, then their merge.  Returns the first CUDA error.
 extern "C" int repro_decode_attention(const void* q, const void* kc,

@@ -49,8 +49,22 @@
 //
 // f32 keeps the first design (plain FMA, full f32; TF32 would not hold the
 // card-vs-CPU checks): one block per (64-row query tile, head), TPR threads
-// per query row (2 at dh 64 and 128, 8 at dh 256), K/V staged as f32 in BK-row
+// per query row (2 up to dh 128, 8 at dh 256), K/V staged as f32 in BK-row
 // tiles.
+//
+// Any head dim up to 256, as the TPU kernel takes the whole dh as one block:
+// each design is instantiated at a padded head dim DP of 32, 64, 128 or 256
+// (the next at or above dh) and reads the true dh through the strides.
+// Loads past dh are zero-filled in registers or shared memory (a zero q
+// column adds exactly 0 to every score, a zero v column is never stored),
+// stores past dh are masked, and the scale is the caller's 1/sqrt(dh).
+// Nothing is copied or padded in device memory.  bf16 rows whose byte
+// length is not a multiple of 16 (dh 20: 40 bytes) are staged by 8-byte
+// cp.async copies, element by element where not even a multiple of 8
+// (mma.cuh cp_chunk).  A call at dh = DP whose rows
+// are 16-byte aligned runs the EXACT instance, which has none of the masks:
+// 64, 128 and 256 keep the code (and so the arithmetic and the speed) they
+// had.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,7 +108,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              int T_len, long long qsb, long long qss, long long qsh,
              long long ksb, long long kss, long long ksh, long long vsb,
              long long vss, long long vsh, int causal, int window,
-             float scale) {
+             float scale, int dh) {
   constexpr int TPR = Tile<DH>::TPR;
   constexpr int BK = Tile<DH>::BK;
   constexpr int THREADS = Tile<DH>::THREADS;
@@ -119,9 +133,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
     acc[i] = 0.f;
-    qr[i] = row_ok ? q[b * qsb + (long long)qi * qss + h * qsh + i * TPR +
-                       sub] * scale
-                   : 0.f;
+    qr[i] = row_ok && i * TPR + sub < dh
+                ? q[b * qsb + (long long)qi * qss + h * qsh + i * TPR + sub] *
+                      scale
+                : 0.f;
   }
   float m = -INFINITY;
   float l = 0.f;
@@ -146,7 +161,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = idx % DH;
       const int kp = t0 + j;
       float kv = 0.f, vv = 0.f;
-      if (kp < T_len) {
+      if (kp < T_len && d < dh) {
         kv = k[b * ksb + (long long)kp * kss + kvh * ksh + d];
         vv = v[b * vsb + (long long)kp * vss + kvh * vsh + d];
       }
@@ -191,23 +206,23 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (row_ok) {
-    float* orow = o + (((long long)b * S + qi) * H + h) * DH;
+    float* orow = o + (((long long)b * S + qi) * H + h) * dh;
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
-      orow[i * TPR + sub] = l > 0.f ? acc[i] / l : 0.f;
+      if (i * TPR + sub < dh) orow[i * TPR + sub] = l > 0.f ? acc[i] / l : 0.f;
   }
 }
 
 template <int DH>
 int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int S, int T_len, const long long* st, int causal,
-               int window, float scale, cudaStream_t s) {
+               int H, int K, int S, int T_len, int dh, const long long* st,
+               int causal, int window, float scale, cudaStream_t s) {
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<DH><<<grid, Tile<DH>::THREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, K, S, T_len,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      window, scale);
+      window, scale, dh);
   return (int)cudaGetLastError();
 }
 
@@ -245,12 +260,33 @@ __device__ __forceinline__ int2 key_range(int qpos, bool ok, int causal,
 
 constexpr int FA_MAX_WARPS = 4;
 
+// A thread's columns 8 i + 2 t, 8 i + 2 t + 1 of one output row (acc
+// elements e0, e0 + 1 of tile i) times inv, in bf16: one paired store where
+// both lie below dh and the pair is aligned (dh even), else element-wise.
+template <int DT, bool EXACT>
+__device__ __forceinline__ void store_row(__nv_bfloat16* orow,
+                                          const float (&acc)[DT][4], int e0,
+                                          float inv, int t, int dh) {
+#pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    const int c = i * 8 + 2 * t;
+    const float x0 = acc[i][e0] * inv;
+    const float x1 = acc[i][e0 + 1] * inv;
+    if (EXACT || (c + 1 < dh && (dh & 1) == 0)) {
+      *reinterpret_cast<uint32_t*>(orow + c) = mma::pack_bf16(x0, x1);
+    } else {
+      if (c < dh) orow[c] = __float2bfloat16_rn(x0);
+      if (c + 1 < dh) orow[c + 1] = __float2bfloat16_rn(x1);
+    }
+  }
+}
+
 template <int DH>
 constexpr int fa_smem_bytes(int warps) {
   return (16 * warps + 4 * Fa<DH>::BKV) * Fa<DH>::PITCH * 2;
 }
 
-template <int DH>
+template <int DH, bool EXACT>
 __global__ void __launch_bounds__(32 * FA_MAX_WARPS)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -259,7 +295,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 long long qsb, long long qss, long long qsh, long long ksb,
                 long long kss, long long ksh, long long vsb, long long vss,
                 long long vsh, int causal, int window, float scale_log2,
-                int qvec, int kvvec) {
+                int qvb, int kvvb, int dh) {
   constexpr int BKV = Fa<DH>::BKV;
   constexpr int PITCH = Fa<DH>::PITCH;
   constexpr int CH = Fa<DH>::CH;
@@ -297,13 +333,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
         ok ? q + b * qsb + (long long)(r / rep) * qss +
                  (long long)(kvh * rep + r % rep) * qsh + ch * 8
            : q;
-    if (qvec) {
-      mma::cp_async16(dst, src, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = ok ? src[e] : __float2bfloat16_rn(0.f);
-    }
+    mma::cp_chunk<EXACT>(dst, src, ok, dh - ch * 8, qvb, q);
   }
   mma::cp_commit();
 
@@ -319,16 +349,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
           ok ? k + b * ksb + (long long)kp * kss + kvh * ksh + ch * 8 : k;
       const __nv_bfloat16* vsrc =
           ok ? v + b * vsb + (long long)kp * vss + kvh * vsh + ch * 8 : v;
-      if (kvvec) {
-        mma::cp_async16(kd, ksrc, ok ? 16 : 0);
-        mma::cp_async16(vd, vsrc, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          kd[e] = ok ? ksrc[e] : __float2bfloat16_rn(0.f);
-          vd[e] = ok ? vsrc[e] : __float2bfloat16_rn(0.f);
-        }
-      }
+      mma::cp_chunk<EXACT>(kd, ksrc, ok, dh - ch * 8, kvvb, k);
+      mma::cp_chunk<EXACT>(vd, vsrc, ok, dh - ch * 8, kvvb, v);
     }
     mma::cp_commit();
   };
@@ -508,60 +530,60 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
   const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
   const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-  if (ok_a) {
-    __nv_bfloat16* orow =
-        o + (((long long)b * S + ra / rep) * H + kvh * rep + ra % rep) * DH;
-#pragma unroll
-    for (int i = 0; i < DT; ++i)
-      *reinterpret_cast<uint32_t*>(orow + i * 8 + 2 * t) =
-          mma::pack_bf16(acc[i][0] * inv_a, acc[i][1] * inv_a);
-  }
-  if (ok_b) {
-    __nv_bfloat16* orow =
-        o + (((long long)b * S + rb / rep) * H + kvh * rep + rb % rep) * DH;
-#pragma unroll
-    for (int i = 0; i < DT; ++i)
-      *reinterpret_cast<uint32_t*>(orow + i * 8 + 2 * t) =
-          mma::pack_bf16(acc[i][2] * inv_b, acc[i][3] * inv_b);
-  }
+  const int dhr = EXACT ? DH : dh;          // the row stride of o
+  if (ok_a)
+    store_row<DT, EXACT>(o + (((long long)b * S + ra / rep) * H + kvh * rep +
+                              ra % rep) * dhr,
+                         acc, 0, inv_a, t, dh);
+  if (ok_b)
+    store_row<DT, EXACT>(o + (((long long)b * S + rb / rep) * H + kvh * rep +
+                              rb % rep) * dhr,
+                         acc, 2, inv_b, t, dh);
+}
+
+// above 48 KB of dynamic shared memory a kernel must opt in, once per
+// instance
+template <int DH, bool EXACT>
+cudaError_t opt_in() {
+  static bool done = false;                 // idempotent: a race is benign
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_tc_kernel<DH, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_smem_bytes<DH>(FA_MAX_WARPS));
+  if (e == cudaSuccess) done = true;
+  return e;
 }
 
 template <int DH>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int K, int S, int T_len, const long long* st, int causal,
-              int window, float scale, int warps, int key_tile,
+              int H, int K, int S, int T_len, int dh, const long long* st,
+              int causal, int window, float scale, int warps, int key_tile,
               cudaStream_t s) {
   if (key_tile != Fa<DH>::BKV || warps < 1 || warps > FA_MAX_WARPS ||
       (warps & (warps - 1)))
     return (int)cudaErrorInvalidValue;
   const int bytes = fa_smem_bytes<DH>(warps);
-  static bool opted_in = false;             // above 48 KB: opt in once
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        fa_smem_bytes<DH>(FA_MAX_WARPS));
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
-  const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
-  const uintptr_t ka = reinterpret_cast<uintptr_t>(k);
-  const uintptr_t va = reinterpret_cast<uintptr_t>(v);
-  const bool qvec = (qa & 15) == 0 && st[0] % 8 == 0 && st[1] % 8 == 0 &&
-                    st[2] % 8 == 0;
-  const bool kvvec = (ka & 15) == 0 && (va & 15) == 0 && st[3] % 8 == 0 &&
-                     st[4] % 8 == 0 && st[5] % 8 == 0 && st[6] % 8 == 0 &&
-                     st[7] % 8 == 0 && st[8] % 8 == 0;
+  // copy widths: the base addresses and the byte strides of the rows
+  const int qvb = mma::copy_width(reinterpret_cast<uintptr_t>(q) |
+                                  2ULL * (st[0] | st[1] | st[2]));
+  const int kvvb = mma::copy_width(
+      reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+      2ULL * (st[3] | st[4] | st[5] | st[6] | st[7] | st[8]));
   const long long rows = (long long)S * (H / K);
   const long long tiles = (rows + 16LL * warps - 1) / (16LL * warps);
   if (tiles > 0x7fffffffLL || K > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)tiles, K, B);
-  flash_tc_kernel<DH><<<grid, 32 * warps, bytes, s>>>(
+  const bool exact = dh == DH && qvb == 16 && kvvb == 16;
+  auto kernel = exact ? flash_tc_kernel<DH, true> : flash_tc_kernel<DH, false>;
+  const cudaError_t e = exact ? opt_in<DH, true>() : opt_in<DH, false>();
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, 32 * warps, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
       K, S, T_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, window, scale * 1.4426950408889634f, qvec, kvvec);
+      st[8], causal, window, scale * 1.4426950408889634f, qvb, kvvb, dh);
   return (int)cudaGetLastError();
 }
 
@@ -569,10 +591,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 
 // q (B, S, H, dh), k/v (B, T, K, dh) addressed through the element strides
 // of their batch, sequence and head dims (the last dim is contiguous);
-// o (B, S, H, dh) contiguous.  dtype: 0 = float32 (FMA design), 1 = bfloat16
-// (tensor cores, with the plan of flash_attention.py::plan: warps per block
-// and the key tile, which must be this head dim's).  Returns
-// cudaGetLastError().
+// o (B, S, H, dh) contiguous, dh in [1, 256].  dtype: 0 = float32 (FMA
+// design), 1 = bfloat16 (tensor cores, with the plan of
+// flash_attention.py::plan: warps per block and the key tile, which must be
+// the padded head dim's).  Returns cudaGetLastError().
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int H, int K,
     int S, int T_len, int dh, int dtype, long long qsb, long long qss,
@@ -583,23 +605,21 @@ extern "C" int repro_flash_attention(
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && dh == 64)
-    return launch_fma<64>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                         scale, s);
-  if (dtype == 0 && dh == 128)
-    return launch_fma<128>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                          scale, s);
-  if (dtype == 0 && dh == 256)
-    return launch_fma<256>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                          scale, s);
-  if (dtype == 1 && dh == 64)
-    return launch_tc<64>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                         scale, warps, key_tile, s);
-  if (dtype == 1 && dh == 128)
-    return launch_tc<128>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                          scale, warps, key_tile, s);
-  if (dtype == 1 && dh == 256)
-    return launch_tc<256>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                          scale, warps, key_tile, s);
+  // the padded head dim of the instance (flash_attention.py::padded_dim)
+  const int dp = dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+  if (dh < 1 || dh > 256) return (int)cudaErrorInvalidValue;
+#define REPRO_FA(DP)                                                        \
+  if (dp == DP)                                                             \
+    return dtype == 0 ? launch_fma<DP>(q, k, v, o, B, H, K, S, T_len, dh,   \
+                                       st, causal, window, scale, s)        \
+                      : launch_tc<DP>(q, k, v, o, B, H, K, S, T_len, dh, st, \
+                                      causal, window, scale, warps,         \
+                                      key_tile, s)
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  REPRO_FA(32);
+  REPRO_FA(64);
+  REPRO_FA(128);
+  REPRO_FA(256);
+#undef REPRO_FA
   return (int)cudaErrorInvalidValue;
 }

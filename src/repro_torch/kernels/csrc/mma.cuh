@@ -1,7 +1,9 @@
 // mma.cuh: the Hopper building blocks shared by the tensor-core kernels
-// (quant_matmul.cu, flash_attention.cu): asynchronous 16-byte copies into
-// shared memory, ldmatrix fragment loads, the bf16 m16n8k16 tensor-core
-// product with f32 accumulate, and int8 -> bf16 conversion by byte permutes.
+// (quant_matmul.cu, flash_attention.cu, decode_attention.cu, ssd_scan.cu):
+// asynchronous copies into shared memory (16 bytes, or 8 where a row is
+// aligned only so far), ldmatrix fragment loads, the bf16 m16n8k16
+// tensor-core product with f32 accumulate, and int8 -> bf16 conversion by
+// byte permutes.
 //
 // Fragment layout of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -36,6 +38,57 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(src_bytes)
                : "memory");
 }
+// 8 bytes global -> shared (through L1: .cg takes 16 bytes only),
+// zero-filling past src_bytes as cp_async16 does
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// The widest copy (16 or 8 bytes; 0: element by element) that every
+// source address can take: `bits` ORs the base addresses and the byte
+// strides of the rows a kernel reads.
+__host__ __device__ __forceinline__ int copy_width(unsigned long long bits) {
+  return (bits & 15) == 0 ? 16 : (bits & 7) == 0 ? 8 : 0;
+}
+
+// One 16-byte chunk of a bf16 row into shared memory: where `ok`, its
+// first n elements (n <= 0: none) from src and the rest zero; else zeros.
+// vb is copy_width() of the rows: one 16-byte copy or two of 8 (src
+// aligned to vb; a copy with nothing to read takes `any`, a valid address,
+// and only zero-fills), or element by element (vb 0).  So a head
+// dim below the instance's padded one is read without a copy of the tensor
+// and without reading past a row.  EXACT (n >= 8 and vb 16 wherever ok) is
+// the one 16-byte copy and nothing else.
+template <bool EXACT>
+__device__ __forceinline__ void cp_chunk(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src, bool ok,
+                                         int n, int vb, const void* any) {
+  if constexpr (EXACT) {
+    cp_async16(dst, ok ? static_cast<const void*>(src) : any, ok ? 16 : 0);
+    return;
+  }
+  n = !ok || n < 0 ? 0 : (n > 8 ? 8 : n);
+  if (vb == 16) {
+    cp_async16(dst, n > 0 ? static_cast<const void*>(src) : any, 2 * n);
+  } else if (vb == 8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = n - 4 * h;
+      const int bytes = m <= 0 ? 0 : (m >= 4 ? 8 : 2 * m);
+      cp_async8(dst + 4 * h,
+                bytes ? static_cast<const void*>(src + 4 * h) : any, bytes);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      dst[e] = e < n ? src[e] : __float2bfloat16_rn(0.f);
+  }
+}
+
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

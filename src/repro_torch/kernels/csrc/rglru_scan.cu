@@ -6,29 +6,43 @@
 // RecurrentGemma forward and cold-start E (src/repro/models/griffin.py:84).
 //
 // What bounds it on an H100: the bytes of a, b and h (each read or written
-// once, 3 * B * S * W elements) if enough loads are in flight; at the path's
-// B = 1, W = 2560 the grid is 20 blocks of 128 threads, and each of the S
-// steps of a thread waits on the step before it, so it is latency-bound well
-// above that bound.
+// once, 3 B S W elements; 3.9 MB, 1.17 us, at the path's f32 (1, 128,
+// 2560)), if enough loads are in flight.  The first design gave each (batch
+// row, lane) one thread that walked all S steps: 20 blocks of 128 threads at
+// the path's shape, each step's loads at most 8 steps ahead of the chain of
+// multiply-adds, so the time was about S / 8 rounds of device-memory
+// latency (0.0098 ms).
 //
-// What the design does: one thread per (batch row, lane) walks the sequence
-// in order with its state in a register (f32), as the TPU kernel's fori_loop
-// does per chunk with the state in VMEM scratch; neighbouring threads read
-// neighbouring lanes, so every step's loads are coalesced.  The loop is
-// unrolled so that the loads of later steps (which do not depend on h) are
-// issued ahead of the chain of multiply-adds.  The state can start from h0
-// (B, W) f32 and the state after step n_valid - 1 is written to hS (B, W)
-// f32, so a caller that padded S with trailing zero steps (which would reset
-// h to 0) still reads the true final state.  Prefetching a/b tiles into
-// shared memory, or a two-pass chunked scan for more parallelism, is later
-// work.
+// What the design does: a two-level scan inside one block.  A block owns
+// 32 lanes of one batch row and NS slices of T consecutive steps: thread
+// (lane, slice k) covers steps [k T, (k + 1) T) of each pass of NS T steps.
+//  1. It issues all 2 T loads of its slice's a and b at once (coalesced
+//     across the 32 lanes), then composes the slice's affine map in
+//     registers: the product of its a, and its h from 0.
+//  2. The NS maps go to shared memory; each thread combines the maps of the
+//     slices before its own, in slice order, from the pass's carry-in, into
+//     its own carry-in.
+//  3. It runs its slice again from that carry-in, in registers, and writes y
+//     once.  The last slice's final h is the next pass's carry-in.
+// So the path's shape runs W / 32 x B = 80 blocks, every load in flight at
+// once, and the dependent chain is 2 T + NS steps long instead of S.  T and
+// NS come from rglru_scan.py::plan (16 slices of 8 steps).
+//
+// What it keeps: slices start at fixed step offsets (multiples of T from the
+// call's first step), independent of B and S, and a thread reads only its
+// own (row, lane), so a row's bits are the same at any batch size and
+// trailing zero steps leave the valid steps' bits as they were; the state
+// after step n_valid - 1 (the true final state under padding, since a zero
+// step resets h) is written to hS; h0 seeds the first pass; h is f32
+// throughout and y is written in a's dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int LANES = 32;             // lanes (of W) a block
+constexpr int MAX_SLICES = 16;        // NS: threads a lane, 512 a block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -39,35 +53,85 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// block (LANES, NS): threadIdx.x the lane, threadIdx.y the slice
+template <typename T, int TS>
+__global__ void __launch_bounds__(LANES * MAX_SLICES)
 rglru_kernel(const T* __restrict__ a, const T* __restrict__ b,
              T* __restrict__ y, const float* __restrict__ h0,
              float* __restrict__ hS, int S, int W, int n_valid) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
+  __shared__ float map_a[MAX_SLICES][LANES];   // product of the slice's a
+  __shared__ float map_b[MAX_SLICES][LANES];   // its h from 0
+  __shared__ float carry[LANES];               // the pass's carry-in
+  const int lane = threadIdx.x;
+  const int k = threadIdx.y;
+  const int ns = blockDim.y;
+  const int w = blockIdx.x * LANES + lane;
   const int row = blockIdx.y;
-  if (w >= W) return;
+  const bool live = w < W;
   const long long base = (long long)row * S * W + w;
-  float h = h0 != nullptr ? h0[(long long)row * W + w] : 0.f;
-  float h_last = h;
-#pragma unroll 8
-  for (int t = 0; t < S; ++t) {
-    const long long i = base + (long long)t * W;
-    h = to_f32(a[i]) * h + to_f32(b[i]);
-    put(y + i, h);
-    if (t == n_valid - 1) h_last = h;
+  if (k == 0) carry[lane] = live && h0 != nullptr
+                                ? h0[(long long)row * W + w]
+                                : 0.f;
+  const int pass = ns * TS;
+  for (int s0 = 0; s0 < S; s0 += pass) {
+    const int t0 = s0 + k * TS;                // this slice's first step
+    float av[TS], bv[TS];
+#pragma unroll
+    for (int i = 0; i < TS; ++i) {
+      const bool ok = live && t0 + i < S;
+      const long long o = base + (long long)(t0 + i) * W;
+      av[i] = ok ? to_f32(a[o]) : 1.f;
+      bv[i] = ok ? to_f32(b[o]) : 0.f;
+    }
+    float pa = 1.f, hb = 0.f;
+#pragma unroll
+    for (int i = 0; i < TS; ++i) {
+      pa *= av[i];
+      hb = av[i] * hb + bv[i];
+    }
+    map_a[k][lane] = pa;
+    map_b[k][lane] = hb;
+    __syncthreads();                           // the maps and the carry
+    float h = carry[lane];
+    for (int q = 0; q < k; ++q) h = map_a[q][lane] * h + map_b[q][lane];
+#pragma unroll
+    for (int i = 0; i < TS; ++i) {
+      h = av[i] * h + bv[i];
+      if (live && t0 + i < S) {
+        const long long o = base + (long long)(t0 + i) * W;
+        put(y + o, h);
+        if (hS != nullptr && t0 + i == n_valid - 1)
+          hS[(long long)row * W + w] = h;
+      }
+    }
+    __syncthreads();                           // the maps and carry read
+    if (k == ns - 1) carry[lane] = h;
   }
-  if (hS != nullptr) hS[(long long)row * W + w] = h_last;
+  if (hS != nullptr && n_valid == 0 && k == 0 && live)
+    hS[(long long)row * W + w] =
+        h0 != nullptr ? h0[(long long)row * W + w] : 0.f;
 }
 
-template <typename T>
+template <typename T, int TS>
 int launch(const void* a, const void* b, void* y, const float* h0, float* hS,
-           int B, int S, int W, int n_valid, cudaStream_t s) {
-  dim3 grid((W + THREADS - 1) / THREADS, B);
-  rglru_kernel<T><<<grid, THREADS, 0, s>>>(
+           int B, int S, int W, int n_valid, int ns, cudaStream_t s) {
+  dim3 grid((W + LANES - 1) / LANES, B);
+  rglru_kernel<T, TS><<<grid, dim3(LANES, ns), 0, s>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(y),
       h0, hS, S, W, n_valid);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* a, const void* b, void* y, const float* h0,
+             float* hS, int B, int S, int W, int n_valid, int ns, int ts,
+             cudaStream_t s) {
+  switch (ts) {
+    case 4: return launch<T, 4>(a, b, y, h0, hS, B, S, W, n_valid, ns, s);
+    case 8: return launch<T, 8>(a, b, y, h0, hS, B, S, W, n_valid, ns, s);
+    case 16: return launch<T, 16>(a, b, y, h0, hS, B, S, W, n_valid, ns, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -75,18 +139,23 @@ int launch(const void* a, const void* b, void* y, const float* h0, float* hS,
 // a, b, y (B, S, W) contiguous, all of one dtype (0 = float32, 1 =
 // bfloat16); h0 (B, W) f32 or null (start from 0); hS (B, W) f32 or null
 // (the state after step n_valid - 1; n_valid in [0, S], 0 leaves h0).
+// slices (1 to 16) and slice_len (4, 8 or 16) from rglru_scan.py::plan.
 // Returns cudaGetLastError().
 extern "C" int repro_rglru_scan(const void* a, const void* b, void* y,
                                 const void* h0, void* hS, int B, int S, int W,
-                                int n_valid, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || W <= 0 || n_valid < 0 || n_valid > S)
+                                int n_valid, int dtype, int slices,
+                                int slice_len, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || W <= 0 || n_valid < 0 ||
+      n_valid > S || slices < 1 || slices > MAX_SLICES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* h0f = static_cast<const float*>(h0);
   float* hSf = static_cast<float*>(hS);
   if (dtype == 0)
-    return launch<float>(a, b, y, h0f, hSf, B, S, W, n_valid, s);
+    return dispatch<float>(a, b, y, h0f, hSf, B, S, W, n_valid, slices,
+                           slice_len, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(a, b, y, h0f, hSf, B, S, W, n_valid, s);
+    return dispatch<__nv_bfloat16>(a, b, y, h0f, hSf, B, S, W, n_valid,
+                                   slices, slice_len, s);
   return (int)cudaErrorInvalidValue;
 }

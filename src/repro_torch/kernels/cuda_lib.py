@@ -50,8 +50,9 @@ SIGNATURES = {
     "repro_decode_attention_paged": [P, P, P, P, P, P, P, I, I, I, I, I, I,
                                      I, I, F, I, P],
     "repro_quant_matmul": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
-    "repro_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "repro_rglru_scan": [P, P, P, P, P, I, I, I, I, I, P],
+    "repro_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "repro_rglru_scan": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "repro_rmsnorm": [P, P, P, LL, I, F, I, I, P],
 }
 
 

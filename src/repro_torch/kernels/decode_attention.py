@@ -19,6 +19,7 @@ import math
 import torch
 
 from repro_torch.kernels import cuda_lib, ref
+from repro_torch.kernels.flash_attention import HEAD_DIMS, padded_dim
 
 SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:98"
@@ -27,14 +28,17 @@ launches = cuda_lib.LaunchCounter()
 paged_launches = cuda_lib.LaunchCounter()
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
 CHUNK = 16                      # keys per tensor-core step
 MAX_SPLIT = 256                 # split lengths the kernels take
 
 
 def max_rep(dh: int) -> int:
-    """Query heads per kv head the kernel takes at head dim ``dh``."""
-    return 16 if dh <= 128 else 12
+    """Query heads per kv head the kernel takes at head dim ``dh`` (16, the
+    tensor-core tile's rows, up to a padded dh of 128; 12 at 256, where the
+    f32 body's shared memory runs out).  Every assigned config is within:
+    rep 10 at dh 256 (recurrentgemma-2b), 8 at dh 128 (yi-9b,
+    internvl2-76b), 4 at dh 120 (h2o-danube-3-4b)."""
+    return 16 if padded_dim(dh) <= 128 else 12
 
 
 def plan(K: int, rep: int, dh: int) -> int:
@@ -53,10 +57,20 @@ def plan(K: int, rep: int, dh: int) -> int:
     0.0120 / 0.0096 / 0.0083 / 0.0104 / 0.0127.  So 128 up to dh 128
     (within 0.0003 ms of the best at 160 rows, 0.0038 faster than 64 at
     2048 rows; 256 is faster there but slower at 160) and 64 at dh 256.
-    dh 128 was not timed: it takes dh 64's split, a choice no sweep has
-    measured."""
+
+    The split depends on dh through the padded instance alone
+    (:func:`padded_dim`): a chunk of a dh-80 or dh-120 row costs what one
+    of dh 128 does, since the padding columns are multiplied too, and one
+    of dh 20 what one of dh 32 does.  dh 65-128 take dh 64's split, 128:
+    yi-9b's heads (K 4, rep 8, dh 128) at 160 rows 0.0081 / 0.0062 /
+    0.0053 / 0.0058 / 0.0061, 4 rows over 2048 0.0390 / 0.0234 / 0.0153
+    / 0.0111 / 0.0093; h2o-danube-3-4b's (K 8, rep 4, dh 120) at 160
+    rows 0.0083 / 0.0065 / 0.0059 / 0.0068 / 0.0080 -- as at dh 64, 128
+    is within 0.001 ms of the best at 160 rows and 28% faster than 64 at
+    2048.  dh 1-32 take it too: their chunks are shorter still, so a long
+    split loses nothing to the work per block."""
     del K, rep
-    return 64 if dh >= 256 else 128
+    return 64 if padded_dim(dh) >= 256 else 128
 
 
 def _launch(fn, what: str, q, pools, extra, s_ext: int, K: int, dh: int,
@@ -68,8 +82,8 @@ def _launch(fn, what: str, q, pools, extra, s_ext: int, K: int, dh: int,
     split_len = plan(K, rep, dh)
     n_split = -(-s_ext // split_len)
     out = torch.empty_like(q)
-    part = torch.empty(B * K * n_split * rep * (dh + 2), dtype=torch.float32,
-                       device=q.device)
+    part = torch.empty(B * K * n_split * rep * (padded_dim(dh) + 2),
+                       dtype=torch.float32, device=q.device)
     lib = cuda_lib.library()
     with torch.cuda.device(q.device):
         rc = getattr(lib, fn)(
@@ -99,9 +113,9 @@ def _check_heads(what: str, q: torch.Tensor, K: int, dh: int):
     if K == 0 or H % K or q.shape[2] != dh:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not match {K} "
                          f"kv heads of dim {dh}")
-    if dh not in HEAD_DIMS or H // K > max_rep(dh):
-        raise ValueError(f"{what}: head dim {dh} ({HEAD_DIMS}) or rep "
-                         f"{H // K} (max {max_rep(dh)}) not supported by "
+    if not 1 <= dh <= HEAD_DIMS[-1] or H // K > max_rep(dh):
+        raise ValueError(f"{what}: head dim {dh} (1 to {HEAD_DIMS[-1]}) or "
+                         f"rep {H // K} (max {max_rep(dh)}) not supported by "
                          f"the kernel")
 
 

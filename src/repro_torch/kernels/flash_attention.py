@@ -20,9 +20,21 @@ REPLACES = "src/repro/kernels/flash_attention.py:93"
 launches = cuda_lib.LaunchCounter()
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
-KEY_TILE = {64: 64, 128: 64, 256: 32}   # keys per K/V tile (bf16 design)
+HEAD_DIMS = (32, 64, 128, 256)          # the kernels' instances (padded dh)
+KEY_TILE = {32: 64, 64: 64, 128: 64, 256: 32}   # keys per K/V tile (bf16)
 WARPS = 4                               # warps (16 rows each) a block
+
+
+def padded_dim(dh: int) -> int:
+    """The instance a head dim runs in: the next of :data:`HEAD_DIMS` at or
+    above ``dh``.  The kernels read rows of the true ``dh`` and zero-fill
+    the rest on chip, so any dh from 1 to 256 is taken, as the TPU kernels
+    take the whole dh as one block."""
+    for dp in HEAD_DIMS:
+        if dh <= dp:
+            return dp
+    raise ValueError(f"head dim {dh} above the kernels' largest, "
+                     f"{HEAD_DIMS[-1]}")
 
 
 class Plan(NamedTuple):
@@ -39,9 +51,10 @@ def plan(B: int, S: int, H: int, K: int, dh: int) -> Plan:
     kv head, position-major, so the rep query heads of a kv head share
     each K/V tile.  Four warps beat one or two on the H100 at every timed
     S, though at S = 128 they leave SMs idle (``ab.py --sweep``).  The key
-    tile is fixed by dh, so the plan changes no row's result."""
+    tile is fixed by the padded dh, so the plan changes no row's
+    result."""
     tiles = -(-S * (H // K) // (16 * WARPS))
-    return Plan(WARPS, KEY_TILE[dh], tiles * K * B)
+    return Plan(WARPS, KEY_TILE[padded_dim(dh)], tiles * K * B)
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -92,9 +105,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or k.shape[3] != dh or K == 0 or H % K:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)} and "
                          f"{tuple(k.shape)} do not match")
-    if dh not in HEAD_DIMS:
+    if not 1 <= dh <= HEAD_DIMS[-1]:
         raise ValueError(f"flash_attention: head dim {dh} not supported by "
-                         f"the kernel {HEAD_DIMS}")
+                         f"the kernel (1 to {HEAD_DIMS[-1]})")
     if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype} (float32 or bfloat16, all equal)")

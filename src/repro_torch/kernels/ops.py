@@ -22,14 +22,17 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import rglru_scan as _rglru
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import weight_transform as _wt
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
-    """One registered kernel: its CUDA source, the TPU kernel it replaces
-    (``file:line``), its launch counter and its plain PyTorch version."""
+    """One registered kernel: its CUDA source, what it replaces in the
+    reference (``file:line`` of a TPU kernel; for ``rmsnorm``, of the jnp
+    function XLA compiles), its launch counter and its plain PyTorch
+    version."""
     name: str
     source: str
     replaces: str
@@ -91,12 +94,14 @@ registry.register(_spec("weight_transform", _wt))
 registry.register(_spec("quant_matmul", _qm))
 registry.register(_spec("ssd_scan", _ssd))
 registry.register(_spec("rglru_scan", _rglru))
+registry.register(_spec("rmsnorm", _rms))
 
 flash_attention = _flash.flash_attention
 decode_attention = _decode.decode_attention
 decode_attention_paged = _decode.decode_attention_paged
 weight_transform = _wt.weight_transform
 quant_matmul = _qm.quant_matmul
+rmsnorm = _rms.rmsnorm
 
 
 # chunk lengths the reference's TPU profile pads S to (its

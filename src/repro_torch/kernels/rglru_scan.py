@@ -11,7 +11,7 @@ it computes :func:`plain`, the sequential definition
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,6 +22,26 @@ REPLACES = "src/repro/kernels/rglru_scan.py:38"
 launches = cuda_lib.LaunchCounter()
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+SLICE_LENS = (4, 8, 16)         # slice lengths the kernel is built for
+MAX_SLICES = 16
+
+
+class Plan(NamedTuple):
+    """Launch of the kernel: blocks of 32 lanes x ``slices`` slices of
+    ``slice_len`` steps; a pass covers slices x slice_len steps."""
+    slices: int
+    slice_len: int
+
+
+def plan() -> Plan:
+    """Fixed, so slices sit at the same step offsets in every call: a row's
+    bits do not depend on B or S.  16 slices of 8 steps: 80 blocks of 512
+    threads at recurrentgemma-2b's width, 128 steps a pass.  On an NVIDIA
+    H100 80GB HBM3 at 700.00 W, f32 (1, 128, 2560), device ms by
+    ``ab.py --sweep`` (slices x steps): 4x16 0.00401, 8x8 0.00320, 8x16
+    0.00319, 16x8 0.00274, 16x4 0.00328, 16x16 0.00352; 32-step slices
+    spilled (0.0059 at 4x32)."""
+    return Plan(16, 8)
 
 
 def plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -71,13 +91,15 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
         if hS is not None:
             hS.copy_(h0 if h0 is not None else torch.zeros_like(hS))
         return (y, hS) if return_state else y
+    p = plan()
     lib = cuda_lib.library()
     with torch.cuda.device(a.device):
         rc = lib.repro_rglru_scan(
             a.data_ptr(), b.data_ptr(), y.data_ptr(),
             None if h0 is None else h0.data_ptr(),
             None if hS is None else hS.data_ptr(), Bsz, S, W, n,
-            _DTYPE[a.dtype], cuda_lib.stream_ptr(a.device))
+            _DTYPE[a.dtype], p.slices, p.slice_len,
+            cuda_lib.stream_ptr(a.device))
     cuda_lib.check(rc, "rglru_scan")
     launches.add()
     return (y, hS) if return_state else y

@@ -47,11 +47,9 @@ def embed_init_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(dt)
+    """The reference's rmsnorm; on the GPU a kernel whose rows do not
+    depend on the batch (``kernels/rmsnorm.py``)."""
+    return ops.rmsnorm(x, scale, eps)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

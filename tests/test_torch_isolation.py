@@ -42,16 +42,19 @@ def test_import_checks_cover_every_port_file():
 def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in cuda_lib.CSRC.glob("*.cu"))
     assert srcs == ["decode_attention.cu", "flash_attention.cu",
-                    "quant_matmul.cu", "rglru_scan.cu", "ssd_scan.cu",
-                    "weight_transform.cu"]
+                    "quant_matmul.cu", "rglru_scan.cu", "rmsnorm.cu",
+                    "ssd_scan.cu", "weight_transform.cu"]
     assert ops.registry.names() == [
         "decode_attention", "decode_attention_paged", "flash_attention",
-        "quant_matmul", "rglru_scan", "ssd_scan", "weight_transform"]
+        "quant_matmul", "rglru_scan", "rmsnorm", "ssd_scan",
+        "weight_transform"]
     for name in ops.registry.names():
         spec = ops.registry.spec(name)
         assert (ROOT / spec.source).exists()
         path, line = spec.replaces.split(":")
-        assert path.startswith("src/repro/kernels/")
+        # the TPU kernels; rmsnorm stands for the reference's jnp rmsnorm
+        assert path.startswith("src/repro/kernels/") or (
+            name == "rmsnorm" and path == "src/repro/models/layers.py")
         assert "def " in (ROOT / path).read_text().splitlines()[int(line) - 1]
 
 
@@ -151,7 +154,7 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):
     assert ops.registry.dispatch_snapshot() == {
         "decode_attention": 0, "decode_attention_paged": 0,
         "flash_attention": 0, "quant_matmul": 0, "rglru_scan": 0,
-        "ssd_scan": 0, "weight_transform": 0}
+        "rmsnorm": 0, "ssd_scan": 0, "weight_transform": 0}
     assert ops.registry.describe()["library"]["built"] is False
 
 

@@ -1,8 +1,11 @@
 """The port's dense LM against the JAX package's on smollm-360m smoke at
 f32 compute, from the same weights (``params_from_numpy``): per-unit
 ``unit_apply``, ``forward``, ``prefill`` + ``decode_step`` logits within
-1e-4, and greedy ``reference_generate`` tokens exactly equal.  The JAX
-side runs with ``REPRO_PALLAS=ref``."""
+1e-4, and greedy ``reference_generate`` tokens exactly equal.  The logits
+parity (``forward``, ``prefill`` + ``decode_step``) also holds for the
+other dense geometries: yi-9b (GQA rep 4), codeqwen1.5-7b (rep 1) and
+h2o-danube-3-4b (rep 4 with a sliding window, whose decode cache is a
+ring).  The JAX side runs with ``REPRO_PALLAS=ref``."""
 import dataclasses
 
 import jax
@@ -21,6 +24,7 @@ from repro_torch.serving.decode import reference_generate as tgenerate
 torch.set_num_threads(2)
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = "smollm-360m"
+DENSE = ["smollm-360m", "yi-9b", "codeqwen1.5-7b", "h2o-danube-3-4b"]
 
 
 @pytest.fixture(autouse=True)
@@ -28,11 +32,10 @@ def _ref_mode(monkeypatch):
     monkeypatch.setenv("REPRO_PALLAS", "ref")
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg = dataclasses.replace(jget_config(ARCH, smoke=True),
+def make_pair(arch):
+    jcfg = dataclasses.replace(jget_config(arch, smoke=True),
                                compute_dtype=jnp.float32)
-    tcfg = dataclasses.replace(tget_config(ARCH, smoke=True),
+    tcfg = dataclasses.replace(tget_config(arch, smoke=True),
                                compute_dtype=torch.float32)
     jm = jtransformer.build(jcfg)
     jparams = jm.init(jax.random.key(0))
@@ -40,6 +43,16 @@ def pair():
     tparams = ttransformer.params_from_numpy(
         tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
     return jm, jparams, tm, tparams
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return make_pair(ARCH)
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def dense_pair(request):
+    return make_pair(request.param)
 
 
 def close(a, b):
@@ -66,8 +79,8 @@ def test_unit_apply_matches(pair):
         close(tst[out], jst[out])
 
 
-def test_forward_matches(pair):
-    jm, jparams, tm, tparams = pair
+def test_forward_matches(dense_pair):
+    jm, jparams, tm, tparams = dense_pair
     tok = tokens(tm.cfg, 2, 33, 1)
     jl, _ = jm.forward(jparams, {"tokens": jnp.asarray(tok, jnp.int32)})
     tl, aux = tm.forward(tparams, {"tokens": torch.as_tensor(tok)})
@@ -76,8 +89,8 @@ def test_forward_matches(pair):
     assert float(aux) == 0.0
 
 
-def test_prefill_and_decode_match(pair):
-    jm, jparams, tm, tparams = pair
+def test_prefill_and_decode_match(dense_pair):
+    jm, jparams, tm, tparams = dense_pair
     B, S, L = 2, 20, 40
     tok = tokens(tm.cfg, B, S, 2)
     jc = jm.init_cache(B, L)
