@@ -16,7 +16,15 @@ and at the full width of the two recurrent families, mamba2-780m (48 SSD
 layers, f32 store cast to bf16 at A) and recurrentgemma-2b (8 x (rglru,
 rglru, attn) + 2 rglru, int8 store dequantized to bf16 at A): a cicada
 cold start, greedy generation, and four concurrent requests through the
-slotted scheduler.
+slotted scheduler.  Last, the serverless platform serves both smollm-360m
+and recurrentgemma-2b from their int8 stores with a shared WeightCache:
+a 16-invocation Azure-like trace replayed serially (its keep-alive
+re-triggers cold starts, which read nothing from the store) and at
+concurrency 4 (generation requests join live instances), then
+smollm-360m int8-resident with 16-token pages against the same platform
+slotted; every response's tokens equal ``reference_generate``'s, the
+serial replay's launches are exact, and a sweep that evicts everything
+returns the card's memory.
 It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
 seven TPU kernels' counterparts and ``rmsnorm``), holds each against its
 plain PyTorch version on the card, the attention kernels also at head dims
@@ -1633,6 +1641,304 @@ def card_vs_cpu_arch(dev, workdir: str, arch: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the serverless platform, full width
+# ---------------------------------------------------------------------------
+
+# the int8 stores the platform serves, as earlier phases deployed them:
+# model name -> (directory under the work dir, store's model name)
+PLATFORM_STORES = {"smollm-360m": ("store", "smollm-int8"),
+                   "recurrentgemma-2b": ("recurrentgemma-2b",
+                                         "recurrentgemma-2b")}
+PLATFORM_PROMPT, PLATFORM_NEW = 64, 16
+PLATFORM_KEEP_ALIVE_S = 60.0
+# memory_allocated after the final sweep may exceed its value before the
+# platform by at most this much
+PLATFORM_MEM_MARGIN = 64 << 20
+
+
+def platform_store(workdir: str):
+    """A store over the earlier phases' int8 deployments, named by
+    architecture, that logs every unit read: (model, unit, bytes, time)."""
+    from repro_torch.store.store import BandwidthModel, WeightStore
+
+    class LoggingStore(WeightStore):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.reads = []
+
+        def read_unit(self, model_name, unit, **kw):
+            buf = super().read_unit(model_name, unit, **kw)
+            self.reads.append((model_name, unit, buf.numel(),
+                               time.monotonic()))
+            return buf
+
+    root = os.path.join(workdir, "platform")
+    os.makedirs(root, exist_ok=True)
+    for arch, (sub, name) in PLATFORM_STORES.items():
+        link = os.path.join(root, arch)
+        if not os.path.exists(link):
+            os.symlink(os.path.join(workdir, sub, name), link)
+    return LoggingStore(root, BandwidthModel(bandwidth_mbps=2000))
+
+
+def platform_specs():
+    """make_spec for a replay: per model, two fixed prompts in turn, so a
+    replay's requests map to the same prompts whatever its concurrency."""
+    import numpy as np
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import GenerateSpec
+    prompts = {arch: [np.random.default_rng(10 + i).integers(
+        0, get_config(arch).vocab_size, (PLATFORM_PROMPT,)) for i in (0, 1)]
+        for arch in PLATFORM_STORES}
+    turn = {arch: 0 for arch in PLATFORM_STORES}
+
+    def make_spec(arch):
+        i = turn[arch] % 2
+        turn[arch] += 1
+        return GenerateSpec(prompt=prompts[arch][i], n_new=PLATFORM_NEW,
+                            seed=i)
+    return make_spec, prompts
+
+
+def expected_cold(trace, keep_alive: float) -> list:
+    """Serial replay: a request is cold when its model has not run yet or
+    sat idle past the TTL on the logical clock (first arrival = 0)."""
+    last, out = {}, []
+    for inv in trace:
+        out.append(inv.model not in last or
+                   inv.t - last[inv.model] > keep_alive)
+        last[inv.model] = inv.t
+    return out
+
+
+def int8_leaves(store, name: str) -> int:
+    """Leaves a load dequantizes (one weight_transform launch each)."""
+    return sum(rec.get("quant") == "int8"
+               for u in store.manifest(name)["units"].values()
+               for rec in u["extents"])
+
+
+def settled_memory() -> int:
+    """memory_allocated with the card idle, cycles collected and cuBLAS's
+    workspaces released: cuBLAS keeps one workspace per (thread, stream)
+    pair it ran on, and every load brings new streams."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def print_responses(label: str, responses):
+    import statistics
+    for r in responses:
+        tpot = statistics.median(r.tpot_s) * 1e3 if r.tpot_s else 0.0
+        print(f"  {label} #{r.req_id:2d} {r.model:17s} "
+              f"{'cold' if r.cold else 'warm'} load {r.load_s * 1e3:7.1f} "
+              f"ms, ttft {r.ttft_s * 1e3:7.1f} ms, median tpot "
+              f"{tpot:6.1f} ms, queue {r.queue_s * 1e3:7.1f} ms")
+
+
+def serverless_platform(dev, workdir: str) -> dict:
+    """Platform A serves smollm-360m and recurrentgemma-2b from their int8
+    stores (dequantized at A) with a shared unbounded WeightCache: a
+    serial replay of a 16-invocation trace whose TTL forces re-cold
+    starts, then the same trace at concurrency 4.  Platform B serves
+    smollm-360m int8-resident (``compute_quant``) with 16-token pages,
+    against the same platform slotted.  Returns the path's launch counts
+    (zeroed at the start, read before the checks against standalone
+    loads)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import ServerlessPlatform, reference_generate
+    from repro_torch.serving.trace import azure_like_trace, summarize
+
+    archs = list(PLATFORM_STORES)
+    store = platform_store(workdir)
+    models = {a: transformer.build(get_config(a)) for a in archs}
+    units = {a: len(models[a].unit_names()) for a in archs}
+    example = {a: {"tokens": torch.as_tensor(np.random.default_rng(3)
+                                             .integers(0, models[a].cfg
+                                                       .vocab_size,
+                                                       (1, PLATFORM_PROMPT)))}
+               for a in archs}
+    builders = {a: (lambda a=a: (models[a], example[a])) for a in archs}
+    trace = azure_like_trace(duration_s=600.0, n_invocations=16,
+                             models=archs, seed=0)
+    want_cold = expected_cold(trace, PLATFORM_KEEP_ALIVE_S)
+    print(f"  trace {summarize(trace)}; keep-alive "
+          f"{PLATFORM_KEEP_ALIVE_S:.0f} s: cold starts by model "
+          f"{ {a: sum(c for c, i in zip(want_cold, trace) if i.model == a) for a in archs} }")
+    for a in archs:
+        need(sum(c for c, i in zip(want_cold, trace) if i.model == a) >= 2,
+             f"{a}: the trace re-triggers no cold start")
+
+    mem0 = settled_memory()
+    ops.registry.reset_counts()
+    plat = ServerlessPlatform(store, builders, strategy="cicada",
+                              keep_alive_s=PLATFORM_KEEP_ALIVE_S,
+                              cache_budget_bytes=0, gen_slots=4,
+                              gen_cache_len=128, max_instances=1)
+
+    # --- serial replay
+    make_spec, prompts = platform_specs()
+    t0 = time.perf_counter()
+    serial = plat.run_trace(trace, None, concurrency=1, make_spec=make_spec)
+    t_serial = time.perf_counter() - t0
+    counts_serial = ops.registry.dispatch_snapshot()
+    print_responses("serial", serial)
+    cs = plat.cache_stats()
+    ps = plat.pool_stats()
+    loads = {a: ps[a].cold_starts for a in archs}
+    print(f"  serial replay {t_serial:.1f} s; pools "
+          f"{ {a: (p.cold_starts, p.warm_hits, p.evictions) for a, p in ps.items()} } "
+          f"(cold, warm, evictions); cache hits {cs.hits}, misses "
+          f"{cs.misses}, hit share {cs.hit_rate:.1%}, "
+          f"{cs.bytes_cached / 1e9:.3f} GB resident (host)")
+    need([r.cold for r in serial] == want_cold,
+         f"cold flags {[r.cold for r in serial]} != TTL's {want_cold}")
+    need(all(r.n_generated == PLATFORM_NEW for r in serial),
+         "a serial response is short")
+    for a in archs:
+        cold = [r for r in serial if r.model == a and r.cold]
+        print(f"  {a}: first cold start load {cold[0].load_s * 1e3:.1f} ms, "
+              f"re-cold-starts from the cache "
+              f"{[round(r.load_s * 1e3, 1) for r in cold[1:]]} ms")
+        reads = [x for x in store.reads if x[0] == a]
+        need(len(reads) == units[a] and
+             sum(x[2] for x in reads) == store.model_nbytes(a),
+             f"{a}: {len(reads)} unit reads, not one per unit")
+        need(all(cold[0].t_arrival <= x[3] <= cold[0].t_done
+                 for x in reads),
+             f"{a}: a re-triggered cold start read the store")
+        last = plat.pools[a]._instances[0].last_load.trace
+        r_ev = last.events_for("R")
+        need(len(r_ev) == units[a] and
+             all(e.meta and e.meta.get("cached") for e in r_ev.values()),
+             f"{a}: the last re-cold-start's R events are not all cached")
+    need(cs.misses == sum(units.values()) and cs.hits == sum(
+        (loads[a] - 1) * units[a] for a in archs) and cs.pinned == 0,
+        f"cache stats {cs}")
+    want = {k: 0 for k in counts_serial}
+    for a in archs:
+        per_fwd, per_step = kernel_counts(models[a].cfg)
+        n_req = sum(1 for i in trace if i.model == a)
+        # warmup forward at provisioning, the in-pipeline forward of each
+        # load, and each request's prefill; then 15 steps a request
+        for k, v in per_fwd.items():
+            want[k] += (1 + loads[a] + n_req) * v
+        for k, v in per_step.items():
+            want[k] += n_req * (PLATFORM_NEW - 1) * v
+        want["weight_transform"] += loads[a] * int8_leaves(store, a)
+    print(f"  serial replay launches {counts_serial}")
+    need(counts_serial == want,
+         f"serial replay launches {counts_serial}, not {want}")
+
+    # --- concurrent replay of the same trace, every instance cold
+    plat.sweep(1e9)
+    make_spec, _ = platform_specs()
+    t0 = time.perf_counter()
+    conc = plat.run_trace(trace, None, concurrency=4, make_spec=make_spec)
+    t_conc = time.perf_counter() - t0
+    print_responses("conc. ", conc)
+    peak = {a: plat.metrics.gauge(f"pool/{a}/gen_active").max
+            for a in archs}
+    rs = plat.last_router_stats
+    print(f"  concurrent replay {t_conc:.1f} s; generation holds at once "
+          f"(peak) {peak}; router {rs}")
+    need(max(peak.values()) > 1, "no generation request joined a live "
+         "instance under concurrency")
+    for r1, r4 in zip(serial, conc):
+        need(r1.req_id == r4.req_id and list(r1.tokens) == list(r4.tokens),
+             f"request {r1.req_id}: tokens at concurrency 4 differ from the "
+             f"serial replay's at {first_diff(list(r1.tokens), list(r4.tokens))}")
+
+    # --- memory after a sweep that evicts everything
+    plat.sweep(1e10)
+    need(all(p.live == 0 and p.busy == 0 for p in plat.pool_stats().values()),
+         f"pools not all evicted {plat.pool_stats()}")
+    del plat
+    gc.collect()
+    torch.cuda.synchronize()
+    with_ws = torch.cuda.memory_allocated()
+    mem1 = settled_memory()
+    print(f"  memory_allocated before the platform {mem0 / 1e6:.1f} MB, "
+          f"after the final sweep {mem1 / 1e6:.1f} MB (margin "
+          f"{PLATFORM_MEM_MARGIN / 1e6:.1f} MB); cuBLAS workspaces of the "
+          f"loads' and workers' (thread, stream) pairs "
+          f"{(with_ws - mem1) / 1e6:.1f} MB, cleared before both readings")
+    if mem1 > mem0 + PLATFORM_MEM_MARGIN:
+        live = sorted(((o.numel() * o.element_size(), tuple(o.shape),
+                        o.dtype) for o in gc.get_objects()
+                       if torch.is_tensor(o) and o.is_cuda),
+                      key=lambda x: -x[0])
+        print(f"  live CUDA tensors, largest first: {live[:20]}")
+    need(mem1 <= mem0 + PLATFORM_MEM_MARGIN,
+         f"{(mem1 - mem0) / 1e6:.1f} MB stay allocated after eviction")
+    torch.cuda.empty_cache()
+
+    # --- platform B: int8-resident smollm-360m, paged, against slotted
+    a = archs[0]
+    sm_trace = [i for i in trace if i.model == a][:4]
+    got = {}
+    for label, pt in (("slotted", None), ("paged", 16)):
+        make_spec, _ = platform_specs()
+        before = ops.registry.dispatch_snapshot()
+        pb = ServerlessPlatform(store, {a: builders[a]}, strategy="cicada",
+                                keep_alive_s=PLATFORM_KEEP_ALIVE_S,
+                                cache_budget_bytes=0, gen_slots=4,
+                                gen_cache_len=128, compute_quant=True,
+                                kv_page_tokens=pt)
+        got[label] = pb.run_trace(sm_trace, None, concurrency=4,
+                                  make_spec=make_spec)
+        d = delta(before)
+        print_responses(f"B {label:7s}", got[label])
+        print(f"  platform B {label}: launches {d}")
+        need(d["quant_matmul"] > 0, f"B {label}: no quant_matmul launch")
+        if pt is not None:
+            need(d["decode_attention_paged"] > 0 and
+                 d["decode_attention"] == 0,
+                 f"B paged: decode launches {d}")
+        pb.sweep(1e10)
+        del pb
+    for r1, r2 in zip(got["slotted"], got["paged"]):
+        need(list(r1.tokens) == list(r2.tokens),
+             f"B: request {r1.req_id}'s paged tokens differ from slotted")
+    path = ops.registry.dispatch_snapshot()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- tokens against reference_generate on a standalone load
+    for a in archs:
+        res = ColdStartEngine(models[a], a, store, strategy="cicada").load(
+            example[a])
+        ref = [reference_generate(models[a], res.params, p,
+                                  n_new=PLATFORM_NEW, seed=i)
+               for i, p in enumerate(prompts[a])]
+        # the k-th request of a model got prompt k % 2 (platform_specs)
+        for k, r in enumerate(r for r in serial if r.model == a):
+            i = k % 2
+            need(list(r.tokens) == ref[i],
+                 f"{a} request {r.req_id} differs from reference_generate "
+                 f"at token {first_diff(ref[i], list(r.tokens))}")
+        print(f"  {a}: every response's tokens equal reference_generate's "
+              f"on a standalone load: {ref}")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": path,
+            "kernels": ("weight_transform", "flash_attention",
+                        "decode_attention", "rmsnorm", "rglru_scan",
+                        "quant_matmul", "decode_attention_paged")}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1713,6 +2019,12 @@ def main() -> int:
             phase(f"[{12 + i}] card against CPU, {arch} at 4 layers of full "
                   f"width, f32")
             card_vs_cpu_arch(dev, wd, arch)
+        phase("[15] serverless platform, full width: smollm-360m and "
+              "recurrentgemma-2b int8 stores, a 16-invocation trace "
+              "replayed serially and at concurrency 4; smollm-360m "
+              "int8-resident, paged against slotted")
+        plat = serverless_platform(dev, wd)
+        paths["serverless platform"] = (plat["launches"], plat["kernels"])
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

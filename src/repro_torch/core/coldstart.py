@@ -20,10 +20,17 @@ Under ``compute_quant`` A keeps int8 extents resident as
 :class:`~repro_torch.quant.QuantLeaf` (no ``weight_transform``), and the
 forward runs their contractions through ``quant_matmul``.
 
-Single device: the reference's mesh (shard-granular) cold starts (and
-with them its refusal of ``compute_quant`` on a mesh), its
-``WeightCache`` and the ``metrics=`` hook come with later slices (ROADMAP
-queue 1 items 6, 9 and 13).
+With a node-local :class:`~repro_torch.store.cache.WeightCache`
+(``cache=``) decoupled retrieval streams consult it before any store
+read, so scale-out and re-triggered cold starts of one model reuse its
+retrieved leaves and single-flight every read.  Each load records its
+instruments (``coldstart/loads``, ``coldstart/load_s``,
+``coldstart/utilization``, ``pipeline/wait_A_s``, ``pipeline/wait_E_s``)
+in the ``metrics=`` registry.
+
+Single device: the reference's mesh (shard-granular) cold starts and its
+cluster ``source=`` come with later slices (ROADMAP queue 1 items 13 and
+14); passing them raises.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch import metrics as metrics_mod
 from repro_torch import tree as tree_util
 from repro_torch.core import miniloader
 from repro_torch.core.decoupler import WeightDecoupler
@@ -47,6 +55,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.api import Family
 from repro_torch.models.transformer import unit_seed
 from repro_torch.quant import QuantLeaf
+from repro_torch.store.cache import WeightCache
 from repro_torch.store.store import Leaves, WeightStore, unflatten_unit
 
 PyTree = Any
@@ -66,7 +75,10 @@ class ColdStartEngine:
                  chunk_bytes: int = 1 << 20,
                  apply_dtype: Optional[torch.dtype] = None,
                  compute_quant: bool = False,
-                 device: DeviceLike = None):
+                 cache: Optional[WeightCache] = None,
+                 mesh=None, rules=None,
+                 metrics: Optional[metrics_mod.MetricsRegistry] = None,
+                 source=None, device: DeviceLike = None):
         """apply_dtype: cast weights to this dtype at application time
         (None -> keep the stored dtype; int8 extents dequantize to f32).
 
@@ -77,8 +89,28 @@ class ColdStartEngine:
         the f32 bytes and the forward dispatches ``quant_matmul``.
         Leaves the store serves as floats are handled as without it.
 
+        cache: node-local shared WeightCache — decoupled retrieval
+        streams consult it before issuing I/O, so scale-out cold starts
+        of the same model single-flight every store read (strategies
+        without the decoupler read the store as before).
+
+        metrics: registry of the per-load instruments (default: the
+        process registry).
+
+        mesh / rules / source: shard-granular cold starts and the
+        cluster's peer source of the reference; not ported yet (ROADMAP
+        queue 1 items 13 and 14), so anything but None raises.
+
         device: where the model is loaded and run (default: the GPU;
         raises without one unless ``device="cpu"``)."""
+        if mesh is not None or rules is not None:
+            raise NotImplementedError(
+                "shard-granular cold starts (mesh=, rules=) are not ported "
+                "yet — ROADMAP queue 1 item 13")
+        if source is not None:
+            raise NotImplementedError(
+                "a cluster ShardSource (source=) is not ported yet — "
+                "ROADMAP queue 1 item 14")
         self.model = model
         self.model_name = model_name
         self.store = store
@@ -87,6 +119,8 @@ class ColdStartEngine:
         self.chunk_bytes = chunk_bytes
         self.apply_dtype = apply_dtype
         self.compute_quant = compute_quant
+        self.cache = cache
+        self.metrics = metrics_mod.resolve(metrics)
         self.device = resolve_device(device)
         if compute_quant and model.cfg.family != Family.DENSE:
             raise NotImplementedError(
@@ -169,7 +203,8 @@ class ColdStartEngine:
         state = PipelineState()
         dec = WeightDecoupler(self.store, self.model_name, scheduler, trace,
                               state, io_workers=self.io_workers,
-                              chunk_bytes=self.chunk_bytes)
+                              chunk_bytes=self.chunk_bytes,
+                              cache=self.cache if strat.decouple else None)
         trace.start()
         try:
             if not strat.pipelined:
@@ -180,9 +215,28 @@ class ColdStartEngine:
                                               dec, scheduler, state,
                                               on_logits)
         finally:
+            # shutdown guards the shared cache's invariants (pin sweep and
+            # unregister_load), so it runs on the failure path too
             dec.shutdown()
         trace.finish()
+        self._record_load(trace)
         return result
+
+    # 0..1 in even tenths — utilization is a ratio, not a latency, so
+    # the log-spaced second buckets would collapse it into two bins
+    UTIL_BUCKETS = tuple(i / 10 for i in range(1, 11))
+
+    def _record_load(self, trace: PipelineTrace):
+        """Per-load instruments: pipeline time, utilization, and the
+        paper's per-stage waiting times (Q3) as live histograms."""
+        m = self.metrics
+        m.counter("coldstart/loads").inc()
+        m.histogram("coldstart/load_s").observe(trace.total_time())
+        m.histogram("coldstart/utilization",
+                    buckets=self.UTIL_BUCKETS).observe(trace.utilization())
+        wait = trace.wait_by_stage()
+        m.histogram("pipeline/wait_A_s").observe(wait.get("A", 0.0))
+        m.histogram("pipeline/wait_E_s").observe(wait.get("E", 0.0))
 
     # ------------------------------------------------- traditional (Fig. 1)
     @torch.no_grad()

@@ -34,6 +34,8 @@ class StageEvent:
     layer: str                    # unit name, e.g. "block_003"
     t_start: float
     t_end: float
+    meta: Optional[dict] = None   # R events served by the WeightCache:
+                                  # {"cached": True}
 
     @property
     def duration(self) -> float:
@@ -79,9 +81,10 @@ class PipelineTrace:
 
         return _Ctx()
 
-    def add_event(self, stage: str, layer: str, t_start: float, t_end: float):
+    def add_event(self, stage: str, layer: str, t_start: float, t_end: float,
+                  meta: Optional[dict] = None):
         with self._lock:
-            self.events.append(StageEvent(stage, layer, t_start, t_end))
+            self.events.append(StageEvent(stage, layer, t_start, t_end, meta))
 
     def record_memory(self, layer: str, nbytes: int, t_construct_end: float,
                       t_apply_end: float):

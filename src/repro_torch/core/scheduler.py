@@ -11,9 +11,12 @@ EMA of observed stream bandwidth (the paper's "records the execution
 times of each ... weight file (W) operation").  ``a`` is the measured
 pipeline-unit scheduling overhead.
 
-Streams are unit-granular here: the reference's shard streams and
-WeightCache-served streams come with those slices (ROADMAP queue 1
-items 6 and 13).
+A stream served by the node-local WeightCache (a hit, or a wait on
+another load's read) is *external*: it is never prioritized, arms no
+deadline, and its ~zero duration is not folded into the bandwidth EMA.
+
+Streams are unit-granular here: the reference's shard streams come with
+the shard slice (ROADMAP queue 1 item 13).
 
 Complexity matches the paper: O(n) over in-flight streams to suspend,
 O(1) space per stream.
@@ -38,6 +41,9 @@ class StreamState:
     gate: threading.Event                 # set = may run; cleared = suspended
     t_issue: float = 0.0
     t_done: Optional[float] = None
+    bytes_done: int = 0
+    external: bool = False                # served by the WeightCache, not
+                                          # a local store read
 
     @property
     def completed(self) -> bool:
@@ -69,12 +75,30 @@ class PriorityAwareScheduler:
         with self._lock:
             self._streams[unit].t_issue = time.monotonic()
 
-    def on_complete(self, unit: str):
+    def on_progress(self, unit: str, done: int, total: int):
+        with self._lock:
+            self._streams[unit].bytes_done = done
+
+    def mark_external(self, unit: str, external: bool = True):
+        """The stream is being served by the node-local WeightCache (a
+        hit, or a wait on another load's read): it is not a local store
+        read, so Algorithm 1 must neither prioritize it (suspending
+        local streams cannot speed it up — and doing so across two
+        concurrent loads that lead each other's units would deadlock)
+        nor arm a bandwidth-based deadline for it."""
+        with self._lock:
+            self._streams[unit].external = external
+
+    def on_complete(self, unit: str, *, observed: bool = True):
+        """``observed=False``: the stream finished without a store read
+        (cache hit) — complete it without folding the ~zero duration
+        into the bandwidth EMA."""
         with self._lock:
             st = self._streams[unit]
             st.t_done = time.monotonic()
-            dur = max(st.t_done - st.t_issue, 1e-9)
-            self._bw = 0.7 * self._bw + 0.3 * st.nbytes / dur
+            if observed:
+                dur = max(st.t_done - st.t_issue, 1e-9)
+                self._bw = 0.7 * self._bw + 0.3 * st.nbytes / dur
             if self._critical == unit:
                 self._critical = None
                 for other in self._streams.values():
@@ -97,7 +121,7 @@ class PriorityAwareScheduler:
 
     def _in_flight_locked(self, unit: str) -> Optional[StreamState]:
         st = self._streams.get(unit)
-        if st is None or st.completed or st.t_issue == 0.0:
+        if st is None or st.completed or st.t_issue == 0.0 or st.external:
             return None
         return st
 
@@ -105,8 +129,9 @@ class PriorityAwareScheduler:
         """Seconds until *unit*'s expected completion — the wake-up
         deadline an event-driven waiter arms to run Algorithm 1 at
         exactly the right moment.  None = no deadline applies (scheduler
-        disabled, unit unknown / not issued yet / completed, or the unit
-        is already the prioritized critical one)."""
+        disabled, unit unknown / not issued yet / completed / served by
+        the cache, or the unit is already the prioritized critical
+        one)."""
         if not self.enabled:
             return None
         with self._lock:
@@ -119,8 +144,9 @@ class PriorityAwareScheduler:
     def adjust_priority(self, unit: str) -> str:
         """Algorithm 1: called for the layer the pipeline needs next.
 
-        If W_unit is past its expected completion and still running,
-        suspend every other in-flight stream and mark the unit HIGH.
+        If W_unit is past its expected completion and still running (a
+        local read, not an external one), suspend every other in-flight
+        stream and mark the unit HIGH.
         """
         if not self.enabled:
             return NORMAL
@@ -136,3 +162,9 @@ class PriorityAwareScheduler:
             st.gate.set()
             self._critical = unit
             return HIGH
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"bw_estimate": self._bw,
+                    "suspends": self.suspend_count,
+                    "streams": len(self._streams)}

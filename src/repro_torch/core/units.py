@@ -15,7 +15,9 @@
 
 On the GPU the weight unit applies on its own CUDA stream (the
 host-to-device copy and ``weight_transform``), records an event there and
-waits for that event — only its own work — before it publishes a unit.
+waits for that event — only its own work — before it publishes a unit and
+releases the unit's WeightCache pin, so no copy out of a cached pinned
+buffer is still in flight when the cache may evict it.
 The compute unit runs on a second stream, makes that stream wait on the
 unit's event, and closes each E event after waiting for its own stream.
 No unit calls ``torch.cuda.synchronize()``, which would also wait for the
@@ -239,6 +241,9 @@ class DecoupledWeightUnit(PipelineUnit):
                 with ctx.trace.record("A", u):
                     params = ctx.apply_leaves(u, cu.abstract, dec.ready[u])
                     ev = _record_ready(ctx.device)
+                # application done — on the GPU, the host has waited for
+                # the copies out of the pinned leaves: drop the cache pin
+                dec.checkin(u)
                 ctx.trace.record_memory(u, cu.mem_bytes, cu.t_construct_end,
                                         time.monotonic())
                 ctx.state.publish(READY, u, ev)

@@ -1,1 +1,2 @@
-"""Weight store of the port (``store.store``)."""
+"""Weight store of the port (``store.store``) and the node-local shared
+``WeightCache`` of retrieved unit leaves (``store.cache``)."""

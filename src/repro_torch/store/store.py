@@ -279,6 +279,10 @@ class WeightStore:
                                 self.read_unit(model_name, unit, **kw))
 
     # -------------------------------------------------------------- helpers
+    def has_model(self, model_name: str) -> bool:
+        return os.path.exists(os.path.join(self._dir(model_name),
+                                           "manifest.json"))
+
     def model_nbytes(self, model_name: str) -> int:
         return sum(u["nbytes"]
                    for u in self.manifest(model_name)["units"].values())

@@ -1,6 +1,6 @@
 """Boundaries of the port: it imports neither JAX nor the JAX package (here
 for its top-level modules, ``chip_smoke.py`` and the subpackages not
-checked by ``test_torch_isolation_{core,kernels}.py``); its
+checked by ``test_torch_isolation_{core,serving,kernels}.py``); its
 entry points run on the GPU unless told ``device="cpu"`` and raise when
 there is none; CPU tensors take the plain versions and count no kernel
 launch."""
@@ -15,15 +15,16 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_lib, ops
 from repro_torch.models import transformer
 from repro_torch.models.api import get_config
-from repro_torch.serving import DecodeScheduler, GenerateSpec
+from repro_torch.serving import (DecodeScheduler, GenerateSpec,
+                                 InstancePool, ServerlessPlatform)
 from repro_torch.serving.decode import reference_generate
 from repro_torch.store.store import WeightStore, deploy_model
 from torch_testlib import (PORT, ROOT, assert_imports_no_jax_and_no_reference,
                            path_id, port_files)
 
 torch.set_num_threads(2)
-HERE = ("", "analysis", "configs", "store")
-# the subpackages test_torch_isolation_{core,kernels}.py check
+HERE = ("", "analysis", "configs", "launch", "store")
+# the subpackages test_torch_isolation_{core,serving,kernels}.py check
 ELSEWHERE = ("core", "serving", "kernels", "models")
 
 
@@ -79,6 +80,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     params = m.init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         reference_generate(m, params, [1, 2, 3], n_new=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServerlessPlatform(store, {"m": lambda: (m, None)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InstancePool("m", lambda: (m, None), store)
     # the same calls on device="cpu" run
     ColdStartEngine(m, "m", store, device="cpu")
     assert len(reference_generate(m, params, [1, 2, 3], n_new=2,

@@ -1,0 +1,59 @@
+"""The port's serving launcher (``repro_torch.launch.serve``) on the CPU at
+smoke size, held against the JAX package's launcher on the same
+arguments: per strategy, the same cold/warm mix and pool counts."""
+import pytest
+import torch
+
+from repro.launch import serve as jserve
+from repro_torch.launch import serve as tserve
+
+torch.set_num_threads(2)
+
+ARGS = ["--invocations", "6", "--duration", "120", "--keep-alive", "20",
+        "--bandwidth-mbps", "0"]
+
+
+def _pools(out: str):
+    return sorted(line for line in out.splitlines()
+                  if line.startswith("pool["))
+
+
+@pytest.mark.parametrize("workload,extra", [
+    ("oneshot", ["--cache-budget-mb", "0"]),
+    ("generate", ["--n-new", "3", "--prompt-len", "5", "--concurrency",
+                  "1"]),
+], ids=["oneshot", "generate"])
+def test_launcher_matches_reference(tmp_path, capsys, workload, extra):
+    args = ARGS + ["--workload", workload] + extra
+    strategies = ["cicada", "pisel"] if workload == "generate" \
+        else ["cicada"]
+    got = tserve.main(args + ["--store", str(tmp_path / "t"), "--device",
+                              "cpu", "--strategy", *strategies])
+    tout = capsys.readouterr().out
+    assert sorted(got) == sorted(strategies)
+    for strategy in strategies:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("REPRO_PALLAS", "ref")
+            want = jserve.main(args + ["--store", str(tmp_path / "j"),
+                                       "--strategy", strategy])
+        jout = capsys.readouterr().out
+        assert [r.cold for r in got[strategy]] == [r.cold for r in want]
+        assert [(r.req_id, r.model) for r in got[strategy]] == \
+            [(r.req_id, r.model) for r in want]
+        assert 0 < sum(r.cold for r in want) < len(want)
+        assert set(_pools(jout)) <= set(_pools(tout))
+        if workload == "generate":
+            assert all(r.n_generated == 3 for r in got[strategy])
+    assert tout.splitlines()[1].startswith("trace: ")
+    assert sum(line.startswith("strategy=") for line in tout.splitlines()) \
+        == len(strategies)
+
+
+def test_launcher_refuses_unported_options_and_needs_a_device(tmp_path,
+                                                               monkeypatch):
+    for flag in (["--mesh", "2"], ["--nodes", "2"], ["--autoscale"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tserve.main(flag + ["--store", str(tmp_path)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--store", str(tmp_path)])
