@@ -24,7 +24,13 @@ concurrency 4 (generation requests join live instances), then
 smollm-360m int8-resident with 16-token pages against the same platform
 slotted; every response's tokens equal ``reference_generate``'s, the
 serial replay's launches are exact, and a sweep that evicts everything
-returns the card's memory.
+returns the card's memory.  Then the paper's own evaluation trio at full
+width (224x224 images, 1000 classes): resnet50, vgg16 and vit_b_16 cold
+starts under all five strategies from f32 stores and with cicada from
+int8 stores (one ``weight_transform`` launch per int8 leaf), each held
+against the CPU, and served one-shot through the platform from their int8
+stores (cold flags as the TTL implies, re-cold-starts read nothing, every
+response equal to a standalone load's logits, memory returned).
 It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
 seven TPU kernels' counterparts and ``rmsnorm``), holds each against its
 plain PyTorch version on the card, the attention kernels also at head dims
@@ -1656,9 +1662,12 @@ PLATFORM_KEEP_ALIVE_S = 60.0
 PLATFORM_MEM_MARGIN = 64 << 20
 
 
-def platform_store(workdir: str):
-    """A store over the earlier phases' int8 deployments, named by
-    architecture, that logs every unit read: (model, unit, bytes, time)."""
+def platform_store(workdir: str, stores: dict = PLATFORM_STORES,
+                   sub: str = "platform"):
+    """A store over the earlier phases' int8 deployments (``stores``:
+    model name -> (directory under the work dir, store's model name)),
+    named by architecture, that logs every unit read: (model, unit,
+    bytes, time)."""
     from repro_torch.store.store import BandwidthModel, WeightStore
 
     class LoggingStore(WeightStore):
@@ -1672,12 +1681,12 @@ def platform_store(workdir: str):
                                time.monotonic()))
             return buf
 
-    root = os.path.join(workdir, "platform")
+    root = os.path.join(workdir, sub)
     os.makedirs(root, exist_ok=True)
-    for arch, (sub, name) in PLATFORM_STORES.items():
+    for arch, (where, name) in stores.items():
         link = os.path.join(root, arch)
         if not os.path.exists(link):
-            os.symlink(os.path.join(workdir, sub, name), link)
+            os.symlink(os.path.join(workdir, where, name), link)
     return LoggingStore(root, BandwidthModel(bandwidth_mbps=2000))
 
 
@@ -1939,6 +1948,296 @@ def serverless_platform(dev, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 16-18: the paper's own trio (ResNet-50, VGG-16, ViT-B/16)
+# ---------------------------------------------------------------------------
+
+TRIO = ("resnet50", "vgg16", "vit_b_16")
+STRATEGIES = ("traditional", "pisel", "mini", "preload", "cicada")
+# leaves of >= 2 dims, each one weight_transform launch per int8 load
+TRIO_INT8_LEAVES = {"resnet50": 54, "vgg16": 16, "vit_b_16": 75}
+# of max |logit|: strategies against each other, warm forward against the
+# in-pipeline logits, platform responses against a standalone load
+VISION_TOL = 1e-5
+# the phase-16 deployments the platform serves, by architecture
+VISION_STORES = {a: ("vision", a + "-int8") for a in TRIO}
+
+
+def vision_cold_starts(dev, workdir: str) -> dict:
+    """Deploy each of the trio (random weights, seed 0) to an f32 and an
+    int8 store at 2000 MB/s; load it under the five strategies from the
+    f32 store and with cicada from the int8 store, one (1, 3, 224, 224)
+    image a load.  Returns the card's logits of each load."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import example_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.store.store import (BandwidthModel, WeightStore,
+                                         deploy_model)
+
+    store = WeightStore(os.path.join(workdir, "vision"),
+                        BandwidthModel(bandwidth_mbps=2000))
+    print(f"  TF32: cuDNN {torch.backends.cudnn.allow_tf32}, matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32} (off for every timing "
+          f"and comparison)")
+    out = {}
+    for arch in TRIO:
+        cfg = get_config(arch)
+        model = transformer.build(cfg)
+        cpu_model = transformer.build(cfg, device="cpu")
+        t0 = time.perf_counter()
+        units = {}
+        for i, name in enumerate(cpu_model.unit_names()):
+            gen = torch.Generator().manual_seed(transformer.unit_seed(0, i))
+            units[name] = cpu_model.init_unit(name, gen)
+        n_params = sum(t.numel() for t in tree_util.leaves(units))
+        deploy_model(store, cpu_model, arch, params_by_unit=units)
+        deploy_model(store, cpu_model, arch + "-int8", quant="int8",
+                     params_by_unit=units)
+        del units
+        n_int8 = int8_leaves(store, arch + "-int8")
+        print(f"\n  deployed {arch} ({n_params / 1e6:.1f} M params, units "
+              f"{len(model.unit_names())}) f32 "
+              f"{store.model_nbytes(arch) / 1e6:.1f} MB, int8 "
+              f"{store.model_nbytes(arch + '-int8') / 1e6:.1f} MB "
+              f"({n_int8} int8 leaves) in {time.perf_counter() - t0:.1f} s "
+              f"(set-up)")
+        need(n_int8 == TRIO_INT8_LEAVES[arch],
+             f"{arch}: {n_int8} int8 leaves, not {TRIO_INT8_LEAVES[arch]}")
+        batch = example_batch(cfg)
+        logits = {}
+        for strat, name in ([(s, arch) for s in STRATEGIES]
+                            + [("cicada", arch + "-int8")]):
+            label = f"{strat} {'int8' if name.endswith('int8') else 'f32'}"
+            eng = ColdStartEngine(model, name, store, strategy=strat)
+            eng.warmup(batch)
+            before = ops.registry.dispatch_snapshot()
+            res = eng.load(batch)
+            launched = delta(before)
+            tr, lg = res.trace, res.logits
+            need(tuple(lg.shape) == (1, cfg.vocab_size) and
+                 bool(torch.isfinite(lg).all()),
+                 f"{arch} {label}: logits {tuple(lg.shape)} not "
+                 f"finite/shaped")
+            warm, _ = model.forward(res.params, batch_dev(batch, dev))
+            scale = lg.abs().max().item()
+            diff = (warm - lg).abs().max().item()
+            summ = tr.summary()
+            floor = store.model_nbytes(name) / 2000e6
+            want_wt = n_int8 if name.endswith("int8") else 0
+            print(f"  {arch} {label}: load {tr.total_time() * 1e3:.1f} ms "
+                  f"(I/O floor {floor * 1e3:.1f} ms), utilization "
+                  f"{tr.utilization():.1%}, work (s) " + ", ".join(
+                      f"{k[5:]} {summ[k]:.4f}" for k in (
+                          "work_L", "work_R", "work_A", "work_E"))
+                  + f", MiniLoader memory overhead "
+                  f"{summ['mem_overhead_bytes'] / 1e6:.2f} MB, warm "
+                  f"forward vs in-pipeline {diff:.3e} (max |logit| "
+                  f"{scale:.3f}), weight_transform launches "
+                  f"{launched['weight_transform']} (want {want_wt})")
+            need(diff <= VISION_TOL * scale,
+                 f"{arch} {label}: warm forward differs from the "
+                 f"in-pipeline logits by {diff}")
+            need(launched["weight_transform"] == want_wt and
+                 sum(launched.values()) == want_wt,
+                 f"{arch} {label}: launches {launched}")
+            logits[label] = lg.float().cpu()
+            del res, warm
+        ref = logits["cicada f32"]
+        scale = ref.abs().max().item()
+        spread = max((lg - ref).abs().max().item()
+                     for k, lg in logits.items() if k.endswith("f32"))
+        d8 = (logits["cicada int8"] - ref).abs().max().item()
+        print(f"  {arch}: five f32 strategies' logits within {spread:.3e} "
+              f"of cicada's (tol {VISION_TOL} x {scale:.3f}); int8 store "
+              f"vs f32 {d8:.3e}")
+        need(spread <= VISION_TOL * scale,
+             f"{arch}: the f32 strategies disagree by {spread}")
+        out[arch] = logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_vgg_fc1(dev):
+    """weight_transform at the largest leaf of this path, vgg16's fc1
+    int8 (25088, 4096) -> f32 (a timing outside every path's count)."""
+    import torch
+    from repro_torch.kernels import weight_transform as wmod
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, m = 25088, 4096
+    w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(m, generator=g, device=dev) * 0.05
+    got = wmod.weight_transform(w, s, out_dtype=torch.float32)
+    need(torch.equal(got, wmod.plain(w, s, out_dtype=torch.float32)),
+         "weight_transform (25088, 4096) differs from its plain version")
+    del got
+    bnd = bound(n * m * 1 + m * 4 + n * m * 4, n * m, torch.float32)
+    extra_line("weight_transform", "vgg16 fc1 int8 (25088,4096) -> f32",
+               lambda: wmod.weight_transform(w, s, out_dtype=torch.float32),
+               lambda: wmod.plain(w, s, out_dtype=torch.float32),
+               lambda: (w.float() * s).to(torch.float32), bnd,
+               "(w.float() * s).to(dt)")
+    del w
+    torch.cuda.empty_cache()
+
+
+def vision_card_vs_cpu(workdir: str, card: dict):
+    """Each of the trio loaded on the CPU (cicada, f32 store) against the
+    card's cicada f32 load of phase 16: logits within 2e-3 of max |logit|,
+    top-1 equal."""
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.launch.serve import example_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.store.store import WeightStore
+
+    store = WeightStore(os.path.join(workdir, "vision"))
+    for arch in TRIO:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        res = ColdStartEngine(transformer.build(cfg, device="cpu"), arch,
+                              store, strategy="cicada", device="cpu").load(
+            example_batch(cfg))
+        b, a = res.logits.float(), card[arch]["cicada f32"]
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        top = (int(a.argmax()), int(b.argmax()))
+        print(f"  {arch} full width f32: card vs CPU logits max rel diff "
+              f"{rel:.3e} (tol 2e-3), top-1 card {top[0]}, CPU {top[1]} "
+              f"(CPU load {time.perf_counter() - t0:.1f} s)")
+        need(rel <= 2e-3, f"{arch}: card and CPU logits differ by {rel}")
+        need(top[0] == top[1], f"{arch}: card and CPU top-1 differ {top}")
+
+
+def vision_platform(dev, workdir: str) -> dict:
+    """The trio served one-shot from phase 16's int8 stores (dequantized
+    at A), strategy cicada, one shared unbounded WeightCache, one
+    instance a model, keep-alive 60 s: a 16-invocation Azure-like trace
+    replayed serially.  Returns the path's launch counts (zeroed at the
+    start, read before the checks against standalone loads)."""
+    import gc
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import example_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import ServerlessPlatform
+    from repro_torch.serving import pool as pool_mod
+    from repro_torch.serving.trace import azure_like_trace, summarize
+
+    archs = list(TRIO)
+    store = platform_store(workdir, VISION_STORES, "platform-vision")
+    models = {a: transformer.build(get_config(a)) for a in archs}
+    units = {a: len(models[a].unit_names()) for a in archs}
+    example = {a: example_batch(models[a].cfg) for a in archs}
+    trace = azure_like_trace(duration_s=600.0, n_invocations=16,
+                             models=archs, seed=0)
+    want_cold = expected_cold(trace, PLATFORM_KEEP_ALIVE_S)
+    n_cold = {a: sum(c for c, i in zip(want_cold, trace) if i.model == a)
+              for a in archs}
+    print(f"  trace {summarize(trace)}; keep-alive "
+          f"{PLATFORM_KEEP_ALIVE_S:.0f} s: cold starts by model {n_cold}")
+    for a in archs:
+        need(n_cold[a] >= 2, f"{a}: the trace re-triggers no cold start")
+
+    # every response's logits, in serving order (one router worker)
+    answers = []
+    invoke = pool_mod.FunctionInstance.invoke
+
+    def recording_invoke(self, batch):
+        out, info = invoke(self, batch)
+        answers.append((self.model_name, out.float().cpu()))
+        return out, info
+
+    mem0 = settled_memory()
+    ops.registry.reset_counts()
+    pool_mod.FunctionInstance.invoke = recording_invoke
+    try:
+        plat = ServerlessPlatform(
+            store, {a: (lambda a=a: (models[a], example[a])) for a in archs},
+            strategy="cicada", keep_alive_s=PLATFORM_KEEP_ALIVE_S,
+            cache_budget_bytes=0, max_instances=1)
+        t0 = time.perf_counter()
+        serial = plat.run_trace(trace, lambda a: example[a], concurrency=1)
+        t_serial = time.perf_counter() - t0
+    finally:
+        pool_mod.FunctionInstance.invoke = invoke
+    counts = ops.registry.dispatch_snapshot()
+    for r in serial:
+        print(f"  #{r.req_id:2d} {r.model:9s} "
+              f"{'cold' if r.cold else 'warm'} load {r.load_s * 1e3:7.1f} "
+              f"ms, infer {r.infer_s * 1e3:6.1f} ms, utilization "
+              f"{r.utilization:.1%}, latency {r.latency_s * 1e3:7.1f} ms")
+    cs, ps = plat.cache_stats(), plat.pool_stats()
+    loads = {a: ps[a].cold_starts for a in archs}
+    pools = {a: (p.cold_starts, p.warm_hits, p.evictions)
+             for a, p in ps.items()}
+    print(f"  serial replay {t_serial:.1f} s; pools {pools} (cold, warm, "
+          f"evictions); cache hits {cs.hits}, misses {cs.misses}, hit "
+          f"share {cs.hit_rate:.1%}, {cs.bytes_cached / 1e6:.1f} MB "
+          f"resident (host); launches {counts}")
+    need([r.cold for r in serial] == want_cold,
+         f"cold flags {[r.cold for r in serial]} != TTL's {want_cold}")
+    need(len(answers) == len(serial) and
+         [m for m, _ in answers] == [r.model for r in serial],
+         "the recorded answers do not follow the responses")
+    for a in archs:
+        cold = [r for r in serial if r.model == a and r.cold]
+        print(f"  {a}: first cold start load {cold[0].load_s * 1e3:.1f} ms, "
+              f"re-cold-starts from the cache "
+              f"{[round(r.load_s * 1e3, 1) for r in cold[1:]]} ms")
+        reads = [x for x in store.reads if x[0] == a]
+        need(len(reads) == units[a] and
+             sum(x[2] for x in reads) == store.model_nbytes(a),
+             f"{a}: {len(reads)} unit reads, not one per unit")
+        need(all(cold[0].t_arrival <= x[3] <= cold[0].t_done
+                 for x in reads),
+             f"{a}: a re-triggered cold start read the store")
+    need(cs.misses == sum(units.values()) and cs.hits == sum(
+        (loads[a] - 1) * units[a] for a in archs) and cs.pinned == 0,
+        f"cache stats {cs}")
+    want = {k: 0 for k in counts}
+    want["weight_transform"] = sum(loads[a] * int8_leaves(store, a)
+                                   for a in archs)
+    need(counts == want, f"serial replay launches {counts}, not {want}")
+
+    plat.sweep(1e10)
+    need(all(p.live == 0 and p.busy == 0 for p in plat.pool_stats().values()),
+         f"pools not all evicted {plat.pool_stats()}")
+    del plat, serial
+    gc.collect()
+    torch.cuda.synchronize()
+    with_ws = torch.cuda.memory_allocated()
+    mem1 = settled_memory()
+    print(f"  memory_allocated before the platform {mem0 / 1e6:.1f} MB, "
+          f"after the final sweep {mem1 / 1e6:.1f} MB (margin "
+          f"{PLATFORM_MEM_MARGIN / 1e6:.1f} MB); cuBLAS workspaces "
+          f"{(with_ws - mem1) / 1e6:.1f} MB, cleared before both readings")
+    need(mem1 <= mem0 + PLATFORM_MEM_MARGIN,
+         f"{(mem1 - mem0) / 1e6:.1f} MB stay allocated after eviction")
+    torch.cuda.empty_cache()
+
+    # --- every response against a standalone load on the same image
+    for a in archs:
+        ref = ColdStartEngine(models[a], a, store, strategy="cicada").load(
+            example[a]).logits.float().cpu()
+        scale = ref.abs().max().item()
+        d = max((lg - ref).abs().max().item()
+                for m, lg in answers if m == a)
+        print(f"  {a}: {sum(m == a for m, _ in answers)} responses within "
+              f"{d:.3e} of a standalone load's logits (tol {VISION_TOL} x "
+              f"{scale:.3f})")
+        need(d <= VISION_TOL * scale,
+             f"{a}: a response differs from a standalone load by {d}")
+    torch.cuda.empty_cache()
+    return {"launches": counts}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2025,6 +2324,20 @@ def main() -> int:
               "int8-resident, paged against slotted")
         plat = serverless_platform(dev, wd)
         paths["serverless platform"] = (plat["launches"], plat["kernels"])
+        phase("[16] the paper's trio at full width (resnet50, vgg16, "
+              "vit_b_16): five strategies from f32 stores, cicada from "
+              "int8")
+        ops.registry.reset_counts()
+        vis = vision_cold_starts(dev, wd)
+        paths["vision cold starts"] = (ops.registry.dispatch_snapshot(),
+                                       ("weight_transform",))
+        time_vgg_fc1(dev)
+        phase("[17] card against CPU, the trio at full width, f32")
+        vision_card_vs_cpu(wd, vis)
+        phase("[18] one-shot serving of the trio: int8 stores, a "
+              "16-invocation trace replayed serially")
+        vplat = vision_platform(dev, wd)
+        paths["vision platform"] = (vplat["launches"], ("weight_transform",))
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

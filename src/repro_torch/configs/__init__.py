@@ -1,9 +1,13 @@
-"""Config registry: importing this package registers every LM-family
-architecture of ``lm_archs`` (full and smoke).  The vision families and
-the shape cells of the reference come with their slices (ROADMAP queue 1
-items 7 and 15).
+"""Config registry: importing this package registers every architecture
+of the port:
 
-``repro_torch.models.api.get_config(name, smoke=...)`` is the lookup API.
+  * the 10 assigned LM-family archs (``lm_archs``) — full + smoke,
+  * the paper's own ResNet/VGG/ViT families (``vision_archs``).
+
+The shape cells of the reference come with their slice (ROADMAP queue 1
+item 15).  ``repro_torch.models.api.get_config(name, smoke=...)`` is the
+lookup API.
 """
 from repro_torch.configs import lm_archs  # noqa: F401
+from repro_torch.configs import vision_archs  # noqa: F401
 from repro_torch.configs.lm_archs import ASSIGNED  # noqa: F401

@@ -81,6 +81,7 @@ class ColdStartEngine:
                  source=None, device: DeviceLike = None):
         """apply_dtype: cast weights to this dtype at application time
         (None -> keep the stored dtype; int8 extents dequantize to f32).
+        The vision family takes None only.
 
         compute_quant: keep int8 extents resident — A copies the int8
         values (at the leaf's logical shape) and the scale to the device
@@ -127,6 +128,11 @@ class ColdStartEngine:
                 f"{model.cfg.name}: compute_quant (int8-resident weights) is "
                 f"not ported for the {model.cfg.family.value!r} family yet — "
                 f"ROADMAP queue 1 item 12")
+        if apply_dtype is not None and model.cfg.family == Family.VISION:
+            raise NotImplementedError(
+                f"{model.cfg.name}: apply_dtype is not supported for the "
+                f"vision family: its params stay f32, as in the reference, "
+                f"whose convs take no bf16 weights under f32 activations")
         if model.device != self.device:
             raise ValueError(f"model is built for {model.device}, engine "
                              f"runs on {self.device}")

@@ -28,14 +28,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import tempfile
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.api import get_config
+from repro_torch.models.api import Family, get_config
 from repro_torch.serving.api import GenerateSpec
 from repro_torch.serving.engine import ServerlessPlatform
 from repro_torch.serving.trace import azure_like_trace, summarize
@@ -45,10 +47,21 @@ STRATEGIES = ["traditional", "pisel", "mini", "preload", "cicada"]
 
 
 def example_batch(cfg, seq: int = 32):
-    """A representative one-shot request (decoder LMs: a token batch)."""
+    """A representative one-shot request: a (1, 3, img_res, img_res) f32
+    image for the vision family, a token batch for decoder LMs."""
     rng = np.random.default_rng(0)
+    if cfg.family == Family.VISION:
+        return {"image": torch.as_tensor(
+            rng.standard_normal((1, 3, cfg.img_res, cfg.img_res)),
+            dtype=torch.float32)}
     return {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (1, seq)))}
+
+
+def _n_params(model) -> int:
+    """Parameters the model deploys (its abstract tree's leaves)."""
+    return sum(math.prod(leaf.shape)
+               for leaf in tree_util.leaves(model.abstract()))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -205,7 +218,7 @@ def main(argv=None):
         model = transformer.build(cfg, device=device)
         if not store.has_model(name):
             print(f"deploying {name} "
-                  f"({cfg.param_count() / 1e6:.1f}M params"
+                  f"({_n_params(model) / 1e6:.1f}M params"
                   f"{', int8' if args.compute_quant else ''}) ...")
             deploy_model(store, model, name, seed=args.seed,
                          quant="int8" if args.compute_quant else None)

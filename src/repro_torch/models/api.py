@@ -203,3 +203,7 @@ def get_config(name: str, *, smoke: bool = False) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(reg)}")
     return reg[name]()
 
+
+def list_archs() -> List[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)

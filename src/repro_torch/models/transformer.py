@@ -29,8 +29,9 @@ pt, dh)``, ``gather_pages`` / ``pack_pages`` / ``copy_page``, and
 pools and caches are written in place.  Paging the hybrid's attention
 layers waits (ROADMAP queue 1 item 12).
 
-The MoE, audio, VLM and vision families raise ``NotImplementedError``
-naming their ROADMAP item.
+The MoE, audio and VLM families raise ``NotImplementedError`` naming
+their ROADMAP item; :func:`build` hands the vision family to
+:mod:`repro_torch.models.vision`.
 """
 from __future__ import annotations
 
@@ -53,7 +54,6 @@ _PENDING = {
     Family.MOE: "ROADMAP queue 1 item 11 (MoE)",
     Family.AUDIO: "ROADMAP queue 1 item 12 (hubert stub path)",
     Family.VLM: "ROADMAP queue 1 item 12 (internvl2 stub path)",
-    Family.VISION: "ROADMAP queue 1 item 7 (vision family)",
 }
 PAGING_PENDING = ("ROADMAP queue 1 item 12 (paged decode of the recurrent "
                   "families)")
@@ -666,9 +666,13 @@ def unit_seed(seed: int, index: int) -> int:
 _models: Dict[Tuple[ArchConfig, str], LM] = {}
 
 
-def build(cfg: ArchConfig, device: DeviceLike = None) -> LM:
+def build(cfg: ArchConfig, device: DeviceLike = None):
     """Build (cached) the model for a config on ``device`` (default: the
-    GPU; raises without one unless ``device="cpu"``)."""
+    GPU; raises without one unless ``device="cpu"``): an :class:`LM`, or
+    for the vision family a :class:`~repro_torch.models.vision.VisionModel`."""
+    if cfg.family == Family.VISION:
+        from repro_torch.models import vision
+        return vision.build(cfg, device)
     dev = resolve_device(device)
     key = (cfg, str(dev))
     if key not in _models:
@@ -695,8 +699,9 @@ def _as_tensor(a, device) -> torch.Tensor:
 def params_from_numpy(cfg: ArchConfig, tree: PyTree,
                       device: DeviceLike = None) -> PyTree:
     """Carry a reference parameter tree (numpy arrays, ``blocks/s0``
-    leaves stacked ``(n_units, ...)``) into the port's params on
-    ``device``, checking it against the model's structure and shapes.
+    leaves stacked ``(n_units, ...)``; for the vision family ``{unit:
+    unit tree}``) into the port's params on ``device``, checking it
+    against the model's structure and shapes.
     A quantized leaf (the reference's ``QuantLeaf``, with numpy ``q`` and
     ``scale``) becomes a :class:`~repro_torch.quant.QuantLeaf`."""
     dev = resolve_device(device)
@@ -712,7 +717,7 @@ def params_from_numpy(cfg: ArchConfig, tree: PyTree,
         return QuantLeaf(_as_tensor(pair[0], dev), _as_tensor(pair[1], dev))
 
     want = {"/".join(p): tuple(leaf.shape) for p, leaf in
-            tree_util.leaves_with_path(LM(cfg, dev).abstract())}
+            tree_util.leaves_with_path(build(cfg, dev).abstract())}
     got = {"/".join(p): shape(leaf) for p, leaf in
            tree_util.leaves_with_path(tree)}
     if want != got:

@@ -1,7 +1,9 @@
-"""Parameter trees: nested dicts of tensors (or arrays), walked in sorted
-key order — the order ``jax.tree_util`` flattens dicts in, so the leaf
-names (``"attn/wq"``) and their order match the reference's store
-layout.
+"""Parameter trees: nested dicts and lists of tensors (or arrays), walked
+as ``jax.tree_util`` flattens them: dicts in sorted key order, lists and
+tuples in index order.  So the leaf names (``"attn/wq"``,
+``"blocks/10/conv1"``) and their order match the reference's store
+layout; ``blocks/10`` comes after ``blocks/9``, unlike a sorted string
+key.
 
 A class registered with :func:`register_node` (``quant.QuantLeaf``) is a
 node with children (``tree_children()`` / ``tree_rebuild(children)``):
@@ -14,6 +16,7 @@ from typing import Any, Callable, Dict, Iterator, List, Tuple
 PyTree = Any
 
 _NODES: set = set()
+_SEQUENCES = (list, tuple)
 
 
 def register_node(cls):
@@ -27,6 +30,9 @@ def leaves_with_path(tree: PyTree, prefix: Tuple[str, ...] = ()
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from leaves_with_path(tree[key], prefix + (str(key),))
+    elif type(tree) in _SEQUENCES:
+        for i, child in enumerate(tree):
+            yield from leaves_with_path(child, prefix + (str(i),))
     else:
         yield prefix, tree
 
@@ -39,6 +45,9 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if type(tree) in _SEQUENCES:
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     if type(tree) in _NODES:
         kids = zip(tree.tree_children(),
                    *(r.tree_children() for r in rest))
@@ -51,5 +60,8 @@ def unflatten(abstract: PyTree, values: Dict[str, Any]) -> PyTree:
     def build(node, prefix):
         if isinstance(node, dict):
             return {k: build(v, prefix + (str(k),)) for k, v in node.items()}
+        if type(node) in _SEQUENCES:
+            return type(node)(build(v, prefix + (str(i),))
+                              for i, v in enumerate(node))
         return values["/".join(prefix)]
     return build(abstract, ())

@@ -13,7 +13,7 @@ import torch
 from repro_torch.core import ColdStartEngine
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_lib, ops
-from repro_torch.models import transformer
+from repro_torch.models import transformer, vision
 from repro_torch.models.api import get_config
 from repro_torch.serving import (DecodeScheduler, GenerateSpec,
                                  InstancePool, ServerlessPlatform)
@@ -88,6 +88,29 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     ColdStartEngine(m, "m", store, device="cpu")
     assert len(reference_generate(m, params, [1, 2, 3], n_new=2,
                                   device="cpu")) == 2
+
+
+def test_vision_models_need_a_device(no_cuda, tmp_path):
+    """The vision family's entry points run on the GPU unless told
+    device="cpu", like the LMs'; on the CPU a whole int8 cold start
+    launches no kernel."""
+    cfg = get_config("vgg11", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vision.build(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.build(cfg)
+    m = vision.build(cfg, device="cpu")
+    assert transformer.build(cfg, device="cpu") is m
+    assert m.device == torch.device("cpu")
+    store = WeightStore(str(tmp_path))
+    deploy_model(store, m, "v", quant="int8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ColdStartEngine(m, "v", store)
+    ops.registry.reset_counts()
+    res = ColdStartEngine(m, "v", store, device="cpu").load(
+        {"image": torch.zeros(1, 3, 32, 32)})
+    assert res.logits.shape == (1, 10)
+    assert sum(ops.registry.dispatch_snapshot().values()) == 0
 
 
 def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):

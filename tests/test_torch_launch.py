@@ -1,6 +1,8 @@
 """The port's serving launcher (``repro_torch.launch.serve``) on the CPU at
 smoke size, held against the JAX package's launcher on the same
-arguments: per strategy, the same cold/warm mix and pool counts."""
+arguments: per strategy, the same cold/warm mix and pool counts, for
+the LMs and for a vision model served one-shot."""
+import numpy as np
 import pytest
 import torch
 
@@ -47,6 +49,32 @@ def test_launcher_matches_reference(tmp_path, capsys, workload, extra):
     assert tout.splitlines()[1].startswith("trace: ")
     assert sum(line.startswith("strategy=") for line in tout.splitlines()) \
         == len(strategies)
+
+
+def test_launcher_serves_a_vision_model_oneshot(tmp_path, capsys):
+    """resnet50 smoke, one-shot, on the CPU: the example batch is the
+    reference's (1, 3, 32, 32) image, and the replay's cold/warm mix and
+    pool counts are the JAX launcher's."""
+    args = ARGS + ["--models", "resnet50", "--workload", "oneshot",
+                   "--cache-budget-mb", "0"]
+    got = tserve.main(args + ["--store", str(tmp_path / "t"), "--device",
+                              "cpu"])["cicada"]
+    tout = capsys.readouterr().out
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_PALLAS", "ref")
+        want = jserve.main(args + ["--store", str(tmp_path / "j")])
+    jout = capsys.readouterr().out
+    assert [r.cold for r in got] == [r.cold for r in want]
+    assert 0 < sum(r.cold for r in got) < len(got)
+    assert all(r.tokens is None for r in got)
+    assert _pools(tout) == _pools(jout)
+    cfg = tserve.get_config("resnet50", smoke=True)
+    batch = tserve.example_batch(cfg)
+    np.testing.assert_array_equal(
+        batch["image"].numpy(),
+        np.asarray(jserve.example_batch(jserve.get_config(
+            "resnet50", smoke=True))["image"]))
+    assert batch["image"].shape == (1, 3, 32, 32)
 
 
 def test_launcher_refuses_unported_options_and_needs_a_device(tmp_path,

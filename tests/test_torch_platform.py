@@ -7,7 +7,9 @@ cold flags, pool stats, cache stats and router counts, one-shot logits
 within 1e-4 and equal greedy tokens.  Also: the trace generator draws
 the reference's invocations, a concurrent replay keeps the serial
 replay's tokens, eviction frees an instance's tensors, the engine's
-per-load instruments and the ``BatchedLMServer`` shim."""
+per-load instruments and the ``BatchedLMServer`` shim; and a one-shot
+vision pair (resnet50 smoke and a narrow ViT) replayed through both
+platforms."""
 import dataclasses
 
 import jax
@@ -19,6 +21,9 @@ import torch
 from repro.core import ColdStartEngine as JEngine
 from repro.metrics import MetricsRegistry as JMetrics
 from repro.models import transformer as jtransformer
+from repro.models import vision as jvision
+from repro.models.api import ArchConfig as JConfig
+from repro.models.api import Family as JFamily
 from repro.models.api import get_config as jget_config
 from repro.serving import engine as jengine
 from repro.serving import pool as jpool
@@ -27,8 +32,8 @@ from repro.serving.api import GenerateSpec as JSpec
 from repro.store import store as jstore
 from repro_torch.core import ColdStartEngine
 from repro_torch.metrics import MetricsRegistry
-from repro_torch.models import transformer
-from repro_torch.models.api import get_config
+from repro_torch.models import transformer, vision
+from repro_torch.models.api import ArchConfig, Family, get_config
 from repro_torch.serving import (BatchedLMServer, GenerateSpec,
                                  ServerlessPlatform, reference_generate)
 from repro_torch.serving import pool as tpool
@@ -285,3 +290,79 @@ def test_prewarm_and_scale_in_on_port_instances(deployed):
     assert inst.ensure_live() is False
     assert pool.scale_in(0) == 1 and not pool.any_live()
     assert pool.stats().evictions == before.evictions + 1
+
+
+def test_vision_oneshot_replay_matches_reference(tmp_path, monkeypatch):
+    """One-shot serving of a vision pair, resnet50 smoke and a 2-layer
+    ViT of width 64 (test-only, set on both packages' tables), from f32
+    stores the JAX package deployed, through both platforms with one
+    unbounded WeightCache: equal cold flags, pool and cache stats, and
+    logits within 1e-4."""
+    vit_t = (2, 64, 4, 128, 8)
+    monkeypatch.setitem(jvision.VIT, "vit_t", vit_t)
+    monkeypatch.setitem(vision.VIT, "vit_t", vit_t)
+    kw = dict(name="vit_t-test", vocab_size=10, vision_variant="vit_t",
+              img_res=32)
+    jcfgs = {"r": jget_config("resnet50", smoke=True),
+             "v": JConfig(family=JFamily.VISION, **kw)}
+    tcfgs = {"r": get_config("resnet50", smoke=True),
+             "v": ArchConfig(family=Family.VISION, **kw)}
+    root = str(tmp_path)
+    js = jstore.WeightStore(root)
+    jms = {n: jtransformer.build(c) for n, c in jcfgs.items()}
+    for i, (n, m) in enumerate(jms.items()):
+        jstore.deploy_model(js, m, n, jax.random.key(30 + i))
+    tms = {n: transformer.build(c, device="cpu") for n, c in tcfgs.items()}
+    images = {n: np.random.default_rng(40 + i).standard_normal(
+        (1, 3, 32, 32)).astype(np.float32) for i, n in enumerate(jcfgs)}
+    trace = ttrace.azure_like_trace(duration_s=240.0, n_invocations=10,
+                                    models=tuple(jcfgs), seed=2)
+    logits = {"port": [], "jax": []}
+
+    def capture(mod, side):
+        orig = mod.FunctionInstance.invoke
+
+        def invoke(self, batch):
+            out, info = orig(self, batch)
+            logits[side].append(np.asarray(out, np.float32))
+            return out, info
+        monkeypatch.setattr(mod.FunctionInstance, "invoke", invoke)
+
+    capture(tpool, "port")
+    capture(jpool, "jax")
+    tplat = ServerlessPlatform(
+        WeightStore(root, BandwidthModel(bandwidth_mbps=400)),
+        {n: (lambda n=n: (tms[n], {"image": torch.from_numpy(images[n])}))
+         for n in tms}, strategy="cicada", keep_alive_s=KEEP_ALIVE,
+        io_workers=1, cache_budget_bytes=0, device="cpu")
+    tout = tplat.run_trace(trace, lambda n: {"image": torch.from_numpy(
+        images[n])})
+    with monkeypatch.context() as mp:
+        mp.setenv("REPRO_PALLAS", "ref")
+        jplat = jengine.ServerlessPlatform(
+            jstore.WeightStore(root, jstore.BandwidthModel(
+                bandwidth_mbps=400)),
+            {n: (lambda n=n: (jms[n], {"image": jnp.asarray(images[n])}))
+             for n in jms}, strategy="cicada", keep_alive_s=KEEP_ALIVE,
+            io_workers=1, cache_budget_bytes=0, metrics=JMetrics())
+        jout = jplat.run_trace(
+            jtrace.azure_like_trace(duration_s=240.0, n_invocations=10,
+                                    models=tuple(jcfgs), seed=2),
+            lambda n: {"image": jnp.asarray(images[n])})
+    cold = [r.cold for r in tout]
+    assert cold == [r.cold for r in jout]
+    assert True in cold[2:] and False in cold      # re-triggered cold starts
+    assert [(r.req_id, r.model) for r in tout] == \
+        [(r.req_id, r.model) for r in jout]
+    for n in jcfgs:
+        assert dataclasses.asdict(tplat.pool_stats()[n]) == \
+            dataclasses.asdict(jplat.pool_stats()[n])
+    tcs, jcs = tplat.cache_stats(), jplat.cache_stats()
+    assert dataclasses.asdict(tcs) == dataclasses.asdict(jcs)
+    assert tcs.hits > 0 and tcs.misses == sum(
+        len(m.unit_names()) for m in tms.values())
+    assert len(logits["port"]) == len(logits["jax"]) == 10
+    for a, b in zip(logits["port"], logits["jax"]):
+        assert a.shape == b.shape == (1, 10)
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max())
