@@ -30,7 +30,15 @@ starts under all five strategies from f32 stores and with cicada from
 int8 stores (one ``weight_transform`` launch per int8 leaf), each held
 against the CPU, and served one-shot through the platform from their int8
 stores (cold flags as the TTL implies, re-cold-starts read nothing, every
-response equal to a standalone load's logits, memory returned).
+response equal to a standalone load's logits, memory returned).  Last,
+the autoscaled platform: smollm-360m from its int8 store with no cache,
+fed a trickle and then a 10x burst open-loop, once without and once with
+the SLO autoscaler, under the instrumented lock probe: prewarms only with
+the autoscaler, loads = cold-served responses + prewarms with one store
+read per unit and one ``weight_transform`` launch per int8 leaf each, every
+response equal to a standalone load's, no lock-order cycle (observed, or
+merged with the static graph) and no lock held across a store read, and
+memory returned.
 It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
 seven TPU kernels' counterparts and ``rmsnorm``), holds each against its
 plain PyTorch version on the card, the attention kernels also at head dims
@@ -2238,6 +2246,351 @@ def vision_platform(dev, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the autoscaled platform under a 10x burst, with the lock probe
+# ---------------------------------------------------------------------------
+
+# the reference's SLO run (benchmarks/trace_bench.py, --workload slo): a
+# trickle, then a 10x burst; 3 generation requests in 4, the rest one-shot
+AUTOSCALE_PHASES = ((3.0, 1.5), (2.0, 15.0))
+AUTOSCALE_GEN_SHARE = 0.75
+AUTOSCALE_PROMPT, AUTOSCALE_NEW = 16, 8
+AUTOSCALE_SLO_S = 0.075
+AUTOSCALE_MAX_INSTANCES = 4
+AUTOSCALE_KW = dict(rps_per_instance=0.4, window_s=4.0, horizon_s=2.0,
+                    queue_per_instance=4, idle_scale_in_s=1e9,
+                    interval_s=0.1, max_prewarm_workers=3)
+
+
+def poisson_arrivals(phases, rng) -> list:
+    """Arrival offsets (seconds from 0) of piecewise-constant-rate Poisson
+    traffic, ``phases`` = ((duration_s, rate_rps), ...): the schedule of
+    the reference's load generator (``benchmarks/load_gen.py``), draw for
+    draw."""
+    out, t0 = [], 0.0
+    for dur, rate in phases:
+        if rate > 0:
+            t = t0 + float(rng.exponential(1.0 / rate))
+            while t < t0 + dur:
+                out.append(t)
+                t += float(rng.exponential(1.0 / rate))
+        t0 += dur
+    return out
+
+
+def autoscale_spec(i: int, vocab: int):
+    """The generation request ``i`` sends (a fixed prompt per id)."""
+    import numpy as np
+    from repro_torch.serving import GenerateSpec
+    rng = np.random.default_rng(max(i, 0) + 1)
+    return GenerateSpec(prompt=rng.integers(0, vocab, (AUTOSCALE_PROMPT,)),
+                        n_new=AUTOSCALE_NEW, seed=max(i, 0))
+
+
+def open_loop(router, model: str, arrivals, picks, vocab: int, batch):
+    """Submit one request per arrival at its scheduled wall time, never
+    waiting for completions; returns ``[(req_id, gen, Response)]``.  A
+    request that fails raises here, from its future."""
+    from repro_torch.serving import Request
+    t0 = time.monotonic()
+    pending = []
+    for i, (t_arr, gen) in enumerate(zip(arrivals, picks)):
+        lag = t0 + t_arr - time.monotonic()
+        if lag > 0:
+            time.sleep(lag)
+        pending.append((i, gen, router.submit(Request(
+            req_id=i, model=model, t_logical=t_arr,
+            gen=autoscale_spec(i, vocab) if gen else None,
+            batch=None if gen else batch))))
+    return [(i, gen, fut.result()) for i, gen, fut in pending]
+
+
+def slo_report(results) -> dict:
+    """Client-side numbers of one run, all from submit: TTFT of the
+    generation requests, latency of the one-shot ones, and the share of
+    requests within ``AUTOSCALE_SLO_S``."""
+    import numpy as np
+    ttft = [r.queue_s + r.ttft_s for _, gen, r in results if gen]
+    one = [r.queue_s + r.latency_s for _, gen, r in results if not gen]
+    met = sum(t <= AUTOSCALE_SLO_S for t in ttft + one)
+    return {"n": len(results), "n_gen": len(ttft), "n_oneshot": len(one),
+            "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3,
+            "oneshot_p99_ms": float(np.percentile(one, 99)) * 1e3,
+            "attainment": met / len(results),
+            "cold_served": sum(r.cold for _, _, r in results)}
+
+
+def lock_hotspots(report: dict, n: int = 5):
+    """The probe's ``n`` locks with the most contended wait and the ``n``
+    with the longest total hold, as printable lines."""
+    locks = report["locks"]
+    lines = []
+    for key, label in (("wait_s", "wait to acquire"), ("hold_s", "hold")):
+        ranked = sorted(locks.items(), key=lambda kv: -kv[1][key])[:n]
+        lines.append(f"  locks by {label}: " + "; ".join(
+            f"{name} {st[key] * 1e3:.3f} ms (max {st[key.replace('_s', '_max_s')] * 1e3:.3f} ms, "
+            f"{st['acquires']} acquires, {st['contended']} contended)"
+            for name, st in ranked))
+    return lines
+
+
+def autoscaled_platform(dev, workdir: str) -> dict:
+    """smollm-360m at full width from phase 4's int8 store (dequantized at
+    A), read at 2000 MB/s with no WeightCache, so every load reads the
+    store: a pool of up to 4 instances with 2 generation slots each and
+    no keep-alive eviction, fed the reference's SLO schedule (3 s at 1.5
+    rps, then 2 s at 15 rps) open-loop through an 8-worker router, once
+    without and once with the autoscaler, each from a cold pool, both
+    under the lock probe.  Returns the path's launch counts (zeroed at the
+    start, read before the checks against standalone loads)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import analysis
+    from repro_torch.analysis import lint, lockgraph
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import (Request, ServerlessPlatform,
+                                     reference_generate)
+    from repro_torch.serving import pool as pool_mod
+    from repro_torch.serving import router as router_mod
+
+    a = "smollm-360m"
+    # only locks made while the switch is on are instrumented: set it
+    # before the store (its BandwidthModel lock) and the platforms
+    os.environ["REPRO_ANALYZE"] = "1"
+    analysis.probe.reset()
+    try:
+        store = platform_store(workdir, {a: PLATFORM_STORES[a]},
+                               "autoscale")
+        model = transformer.build(get_config(a))
+        vocab = model.cfg.vocab_size
+        n_units = len(model.unit_names())
+        leaves = int8_leaves(store, a)
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(3).integers(
+            0, vocab, (1, AUTOSCALE_PROMPT)))}
+        arrivals = poisson_arrivals(AUTOSCALE_PHASES,
+                                    np.random.default_rng(0))
+        print(f"  {len(arrivals)} arrivals in "
+              f"{sum(d for d, _ in AUTOSCALE_PHASES):.1f} s "
+              f"({AUTOSCALE_PHASES} as (s, rps)); {n_units} units, "
+              f"{leaves} int8 leaves, {store.model_nbytes(a) / 1e9:.3f} GB "
+              f"a load")
+
+        # every one-shot answer, from whichever worker served it; and the
+        # requests a worker put back in the queue after its pool acquire
+        # timed out (generation, one-shot)
+        answers = []
+        invoke = pool_mod.FunctionInstance.invoke
+        requeue = router_mod.Router._requeue
+        requeues = {True: 0, False: 0}
+
+        def recording_invoke(self, b):
+            out, info = invoke(self, b)
+            answers.append(out.float().cpu())
+            return out, info
+
+        def counting_requeue(self, req, fut):
+            requeues[req.gen is not None] += 1
+            return requeue(self, req, fut)
+
+        mem0 = settled_memory()
+        ops.registry.reset_counts()
+        pool_mod.FunctionInstance.invoke = recording_invoke
+        router_mod.Router._requeue = counting_requeue
+        runs = {}
+        try:
+            for tag, autoscale in (("noscale", None),
+                                   ("autoscale", AUTOSCALE_KW)):
+                rng = np.random.default_rng(0)      # same schedule twice
+                arr = poisson_arrivals(AUTOSCALE_PHASES, rng)
+                picks = rng.choice(2, size=len(arr), p=[
+                    AUTOSCALE_GEN_SHARE, 1 - AUTOSCALE_GEN_SHARE]) == 0
+                plat = ServerlessPlatform(
+                    store, {a: lambda: (model, batch)}, strategy="cicada",
+                    keep_alive_s=1e9, max_instances=AUTOSCALE_MAX_INSTANCES,
+                    gen_slots=2, gen_cache_len=64, autoscale=autoscale)
+                pool = plat.pools[a]
+                router = plat.router(workers=2 * AUTOSCALE_MAX_INSTANCES)
+                try:
+                    # provision and warm an instance outside the run,
+                    # then scale back in: both runs start cold
+                    router.submit(Request(req_id=-1, model=a, gen=(
+                        autoscale_spec(-1, vocab)))).result()
+                    router.submit(Request(req_id=-2, model=a,
+                                          batch=batch)).result()
+                    for _ in range(200):
+                        pool.scale_in(0)
+                        if pool.stats().live == 0:
+                            break
+                        time.sleep(0.01)
+                    need(pool.stats().live == 0,
+                         f"{tag}: the pool did not scale in to 0")
+                    del answers[:]
+                    requeues.update({True: 0, False: 0})
+                    base = pool.stats()
+                    loads0 = plat.metrics.counter("coldstart/loads").value
+                    reads0 = len(store.reads)
+                    before = ops.registry.dispatch_snapshot()
+                    if plat.autoscaler is not None:
+                        plat.autoscaler.start()
+                    t0 = time.perf_counter()
+                    results = open_loop(router, a, arr, picks, vocab, batch)
+                    seconds = time.perf_counter() - t0
+                finally:
+                    if plat.autoscaler is not None:
+                        plat.autoscaler.stop()      # waits for prewarms
+                    router.shutdown()
+                d = delta(before)
+                st = pool.stats()
+                loads = int(plat.metrics.counter("coldstart/loads").value
+                            - loads0)
+                reads = len(store.reads) - reads0
+                rep = slo_report(results)
+                prewarms = st.prewarms - base.prewarms
+                rs = router.stats
+                snap = plat.metrics.snapshot()["counters"]
+                print(f"  {tag}: {rep['n']} requests ({rep['n_gen']} "
+                      f"generation, {rep['n_oneshot']} one-shot) in "
+                      f"{seconds:.2f} s; TTFT p50 {rep['ttft_p50_ms']:.1f} "
+                      f"ms, p99 {rep['ttft_p99_ms']:.1f} ms; one-shot p99 "
+                      f"{rep['oneshot_p99_ms']:.1f} ms; within "
+                      f"{AUTOSCALE_SLO_S * 1e3:.0f} ms {rep['attainment']:.1%}"
+                      f"; cold-served {rep['cold_served']}, prewarms "
+                      f"{prewarms}, loads {loads}, store reads {reads}, "
+                      f"live at the end {st.live}; launches {d}")
+                print(f"  {tag}: requeued after a saturated acquire: "
+                      f"generation {requeues[True]}, one-shot "
+                      f"{requeues[False]} (each one-shot time-out pauses "
+                      f"generation joins {pool.EXCL_STARVATION_GRACE_S} s)"
+                      f"; scale-ins "
+                      f"{snap.get(f'autoscaler/{a}/scale_ins', 0):.0f}; "
+                      f"per request (id, g/o, c if cold: queue + service "
+                      f"to first token or answer, ms) " + " ".join(
+                          f"{i}{'g' if gen else 'o'}{'c' if r.cold else ''}"
+                          f":{r.queue_s * 1e3:.0f}+"
+                          f"{(r.ttft_s if gen else r.latency_s) * 1e3:.0f}"
+                          for i, gen, r in results))
+                need(rs.rejected == 0 and rs.completed == rs.submitted and
+                     not snap.get("router/errors") and len(results) ==
+                     len(arr), f"{tag}: a request was rejected or failed "
+                     f"({rs})")
+                need(not snap.get(f"autoscaler/{a}/prewarm_errors"),
+                     f"{tag}: a prewarm failed")
+                need(prewarms == 0 if autoscale is None else prewarms >= 1,
+                     f"{tag}: {prewarms} prewarms")
+                cold = rep["cold_served"]
+                need(st.cold_starts - base.cold_starts == cold and
+                     st.warm_hits - base.warm_hits == len(results) - cold,
+                     f"{tag}: pool counts {st} against {cold} cold-served "
+                     f"of {len(results)} (a prewarm counted as served?)")
+                need(loads == cold + prewarms,
+                     f"{tag}: {loads} loads, not {cold} cold-served + "
+                     f"{prewarms} prewarms")
+                need(reads == n_units * loads,
+                     f"{tag}: {reads} store reads, not {n_units} x {loads}")
+                need(d["weight_transform"] == leaves * loads,
+                     f"{tag}: {d['weight_transform']} weight_transform "
+                     f"launches, not {leaves} x {loads}")
+                need(all(r.n_generated == AUTOSCALE_NEW
+                         for _, gen, r in results if gen),
+                     f"{tag}: a generation response is short")
+                runs[tag] = dict(rep, seconds=seconds, prewarms=prewarms,
+                                 loads=loads, results=results,
+                                 answers=list(answers))
+                pool.scale_in(0)
+                plat.sweep(1e10)
+                need(all(p.live == 0 and p.busy == 0
+                         for p in plat.pool_stats().values()),
+                     f"{tag}: pools not all evicted {plat.pool_stats()}")
+                del plat, pool, router
+                gc.collect()
+                torch.cuda.synchronize()
+                with_ws = torch.cuda.memory_allocated()
+                mem1 = settled_memory()
+                print(f"  {tag}: memory_allocated before the phase "
+                      f"{mem0 / 1e6:.1f} MB, after the sweep "
+                      f"{mem1 / 1e6:.1f} MB (margin "
+                      f"{PLATFORM_MEM_MARGIN / 1e6:.1f} MB); cuBLAS "
+                      f"workspaces of the workers' and prewarm threads' "
+                      f"(thread, stream) pairs {(with_ws - mem1) / 1e6:.1f}"
+                      f" MB, cleared before both readings")
+                need(mem1 <= mem0 + PLATFORM_MEM_MARGIN,
+                     f"{tag}: {(mem1 - mem0) / 1e6:.1f} MB stay allocated "
+                     f"after the sweep")
+                torch.cuda.empty_cache()
+        finally:
+            pool_mod.FunctionInstance.invoke = invoke
+            router_mod.Router._requeue = requeue
+        path = ops.registry.dispatch_snapshot()
+
+        # --- the lock probe over both runs
+        observed = analysis.probe.report()
+        for line in lock_hotspots(observed):
+            print(line)
+        cvw = observed["cv_waits"]
+        print(f"  probe: {len(observed['locks'])} instrumented locks, "
+              f"{len(observed['edges'])} observed order edges "
+              f"{[(e['src'], e['dst']) for e in observed['edges']]}; "
+              f"condition waits (waits, timed) "
+              f"{ {k: (int(v['waits']), int(v['timed_waits'])) for k, v in cvw.items()} }")
+        need(observed["cycles"] == [],
+             f"observed lock-order cycles {observed['cycles']}")
+        need(observed["hazards"] == [],
+             f"locks held across I/O {observed['hazards']}")
+        static, _ = lint.build_static_lockgraph(lint.load_models(
+            os.path.join(HERE, "src", "repro_torch")))
+        merged = lockgraph.merge(static, observed)
+        print(f"  merged lock graph: {len(static)} static + "
+              f"{len(observed['edges'])} observed edges, cycles "
+              f"{merged['cycles']}")
+        need(merged["cycles"] == [],
+             f"static + observed lock graph cycles {merged['cycles']}")
+    finally:
+        os.environ.pop("REPRO_ANALYZE", None)
+
+    # --- every response against a standalone load of the same store
+    res = ColdStartEngine(model, a, store, strategy="cicada").load(batch)
+    ref_logits = res.logits.float().cpu()
+    scale = ref_logits.abs().max().item()
+    ref_tokens = {}
+    for tag, run in runs.items():
+        d = max((lg - ref_logits).abs().max().item()
+                for lg in run["answers"])
+        need(len(run["answers"]) == run["n_oneshot"],
+             f"{tag}: {len(run['answers'])} one-shot answers recorded, not "
+             f"{run['n_oneshot']}")
+        need(d <= VISION_TOL * scale,
+             f"{tag}: a one-shot response differs from a standalone load "
+             f"by {d}")
+        for i, gen, r in run["results"]:
+            if not gen:
+                continue
+            if i not in ref_tokens:
+                spec = autoscale_spec(i, vocab)
+                ref_tokens[i] = reference_generate(
+                    model, res.params, spec.prompt, n_new=AUTOSCALE_NEW,
+                    seed=spec.seed)
+            need(list(r.tokens) == ref_tokens[i],
+                 f"{tag}: request {i} differs from reference_generate at "
+                 f"token {first_diff(ref_tokens[i], list(r.tokens))}")
+        print(f"  {tag}: {run['n_oneshot']} one-shot responses within "
+              f"{d:.3e} of a standalone load's logits (tol {VISION_TOL} x "
+              f"{scale:.3f}); {run['n_gen']} generation responses' tokens "
+              f"equal reference_generate's")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    no, au = runs["noscale"], runs["autoscale"]
+    print(f"  TTFT p99 noscale {no['ttft_p99_ms']:.1f} ms, autoscale "
+          f"{au['ttft_p99_ms']:.1f} ms; prewarms {no['prewarms']} and "
+          f"{au['prewarms']}; loads {no['loads']} and {au['loads']}")
+    return {"launches": path}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2338,6 +2691,14 @@ def main() -> int:
               "16-invocation trace replayed serially")
         vplat = vision_platform(dev, wd)
         paths["vision platform"] = (vplat["launches"], ("weight_transform",))
+        phase("[19] the autoscaled platform: smollm-360m int8 store, no "
+              "cache, a 10x burst open-loop, without and with the "
+              "autoscaler, under the lock probe")
+        auto = autoscaled_platform(dev, wd)
+        paths["autoscaled platform"] = (
+            auto["launches"],
+            ("flash_attention", "decode_attention", "weight_transform",
+             "rmsnorm"))
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

@@ -33,6 +33,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
+from repro_torch import analysis
 from repro_torch.core.pipeline import PipelineTrace
 from repro_torch.core.scheduler import PriorityAwareScheduler
 from repro_torch.core.units import PipelineState
@@ -62,7 +63,10 @@ class WeightDecoupler:
         self.cache = cache
         self._pool: Optional[ThreadPoolExecutor] = None
         self.state = state
-        self.cv = state.cv
+        # the run's condition variable, borrowed; the factory call names
+        # it a lock for the concurrency lint (as the reference's does)
+        self.cv = state.cv if state is not None \
+            else analysis.make_condition("WeightDecoupler.cv")
         self.ready: Dict[str, Leaves] = {}            # guarded-by: cv
         self._pinned: set = set()                     # guarded-by: cv
         self._load_registered = False

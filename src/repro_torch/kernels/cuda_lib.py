@@ -22,10 +22,11 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
+
+from repro_torch import analysis
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -103,7 +104,7 @@ class KernelLibrary:
         return getattr(self.lib, name)
 
 
-_lock = threading.Lock()
+_lock = analysis.make_lock("cuda_lib._lock")
 _library: Optional[KernelLibrary] = None
 
 
@@ -177,8 +178,8 @@ class LaunchCounter:
     kernels its path went through."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0
+        self._lock = analysis.make_lock("LaunchCounter._lock")
+        self._n = 0                       # guarded-by: _lock
 
     def add(self):
         with self._lock:

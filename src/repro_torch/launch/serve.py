@@ -19,8 +19,12 @@ TTFT / TPOT / tokens-per-second.
 versions (the default is the GPU, and no GPU is an error).  Smoke
 configs are the default; ``--full`` serves the published widths.
 
-The reference's ``--mesh``, ``--nodes`` and ``--autoscale`` are ROADMAP
-queue 1 items 13, 14 and 8: they raise here.  The port has no forced
+``--autoscale`` attaches the SLO autoscaler
+(:mod:`repro_torch.serving.autoscale`): it ticks in the background for
+the replay, pre-provisions warm instances off the arrival-rate slope and
+queue depth (``--rps-per-instance`` converts a rate into a count), and
+the report prints each pool's prewarms.  The reference's ``--mesh`` and
+``--nodes`` are ROADMAP queue 1 items 13 and 14: they raise here.  The port has no forced
 kernel mode: ``--pallas`` takes ``auto`` only, since a tensor's device
 alone picks its kernel.
 """
@@ -137,10 +141,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="write the last platform's metrics snapshot "
                          "(counter/gauge/histogram JSON) to this path")
     ap.add_argument("--autoscale", action="store_true",
-                    help="SLO autoscaler (not ported)")
+                    help="attach the SLO autoscaler: pre-provision warm "
+                         "instances on arrival-rate slope / queue "
+                         "depth, scale-in on idle")
     ap.add_argument("--rps-per-instance", type=float, default=2.0,
                     help="--autoscale: arrival rate one warm instance "
-                         "is budgeted to absorb (not ported)")
+                         "is budgeted to absorb")
     ap.add_argument("--device", default=None,
                     help="where to deploy and serve: the GPU by default "
                          "(no GPU is an error), or 'cpu'")
@@ -188,6 +194,8 @@ def _report(args, strategy: str, platform, responses):
         print(f"pool[{name}]: instances={ps.size} live={ps.live} "
               f"cold={ps.cold_starts} warm={ps.warm_hits} "
               f"evictions={ps.evictions}")
+        if platform.autoscaler is not None:
+            print(f"autoscaler[{name}]: prewarms={ps.prewarms}")
     cs = platform.cache_stats()
     if cs is not None:
         print(f"weight-cache: hits={cs.hits} misses={cs.misses} "
@@ -203,11 +211,11 @@ def main(argv=None):
         raise NotImplementedError("--mesh: shard-granular serving is not "
                                   "ported yet — ROADMAP queue 1 item 13")
     if args.nodes > 1:
+        if args.autoscale:
+            raise SystemExit("--autoscale is a per-node policy; not "
+                             "supported with --nodes > 1")
         raise NotImplementedError("--nodes: the cluster is not ported yet "
                                   "— ROADMAP queue 1 item 14")
-    if args.autoscale:
-        raise NotImplementedError("--autoscale: the autoscaler is not "
-                                  "ported yet — ROADMAP queue 1 item 8")
     device = resolve_device(args.device)
 
     store_dir = args.store or tempfile.mkdtemp(prefix="cicada-store-")
@@ -245,7 +253,9 @@ def main(argv=None):
             kv_page_tokens=args.kv_page_tokens,
             kv_budget_bytes=None if args.kv_budget_mb is None
             else int(args.kv_budget_mb * 1e6),
-            compute_quant=args.compute_quant, device=device)
+            compute_quant=args.compute_quant, device=device,
+            autoscale=dict(rps_per_instance=args.rps_per_instance)
+            if args.autoscale else None)
         make_spec = None
         if args.workload == "generate":
             rng = np.random.default_rng(args.seed)
@@ -258,9 +268,15 @@ def main(argv=None):
                     n_new=args.n_new, temperature=args.temperature,
                     seed=args.seed)
 
-        responses = platform.run_trace(trace, make_batch,
-                                       concurrency=args.concurrency,
-                                       make_spec=make_spec)
+        if platform.autoscaler is not None:
+            platform.autoscaler.start()
+        try:
+            responses = platform.run_trace(trace, make_batch,
+                                           concurrency=args.concurrency,
+                                           make_spec=make_spec)
+        finally:
+            if platform.autoscaler is not None:
+                platform.autoscaler.stop()
         _report(args, strategy, platform, responses)
         out[strategy] = responses
     if args.metrics_out:

@@ -13,14 +13,16 @@
            per-model InstancePool (exclusive + shared-generation holds)
   router   thread-safe Router: admission control, priority dispatch,
            generation requests join running decode batches
+  autoscale
+           the SLO Autoscaler: arrival-rate slope + queue depth ->
+           prewarms off the request path, scale-in on idle
   engine   ServerlessPlatform (trace replay on the Router, one-shot or
            generation) + the BatchedLMServer shim
   trace    bursty Azure-like invocation workload generator
 
 The node-local WeightCache (repro_torch.store.cache) is re-exported here:
 one cache per platform makes scale-out cold starts reuse retrieved
-weights and single-flight store reads.  The reference's autoscaler is
-ROADMAP queue 1 item 8.
+weights and single-flight store reads.
 """
 from repro_torch.serving.api import (AdmissionError,  # noqa: F401
                                      CacheOverflowError, GenerateSpec,
@@ -39,6 +41,7 @@ from repro_torch.serving.policy import (EvictionPolicy,  # noqa: F401
                                         make_policy)
 from repro_torch.serving.pool import FunctionInstance, InstancePool  # noqa: F401
 from repro_torch.serving.router import Router  # noqa: F401
+from repro_torch.serving.autoscale import Autoscaler  # noqa: F401
 from repro_torch.serving.engine import (BatchedLMServer,  # noqa: F401
                                         ServerlessPlatform)
 from repro_torch.store.cache import CacheStats, WeightCache  # noqa: F401

@@ -15,9 +15,11 @@ every pool, and the eviction policy (default: a TTL) reclaims idle
 instances — re-triggering cold starts, the serverless lifecycle of the
 paper's Fig. 2.
 
-Single node, single device: the reference's mesh (``mesh_shape``,
-``rules``), cluster ``source`` and ``autoscale`` options are ROADMAP
-queue 1 items 13, 14 and 8; passing them raises.
+``autoscale=`` attaches the SLO :class:`~repro_torch.serving.autoscale.
+Autoscaler` to the platform's pools and routers.  Single node, single
+device: the reference's mesh (``mesh_shape``, ``rules``) and cluster
+``source`` options are ROADMAP queue 1 items 13 and 14; passing them
+raises.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 from repro_torch import metrics as metrics_mod
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.api import GenerateSpec, Request, Response
+from repro_torch.serving.autoscale import Autoscaler
 from repro_torch.serving.decode import DecodeScheduler
 from repro_torch.serving.policy import EvictionPolicy, make_policy
 from repro_torch.serving.pool import InstancePool
@@ -83,11 +86,19 @@ class ServerlessPlatform:
         metrics: registry behind :meth:`metrics_snapshot`; defaults to a
         *private* registry so each platform's snapshot is isolated.
 
+        autoscale: when not None, build an
+        :class:`~repro_torch.serving.autoscale.Autoscaler` over this
+        platform's pools with these kwargs (e.g.
+        ``dict(rps_per_instance=2.0, min_warm=1)``; ``{}`` for
+        defaults).  The autoscaler is attached to every Router this
+        platform creates; drive it with ``platform.autoscaler.start()``
+        (background ticks) or explicit ``tick()`` calls.
+
         device: where every instance loads and serves (default: the GPU;
         raises without one unless ``device="cpu"``).
 
-        mesh_shape / rules / source / autoscale: not ported yet (ROADMAP
-        queue 1 items 13, 14 and 8); anything but None raises.
+        mesh_shape / rules / source: not ported yet (ROADMAP queue 1
+        items 13 and 14); anything but None raises.
         """
         if mesh_shape is not None or rules is not None:
             raise NotImplementedError(
@@ -97,10 +108,6 @@ class ServerlessPlatform:
             raise NotImplementedError(
                 "a cluster ShardSource (source=) is not ported yet — "
                 "ROADMAP queue 1 item 14")
-        if autoscale is not None:
-            raise NotImplementedError(
-                "the autoscaler (autoscale=) is not ported yet — ROADMAP "
-                "queue 1 item 8")
         self.store = store
         self.strategy = strategy
         self.device = resolve_device(device)
@@ -125,13 +132,18 @@ class ServerlessPlatform:
                                compute_quant=compute_quant,
                                metrics=self.metrics, device=self.device)
             for name, builder in builders.items()}
+        self.autoscaler: Optional[Autoscaler] = None
+        if autoscale is not None:
+            self.autoscaler = Autoscaler(self.pools, metrics=self.metrics,
+                                         **autoscale)
         self.last_router_stats = None      # RouterStats of the last replay
 
     def router(self, *, workers: int = 4,
                max_pending: Optional[int] = None) -> Router:
         """A live Router over this platform's pools (caller shuts down)."""
         return Router(self.pools, workers=workers, max_pending=max_pending,
-                      cache=self.cache, metrics=self.metrics)
+                      cache=self.cache, metrics=self.metrics,
+                      autoscaler=self.autoscaler)
 
     def cache_stats(self) -> Optional[CacheStats]:
         """Counters of the shared node-local WeightCache (None when

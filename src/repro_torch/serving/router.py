@@ -70,16 +70,18 @@ class Router:
         ``router/latency_s/<class>``, ``router/ttft_s``, ...);
         falls back to the process default.
 
-        ``autoscaler``: the reference's SLO autoscaler is not ported
-        yet (ROADMAP queue 1 item 8); anything but None raises."""
-        if autoscaler is not None:
-            raise NotImplementedError(
-                "the autoscaler is not ported yet — ROADMAP queue 1 item 8")
+        ``autoscaler``: optional
+        :class:`~repro_torch.serving.autoscale.Autoscaler` — every
+        admitted request is reported to it (arrival-rate signal), and it
+        reads :meth:`queue_depth` back when sizing pools."""
         self.pools = pools
         self.max_pending = max_pending
         self.acquire_timeout_s = acquire_timeout_s
         self.cache = cache
         self.metrics = metrics_mod.resolve(metrics)
+        self.autoscaler = autoscaler
+        if autoscaler is not None:
+            autoscaler.router = self
         self.stats = RouterStats()
         self._cv = analysis.make_condition("Router._cv")
         # (class, seq, Request, Future)
@@ -132,10 +134,13 @@ class Router:
             self._cv.notify()
         self.metrics.counter("router/submitted").inc()
         self.metrics.gauge("router/queue_depth").set(depth)
+        if self.autoscaler is not None:
+            self.autoscaler.observe(req.model)
         return fut
 
     def queue_depth(self) -> int:
-        """Pending (not yet dispatched) requests across all classes."""
+        """Pending (not yet dispatched) requests across all classes —
+        the backlog signal the autoscaler reads."""
         with self._cv:
             return len(self._heap)
 

@@ -217,6 +217,7 @@ class WeightStore:
         """
         path = self._unit_path(model_name, unit)
         total = os.path.getsize(path)
+        analysis.note_io("read_unit")   # flags lock-held-across-I/O
         self.device.on_open()
         buf = torch.empty(total, dtype=torch.uint8,
                           pin_memory=self.pin_memory)

@@ -1,7 +1,8 @@
 """The port's serving launcher (``repro_torch.launch.serve``) on the CPU at
 smoke size, held against the JAX package's launcher on the same
 arguments: per strategy, the same cold/warm mix and pool counts, for
-the LMs and for a vision model served one-shot."""
+the LMs and for a vision model served one-shot; and ``--autoscale``, whose
+background autoscaler prewarms instances during the replay."""
 import numpy as np
 import pytest
 import torch
@@ -79,9 +80,47 @@ def test_launcher_serves_a_vision_model_oneshot(tmp_path, capsys):
 
 def test_launcher_refuses_unported_options_and_needs_a_device(tmp_path,
                                                                monkeypatch):
-    for flag in (["--mesh", "2"], ["--nodes", "2"], ["--autoscale"]):
+    for flag in (["--mesh", "2"], ["--nodes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.main(flag + ["--store", str(tmp_path)])
+    # the reference's refusal: the autoscaler is a per-node policy
+    with pytest.raises(SystemExit, match="per-node"):
+        tserve.main(["--autoscale", "--nodes", "2", "--store",
+                     str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--store", str(tmp_path)])
+
+
+def test_launcher_autoscale_prewarms_on_the_cpu(tmp_path, capsys,
+                                               monkeypatch):
+    """``--autoscale`` runs the replay with the autoscaler ticking in the
+    background and reports the pool's prewarms.  The ticks come every
+    10 ms here (the launcher's default is the autoscaler's 0.5 s), so a
+    tick lands while the replay's first cold start loads: with a budget
+    of 0.01 rps an instance, its target is the pool's two instances, and
+    the second is prewarmed off the request path."""
+    class FastTicks(tserve.ServerlessPlatform):
+        def __init__(self, *a, autoscale=None, **kw):
+            assert autoscale == {"rps_per_instance": 0.01}
+            super().__init__(*a, autoscale=dict(autoscale, interval_s=0.01),
+                             **kw)
+
+    monkeypatch.setattr(tserve, "ServerlessPlatform", FastTicks)
+    got = tserve.main(ARGS + ["--workload", "oneshot", "--autoscale",
+                              "--rps-per-instance", "0.01",
+                              "--max-instances", "2", "--store",
+                              str(tmp_path), "--device", "cpu"])["cicada"]
+    out = capsys.readouterr().out
+    lines = [line for line in out.splitlines()
+             if line.startswith("autoscaler[")]
+    assert len(lines) == 1
+    prewarms = int(lines[0].split("prewarms=")[1])
+    assert prewarms >= 1
+    assert len(got) == 6
+    # a prewarm is no served request: the responses count every load the
+    # requests paid, the prewarms the rest
+    pool = [line for line in out.splitlines() if line.startswith("pool[")][0]
+    cold = int(pool.split("cold=")[1].split()[0])
+    warm = int(pool.split("warm=")[1].split()[0])
+    assert cold == sum(r.cold for r in got) and cold + warm == len(got)

@@ -23,10 +23,11 @@ from repro_torch.metrics import MetricsRegistry
 from repro_torch.models import transformer
 from repro_torch.models.api import get_config
 from repro_torch.serving import engine as tengine
-from repro_torch.serving import (AdmissionError, GenerateSpec, InstancePool,
-                                 KeepAliveTTL, NeverEvict, Request,
-                                 RequestClass, Router, ServerlessPlatform,
-                                 UnknownModelError, make_policy)
+from repro_torch.serving import (AdmissionError, Autoscaler, GenerateSpec,
+                                 InstancePool, KeepAliveTTL, NeverEvict,
+                                 Request, RequestClass, Router,
+                                 ServerlessPlatform, UnknownModelError,
+                                 make_policy)
 from repro_torch.serving.decode import GenResult
 from repro_torch.serving.trace import Invocation
 from repro_torch.store.store import WeightStore
@@ -375,14 +376,31 @@ def test_run_trace_lifecycle_matches_reference(ka, ts, concurrency):
 def test_unported_options_raise(tmp_path):
     store = WeightStore(str(tmp_path))
     for kw, item in ((dict(mesh_shape=4), "13"), (dict(rules={}), "13"),
-                     (dict(source=object()), "14"),
-                     (dict(autoscale={}), "8")):
+                     (dict(source=object()), "14")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             ServerlessPlatform(store, {}, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 13"):
         InstancePool("m", None, store, mesh_shape=(1, 4))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Router({}, autoscaler=object())
+    # the autoscaler is ported: autoscale= builds one over the platform's
+    # pools, and every router the platform makes reports to it
+    plat = ServerlessPlatform(store, {}, device="cpu",
+                              autoscale={"rps_per_instance": 3.0})
+    asc = plat.autoscaler
+    assert isinstance(asc, Autoscaler) and asc.pools is plat.pools
+    assert asc.rps_per_instance == 3.0 and asc.metrics is plat.metrics
+    router = plat.router(workers=1)
+    try:
+        assert router.autoscaler is asc and asc.router is router
+    finally:
+        router.shutdown()
+        asc.stop()
+    pool = InstancePool("m", None, instance_factory=FakeInstance)
+    asc = Autoscaler({"m": pool}, metrics=MetricsRegistry())
+    with Router({"m": pool}, autoscaler=asc) as router:
+        assert asc.router is router
+        router.submit(Request(req_id=0, model="m", batch={})).result(10)
+        assert asc.rate_estimate("m") > 0          # the arrival observed
+    asc.stop()
     m = transformer.build(get_config("smollm-360m", smoke=True),
                           device="cpu")
     for kw, item in ((dict(mesh=object()), "13"), (dict(rules={}), "13"),
