@@ -38,7 +38,19 @@ the autoscaler, loads = cold-served responses + prewarms with one store
 read per unit and one ``weight_transform`` launch per int8 leaf each, every
 response equal to a standalone load's, no lock-order cycle (observed, or
 merged with the static graph) and no lock held across a store read, and
-memory returned.
+memory returned.  Then the MoE family and the audio and VLM stub families
+at full width: mixtral-8x7b at 2 of its 32 layers from an int8 store
+(cicada with bf16 at A and int8-resident, 32 greedy tokens, the slotted
+scheduler on both residencies with tokens equal to
+``reference_generate``'s and exact launch counts, the rows probe on a
+decode step of each, memory returned), the same layers at f32 on the
+card against the CPU with the routers' expert choices compared;
+arctic-480b smoke (the dense residual) on the card against the CPU and
+through the paged scheduler with prefix reuse; hubert-xlarge (all 48
+encoder layers, dh 80, non-causal) from an int8 store, a one-shot frame
+batch, and 4 layers against the CPU; internvl2-76b at 2 of its 80 layers
+from an int8 store, image rows ahead of the tokens, greedy generation,
+and the card against the CPU.
 It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
 seven TPU kernels' counterparts and ``rmsnorm``), holds each against its
 plain PyTorch version on the card, the attention kernels also at head dims
@@ -63,6 +75,7 @@ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -233,7 +246,11 @@ def check_kernels(dev, report: dict):
         (1, 15, 5, 100, 164, 64, True, 0), (1, 15, 5, 128, 128, 64, True, 16),
         (1, 15, 5, 128, 128, 64, False, 0), (1, 15, 5, 77, 77, 64, False, 16),
         (2, 8, 2, 70, 70, 128, True, 0), (1, 10, 1, 128, 128, 256, True, 0),
-        (1, 10, 1, 100, 164, 256, True, 0), (2, 4, 2, 77, 77, 256, False, 16)]
+        (1, 10, 1, 100, 164, 256, True, 0), (2, 4, 2, 77, 77, 256, False, 16),
+        # the MoE and stub paths: mixtral's window, hubert non-causal at
+        # dh 80 (the dh-128 instance), internvl2's 64 query heads over 8
+        (1, 32, 8, 128, 128, 128, True, 4096),
+        (1, 16, 16, 256, 256, 80, False, 0), (1, 64, 8, 64, 64, 128, True, 0)]
     for (B, H, K, S, T, dh, causal, win) in flash_cases:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
@@ -304,7 +321,10 @@ def check_kernels(dev, report: dict):
             (512, (0, 37, 300, 511), 0, 15, 5, 64),
             (128, (5, 127, 300, 1000), 128, 15, 5, 64),
             (256, (0, 37, 159, 255), 0, 10, 1, 256),
-            (64, (5, 63, 100, 300), 64, 8, 2, 256)]:
+            (64, (5, 63, 100, 300), 64, 8, 2, 256),
+            # mixtral's ring (window 4096 over a 256-slot cache), internvl2
+            (256, (0, 37, 159, 255), 4096, 32, 8, 128),
+            (256, (0, 37, 159, 255), 0, 64, 8, 128)]:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
             B = 4
@@ -452,7 +472,8 @@ def check_quant_matmul(dev, report: dict, randn, g):
     err = max(err, (got - want).abs().max().item())
     # row independence: each row of an M-row product equals the M=1
     # product of that row, bit for bit (the scheduler steps at B = n_slots)
-    for (k, n) in ((960, 49152), (960, 320), (2560, 960)):
+    for (k, n) in ((960, 49152), (960, 320), (2560, 960), (4096, 14336),
+                   (14336, 4096)):
         w, s = qweight(k, n)
         x = randn(64, k, dtype=torch.bfloat16)
         rows = torch.cat([qmod.quant_matmul(x[i:i + 1], w, s)
@@ -482,10 +503,12 @@ def check_quant_matmul(dev, report: dict, randn, g):
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 x (4,960) . int8 head (960,49152) + f32 scale")
     # every distinct smollm-360m projection (q/o, k/v, gate/up, down) at a
-    # 4-slot decode step and at a 128-token prefill
+    # 4-slot decode step and at a 128-token prefill, and mixtral-8x7b's
+    # expert products (gate/up, down) at a 4-slot decode step
     for (m, k, n) in [(mm, kk, nn) for mm in (4, 128)
                       for (kk, nn) in ((960, 960), (960, 320), (960, 2560),
-                                       (2560, 960))]:
+                                       (2560, 960))] + [
+            (4, 4096, 14336), (4, 14336, 4096)]:
         w, s = qweight(k, n)
         x = randn(m, k, dtype=torch.bfloat16)
         wd = (w.float() * s).to(torch.bfloat16)
@@ -940,15 +963,17 @@ def check_scan_rows(dev, randn, g):
 
 
 def check_rmsnorm(dev, report: dict, randn):
-    """rmsnorm against its plain version (bf16 and f32, scales in either),
-    rows bit-equal at M in {1, 4, 16} to one-row calls, and timed at a
-    recurrentgemma-2b decode step's norm (B = 4, d 2560, bf16)."""
+    """rmsnorm against its plain version (bf16 and f32, scales in either;
+    up to mixtral's d 4096 and internvl2's 8192), rows bit-equal at M in
+    {1, 4, 16} to one-row calls, and timed at a recurrentgemma-2b decode
+    step's norm (B = 4, d 2560, bf16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as nmod
     err = 0.0
-    for shape in ((4, 1, 2560), (1, 128, 2560), (3, 7, 3072), (5, 960),
-                  (2, 3, 20)):
+    shapes = ((4, 1, 2560), (1, 128, 2560), (3, 7, 3072), (5, 960),
+              (2, 3, 20), (4, 1, 4096), (4, 1, 8192))
+    for shape in shapes:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
             for sdt in (torch.float32, torch.bfloat16):
@@ -962,7 +987,7 @@ def check_rmsnorm(dev, report: dict, randn):
                           .item())
                 need(got.dtype == dt and math.isfinite(e) and e <= tol,
                      f"rmsnorm {shape} {dt} scale {sdt}: err {e}")
-    print(f"  rmsnorm (4,1,2560) (1,128,2560) (3,7,3072) (5,960) (2,3,20), "
+    print(f"  rmsnorm {' '.join(str(s).replace(' ', '') for s in shapes)}, "
           f"bf16 and f32, f32 and bf16 scales: max abs err {err:.3e} "
           f"(tol {BF16_ATOL} / {F32_ATOL} of max |out|)")
     x = randn(16, 1, 2560, dtype=torch.bfloat16) * 3
@@ -1227,10 +1252,11 @@ def first_diff(a, b):
 
 
 def margin_ok(model, params, prompt, want, got, tol: float,
-              what: str) -> bool:
+              what: str, extra=None) -> bool:
     """Tokens equal, or the first difference is at a near-tie: the
-    top-two logit margin there (forward on ``model``) is within ``tol``
-    of max |logit|."""
+    top-two logit margin there (forward on ``model``, with the batch's
+    ``extra`` inputs, a VLM's image rows) is within ``tol`` of max
+    |logit|."""
     import numpy as np
     import torch
     i = first_diff(want, got)
@@ -1238,7 +1264,8 @@ def margin_ok(model, params, prompt, want, got, tol: float,
         return True
     seq = torch.as_tensor(np.concatenate([np.asarray(prompt), want[:i]]),
                           device=model.device)[None]
-    lg, _ = model.forward(params, {"tokens": seq})
+    lg, _ = model.forward(params, {"tokens": seq, **batch_dev(
+        extra or {}, model.device)})
     top = torch.topk(lg[0, -1].float(), 2).values
     margin = (top[0] - top[1]).item()
     limit = tol * lg.float().abs().max().item()
@@ -2591,6 +2618,708 @@ def autoscaled_platform(dev, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 20-24: the MoE family (mixtral-8x7b, arctic-480b) and the audio
+# (hubert-xlarge) and VLM (internvl2-76b) stub families
+# ---------------------------------------------------------------------------
+
+MIXTRAL_LAYERS = 2          # of mixtral-8x7b's 32, at full width
+INTERNVL_LAYERS = 2         # of internvl2-76b's 80, at full width
+HUBERT_FRAMES = 256         # one (1, 256, 512) frame batch
+# a card/CPU difference in an expert choice is a near-tie when the
+# routing weights it swaps differ by at most this much
+ROUTE_TIE = 2e-3
+# the greedy tokens each side generates in the card/CPU phases of the
+# billion-parameter models (every CPU step reads all their f32 weights)
+CPU_TOKENS = 16
+
+
+def card_units(model, seed: int = 0) -> dict:
+    """The model's units initialised on the card (one CUDA generator per
+    unit, seeded as ``deploy_model`` seeds its CPU ones) and copied to
+    the host: random weights from a seed, made on the card because a CPU
+    init of billions of normals would dominate the set-up."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.models import transformer
+    units = {}
+    for i, name in enumerate(model.unit_names()):
+        gen = torch.Generator(device=model.device).manual_seed(
+            transformer.unit_seed(seed, i))
+        units[name] = tree_util.tree_map(lambda t: t.cpu(),
+                                         model.init_unit(name, gen))
+    return units
+
+
+def deploy_int8(model, workdir: str, name: str):
+    """An int8 store of ``model`` at 2000 MB/s; prints its sizes."""
+    from repro_torch.store.store import (BandwidthModel, WeightStore,
+                                         deploy_model)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    store = WeightStore(os.path.join(workdir, name),
+                        BandwidthModel(bandwidth_mbps=2000))
+    deploy_model(store, model, name, quant="int8",
+                 params_by_unit=card_units(model))
+    nb = store.model_nbytes(name)
+    print(f"  deployed {cfg.name} at {cfg.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.3f} B params, "
+          f"{cfg.active_param_count() / 1e9:.3f} B active a token), int8 "
+          f"{nb / 1e9:.3f} GB (I/O floor {nb / 2000e3:.0f} ms at 2000 "
+          f"MB/s) in {time.perf_counter() - t0:.1f} s (set-up)")
+    return store
+
+
+def leaf_counts(store, name: str) -> tuple:
+    """(int8 leaves, other leaves) of a deployed model: under
+    ``apply_dtype`` each is one ``weight_transform`` launch at A."""
+    n_q = int8_leaves(store, name)
+    n = sum(len(u["extents"])
+            for u in store.manifest(name)["units"].values())
+    return n_q, n - n_q
+
+
+def cicada_load(model, store, name: str, batch, label: str, **kw) -> dict:
+    """One cicada cold start after the engine's warm-up, its logits
+    answered inside the final E (the greedy first token taken there);
+    the warm forward on the assembled params against the in-pipeline
+    logits.  Returns the load, the first token with its time, and the
+    launches of the load and of the warm forward."""
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    eng = ColdStartEngine(model, name, store, strategy="cicada", **kw)
+    eng.warmup(batch)
+    first = []
+    before = ops.registry.dispatch_snapshot()
+    res = eng.load(batch, on_logits=lambda lg: first.append(
+        (int(lg[0, -1].float().argmax()), time.monotonic())))
+    load = delta(before)
+    tr = res.trace
+    need(len(first) == 1, f"{label}: on_logits did not fire once")
+    e_final = tr.events_for("E")["final"]
+    need(e_final.t_start <= first[0][1] <= e_final.t_end,
+         f"{label}: logits not answered inside the final E")
+    logits = res.logits
+    rows = sum(v.shape[1] for v in batch.values())    # image rows + tokens
+    need(tuple(logits.shape) == (1, rows, model.cfg.vocab_size) and
+         bool(torch.isfinite(logits.float()).all()),
+         f"{label}: logits {tuple(logits.shape)} not finite/shaped")
+    before = ops.registry.dispatch_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm, _ = model.forward(res.params, batch_dev(batch, model.device))
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    fwd = delta(before)
+    diff = (warm.float() - logits.float()).abs().max().item()
+    scale = logits.float().abs().max().item()
+    summ = tr.summary()
+    print(f"  {label}: load {tr.total_time() * 1e3:.1f} ms, utilization "
+          f"{tr.utilization():.1%}, logits at {(first[0][1] - tr.t0) * 1e3:.1f}"
+          f" ms (greedy first token {first[0][0]}), resident params "
+          f"{param_bytes(res.params) / 1e6:.1f} MB; warm forward "
+          f"{warm_ms:.1f} ms (host clock), max abs diff {diff:.3e} from the "
+          f"in-pipeline logits (max |logit| {scale:.3f}); launches in the "
+          f"load {nonzero(load)}, in the warm forward {nonzero(fwd)}")
+    print("  stage work (s): " + ", ".join(
+        f"{k[5:]} {summ[k]:.3f}" for k in ("work_L", "work_R", "work_A",
+                                           "work_E"))
+          + f"; waits (s): A {summ['wait_A']:.3f}, E {summ['wait_E']:.3f}")
+    need(diff <= BF16_ATOL * max(1.0, scale),
+         f"{label}: warm forward differs from in-pipeline logits")
+    return {"res": res, "first": first[0], "load": load, "forward": fwd}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_expert_transform(store, name: str, unit: str, leaf: str):
+    """``weight_transform`` on one 3-D expert leaf as A applies it (the
+    int8 (E, d, f) values as (E * d, f) rows, one scale over f), against
+    its plain version, bit for bit, and timed (outside every path's
+    count)."""
+    import torch
+    from repro_torch.kernels import weight_transform as wmod
+    leaves = store.read_and_deserialize(name, unit)
+    q, s = (t.cuda() for t in leaves[leaf])
+    got = wmod.weight_transform(q, s, out_dtype=torch.bfloat16)
+    same = torch.equal(got, wmod.plain(q, s, out_dtype=torch.bfloat16))
+    print(f"  weight_transform on {unit}/{leaf} int8 {tuple(q.shape)} "
+          f"-> bf16: {'exact' if same else 'MISMATCH'} against plain")
+    need(same, f"weight_transform {leaf} differs from its plain version")
+    del got
+    n, m = q.shape
+    extra_line("weight_transform", f"expert leaf int8 ({n},{m}) -> bf16",
+               lambda: wmod.weight_transform(q, s, out_dtype=torch.bfloat16),
+               lambda: wmod.plain(q, s, out_dtype=torch.bfloat16),
+               lambda: (q.float() * s).to(torch.bfloat16),
+               bound(n * m * 1 + m * 4 + n * m * 2, n * m, torch.float32),
+               "(w.float() * s).to(dt)")
+    del q, s, leaves
+    torch.cuda.empty_cache()
+
+
+def lm_counts(cfg) -> tuple:
+    """Launches per forward or prefill, and per decode step, of a uniform
+    attention stack: one flash / decode attention a layer, and rmsnorm
+    twice a layer and once at the end where the norm is rmsnorm."""
+    L = cfg.n_layers
+    fwd = {"flash_attention": L}
+    step = {"decode_attention": L}
+    if cfg.norm == "rmsnorm":
+        fwd["rmsnorm"] = step["rmsnorm"] = 2 * L + 1
+    return fwd, step
+
+
+def quant_products(cfg) -> int:
+    """``quant_matmul`` launches per int8-resident forward or step of an
+    MoE LM: 4 attention products a layer, 3 a layer per expert (the
+    router is dequantized, no launch), 3 for a dense residual, and the
+    head."""
+    per_layer = 4 + 3 * cfg.n_experts + (3 if cfg.dense_residual else 0)
+    return cfg.n_layers * per_layer + 1
+
+
+def mixtral_scheduler(model, params, prompts, first, per_fwd, per_step,
+                      label: str) -> dict:
+    """Four requests through the slotted scheduler (prompt 37 alone first,
+    then all four together, the 128-token one resuming from the load's
+    in-pipeline first token), with exact launch counts; returns the
+    tokens, the launches and the ms per step."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeScheduler, GenerateSpec
+    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts]
+    sched = DecodeScheduler(model, params, n_slots=4, cache_len=256)
+    need(set(sched.kernel_modes().values()) == {"cuda"},
+         f"scheduler kernel modes {sched.kernel_modes()}")
+    before = ops.registry.dispatch_snapshot()
+    t1 = time.perf_counter()
+    solo = sched.generate(specs[0])
+    t2 = time.perf_counter()
+    results = run_concurrent(sched, specs, {3: first})
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    st = sched.stats()
+    got = delta(before)
+    want = {k: 5 * per_fwd.get(k, 0) + st["steps"] * per_step.get(k, 0)
+            for k in set(per_fwd) | set(per_step)}
+    need_counts(got, want, f"mixtral {label} scheduler")
+    ms1, ms4 = step_ms([solo]), step_ms(results)
+    print(f"  scheduler, {label}: one request alone 32 tokens in "
+          f"{(t2 - t1) * 1e3:.1f} ms; four concurrent {(t3 - t2) * 1e3:.1f} "
+          f"ms; {st['steps']} steps, max occupancy {st['max_occupancy']}; "
+          f"ms per step by occupancy (host clock, median): alone {ms1}, "
+          f"concurrent {ms4}; launches {nonzero(got)}")
+    need(st["max_occupancy"] == 4 and st["active"] == 0,
+         f"mixtral {label} scheduler stats {st}")
+    need(results[3].tokens[0] == first[0],
+         f"mixtral {label}: the resumed request did not keep its first "
+         f"token")
+    need(solo.tokens == results[0].tokens,
+         f"mixtral {label}: prompt 37's tokens changed between occupancy 1 "
+         f"and 4 (first difference at "
+         f"{first_diff(solo.tokens, results[0].tokens)})")
+    return {"tokens": [r.tokens for r in results], "ms": (ms1, ms4)}
+
+
+def kernel_profile(fn, calls: int = 3) -> tuple:
+    """Device time and launches per call of ``fn`` from a torch.profiler
+    trace of ``calls`` calls (after one untraced call): (device ms,
+    launches, [(kernel, launches, device ms), ...] by device time).  The
+    device events only, so the CPU ops' time of their kernels is not
+    counted twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        n, t = by.get(ev.name, (0, 0.0))
+        by[ev.name] = (n + 1, t + us)
+    rows = sorted(((k, n / calls, t / 1e3 / calls)
+                   for k, (n, t) in by.items()), key=lambda r: -r[2])
+    return (sum(r[2] for r in rows), sum(r[1] for r in rows), rows)
+
+
+def mixtral_costs(model, pb, pq):
+    """What a mixtral step and a long prefill spend: one decode step at
+    B = 4 (positions 37/64/100/128 of a 256-slot cache) on bf16-resident
+    and on int8-resident weights, its host ms per eager call beside its
+    device ms and launches from a profiler trace, with the kernels that
+    take most of the device time; then the router's fixed-order tree
+    against one ``x @ w`` over a 4096-token prompt at mixtral's width
+    (d 4096, 8 experts) and at arctic-480b's (d 7168, 128 experts, its
+    peak memory), and one 4096-token prefill forward of the bf16 model.
+    Measurements only: their launches are outside every path's count."""
+    import torch
+    from repro_torch.models import moe
+    cfg = model.cfg
+    dev = model.device
+    tok = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    pos = torch.tensor([37, 64, 100, 128], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for label, params in (("bf16", pb), ("int8-resident", pq)):
+            cache = model.init_cache(4, 256)
+
+            def step():
+                model.decode_step(params, cache, tok, pos)
+            host = call_ms(step, iters=10, warm=2)
+            dev_ms, n, rows = kernel_profile(step)
+            top = "; ".join(f"{k[:48]} x{c:g} {t:.3f} ms"
+                            for k, c, t in rows[:6])
+            print(f"  decode step at B=4, {label}: {host:.3f} ms per eager "
+                  f"call (CUDA events), device {dev_ms:.3f} ms in {n:g} "
+                  f"launches (profiler); most device time: {top}")
+            need(dev_ms > 0, f"mixtral {label}: the profiler saw no device "
+                 f"time")
+            del cache
+        g = torch.Generator(device=dev).manual_seed(3)
+        for d, E in ((cfg.d_model, cfg.n_experts), (7168, 128)):
+            x = torch.randn(1, 4096, d, generator=g, device=dev)
+            w = torch.randn(d, E, generator=g, device=dev)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            moe._router_logits(x, w)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            tree = call_ms(lambda: moe._router_logits(x, w), iters=3, warm=1)
+            mm = call_ms(lambda: x @ w, iters=3, warm=1)
+            print(f"  router logits over 4096 tokens, d {d}, {E} experts: "
+                  f"fixed-order tree {tree:.3f} ms per eager call, peak "
+                  f"{peak / 1e6:.1f} MB above its inputs; one f32 x @ w "
+                  f"{mm:.4f} ms")
+            del x, w
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 4096),
+                                         generator=g, device=dev)}
+        fwd = call_ms(lambda: model.forward(pb, batch), iters=2, warm=1)
+        print(f"  prefill forward of 4096 tokens, bf16, {cfg.n_layers} "
+              f"layers: {fwd:.1f} ms per eager call")
+    torch.cuda.empty_cache()
+
+
+def mixtral_family(dev, workdir: str) -> dict:
+    """Phase 20: mixtral-8x7b at full width, MIXTRAL_LAYERS layers, from
+    an int8 store: the cicada cold start with bf16 at A and the
+    int8-resident one, 32 greedy tokens, the slotted scheduler on both
+    residencies (tokens equal ``reference_generate``'s), the rows probe
+    on a decode step of each, what a step and a long prefill spend
+    (:func:`mixtral_costs`), and the card's memory returned."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ab, ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import reference_generate
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              n_layers=MIXTRAL_LAYERS)
+    model = transformer.build(cfg)
+    store = deploy_int8(model, workdir, "mixtral-int8")
+    n_q, n_other = leaf_counts(store, "mixtral-int8")
+    check_expert_transform(store, "mixtral-int8", "block_000",
+                           "moe/experts/wg")
+    per_fwd, per_step = lm_counts(cfg)
+    n_qm = quant_products(cfg)
+    print(f"  kernels per forward {per_fwd}, per decode step {per_step}; "
+          f"int8-resident: quant_matmul {n_qm} per forward and step; bf16 "
+          f"at A: weight_transform {n_q + n_other} per load ({n_q} int8 "
+          f"leaves, {n_other} f32 leaves cast)")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 128))
+    batch = {"tokens": torch.as_tensor(prompt)}
+    prompts = [prompt[0][:n] for n in (37, 64, 100, 128)]
+    mem0 = settled_memory()
+
+    ops.registry.reset_counts()
+    cast = cicada_load(model, store, "mixtral-int8", batch, "cicada, bf16 "
+                       "at A", apply_dtype=torch.bfloat16)
+    need_counts(cast["load"], {**per_fwd, "weight_transform": n_q + n_other,
+                               "quant_matmul": 0}, "mixtral bf16-at-A load")
+    need_counts(cast["forward"], {**per_fwd, "quant_matmul": 0},
+                "mixtral bf16 warm forward")
+    quant = cicada_load(model, store, "mixtral-int8", batch,
+                        "cicada, int8-resident (compute_quant)",
+                        compute_quant=True)
+    need_counts(quant["load"], {**per_fwd, "quant_matmul": n_qm,
+                                "weight_transform": 0},
+                "mixtral int8-resident load")
+    need_counts(quant["forward"], {**per_fwd, "quant_matmul": n_qm},
+                "mixtral int8-resident warm forward")
+    pb, pq = cast["res"].params, quant["res"].params
+    print(f"  resident params: bf16 {param_bytes(pb) / 1e9:.3f} GB, "
+          f"int8-resident {param_bytes(pq) / 1e9:.3f} GB "
+          f"({param_bytes(pq) / param_bytes(pb):.3f}x)")
+    before = ops.registry.dispatch_snapshot()
+    t0 = time.perf_counter()
+    toks = reference_generate(model, pb, prompt[0], n_new=32)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    need_counts(delta(before), {k: per_fwd.get(k, 0) + 31 * per_step.get(
+        k, 0) for k in set(per_fwd) | set(per_step)},
+                "mixtral reference_generate")
+    need(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+         f"mixtral: bad tokens {toks}")
+    print(f"  reference_generate, bf16, prompt 128: 32 greedy tokens in "
+          f"{gen_ms:.1f} ms (host clock, prefill + 31 decode steps): {toks}")
+    step_q = {**per_step, "quant_matmul": n_qm}
+    fwd_q = {**per_fwd, "quant_matmul": n_qm}
+    runs = {"bf16": mixtral_scheduler(model, pb, prompts, cast["first"],
+                                      per_fwd, per_step, "bf16"),
+            "int8": mixtral_scheduler(model, pq, prompts, quant["first"],
+                                      fwd_q, step_q, "int8-resident")}
+    path = ops.registry.dispatch_snapshot()
+    for label, params in (("bf16", pb), ("int8", pq)):
+        for p, got in zip(prompts, runs[label]["tokens"]):
+            ref = toks if label == "bf16" and len(p) == 128 else \
+                reference_generate(model, params, p, n_new=32)
+            same = got == ref
+            print(f"  {label} prompt {len(p)}: "
+                  f"{'equal to' if same else 'DIFFERS from'} "
+                  f"reference_generate: {got}")
+            need(same, f"mixtral {label} prompt {len(p)} differs from "
+                 f"reference_generate at token {first_diff(ref, got)}")
+        t1 = time.perf_counter()
+        probe = ab.probe_rows(model, params, [prompts[3], prompts[0],
+                                              prompts[1], prompts[2]])
+        print(f"  rows probe, {label}, one decode step at B=4 against B=1 "
+              f"({time.perf_counter() - t1:.1f} s): {probe['compared']} of "
+              f"{probe['ops']} ops compared, first op that differs "
+              f"{probe['first']}, sources {probe['sources']}, logits "
+              f"{'bit-equal' if probe['logits_equal'] else 'DIFFER'}")
+        need(probe["misaligned"] is None and not probe["sources"] and
+             probe["logits_equal"],
+             f"mixtral {label}: a decode step's row depends on the batch: "
+             f"{probe}")
+    mixtral_costs(model, pb, pq)
+    out = {"launches": path,
+           "kernels": ("flash_attention", "decode_attention", "quant_matmul",
+                       "weight_transform", "rmsnorm"),
+           "store": store}
+    del cast, quant, pb, pq, params
+    mem1 = settled_memory()
+    print(f"  memory_allocated {mem1 / 1e6:.1f} MB after the phase against "
+          f"{mem0 / 1e6:.1f} MB before its loads")
+    need(mem1 <= mem0 + PLATFORM_MEM_MARGIN,
+         f"mixtral: {(mem1 - mem0) / 1e6:.1f} MB not returned")
+    return out
+
+
+@contextlib.contextmanager
+def route_spy():
+    """Records every router's probabilities (B, S, E) while it is open, in
+    call order (one per MoE layer of a forward)."""
+    from repro_torch.models import moe
+    real, rec = moe.route, []
+
+    def route(cfg, w, x):
+        out = real(cfg, w, x)
+        rec.append(out[1].float().cpu())
+        return out
+    moe.route = route
+    try:
+        yield rec
+    finally:
+        moe.route = real
+
+
+def routing_agreement(card, cpu, k: int) -> tuple:
+    """Share of the (token, expert) choices of every layer that the card
+    and the CPU share, and the largest routing-weight gap (the CPU's
+    k-th against its (k+1)-th probability) at a token whose choices
+    differ (0 if none does)."""
+    import torch
+    from repro_torch.models import moe
+    same = total = 0
+    gap = 0.0
+    for pc, pp in zip(card, cpu):
+        ic = moe.top_k(pc, k)[1].reshape(-1, k)
+        vp, ip = moe.top_k(pp, k + 1)
+        vp, ip = vp.reshape(-1, k + 1), ip.reshape(-1, k + 1)[:, :k]
+        for t in range(ic.shape[0]):
+            shared = len(set(ic[t].tolist()) & set(ip[t].tolist()))
+            same += shared
+            total += k
+            if shared < k:
+                gap = max(gap, float(vp[t, k - 1] - vp[t, k]))
+    return same / max(total, 1), gap
+
+
+def mixtral_card_vs_cpu(workdir: str, mix: dict):
+    """Phase 21: the same MIXTRAL_LAYERS layers at f32 compute, from phase
+    20's int8 store dequantized to f32 at A (no 12.7 GB f32 store), on
+    the card and on the CPU: logits within 2e-3, the routers' choices
+    compared (a difference allowed only at a near-tie of the routing
+    weights), CPU_TOKENS greedy tokens checked by ``margin_ok``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving.decode import reference_generate
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              n_layers=MIXTRAL_LAYERS,
+                              compute_dtype=torch.float32)
+    store = mix["store"]
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 64))
+    got = {}
+    for side, d in (("card", None), ("cpu", "cpu")):
+        m = transformer.build(cfg, device=d)
+        t0 = time.perf_counter()
+        with route_spy() as probs:
+            res = ColdStartEngine(m, "mixtral-int8", store, strategy="cicada",
+                                  device=d).load({"tokens": torch.as_tensor(
+                                      prompt)})
+        toks = reference_generate(m, res.params, prompt[0],
+                                  n_new=CPU_TOKENS, device=d)
+        got[side] = (res.logits.float().cpu(), toks, res.params, probs, m)
+        print(f"  {side}: f32 load and {CPU_TOKENS} greedy tokens in "
+              f"{time.perf_counter() - t0:.1f} s (host clock)")
+    a, b = got["card"][0], got["cpu"][0]
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    share, gap = routing_agreement(got["card"][3], got["cpu"][3], cfg.top_k)
+    print(f"  mixtral {cfg.n_layers} layers full width f32: card vs CPU "
+          f"logits max rel diff {rel:.3e} (tol 2e-3); (token, expert) "
+          f"choices shared {share:.4%} over {len(got['cpu'][3])} routers, "
+          f"largest routing-weight gap at a differing choice {gap:.3e} "
+          f"(near-tie limit {ROUTE_TIE})")
+    need(len(got["card"][3]) == len(got["cpu"][3]) == cfg.n_layers,
+         "mixtral: a router was not recorded on each side")
+    need(rel <= 2e-3, f"mixtral: card and CPU logits differ by {rel}")
+    need(gap <= ROUTE_TIE, f"mixtral: an expert choice differs away from a "
+         f"near-tie (gap {gap})")
+    ta, tb = got["card"][1], got["cpu"][1]
+    print(f"  {CPU_TOKENS} greedy tokens card {ta}\n"
+          f"                     cpu  {tb}")
+    need(margin_ok(got["cpu"][4], got["cpu"][2], prompt[0], tb, ta, 2e-3,
+                   "mixtral card vs CPU"),
+         "mixtral: greedy tokens differ away from a near-tie")
+
+
+def arctic_smoke(dev, workdir: str) -> dict:
+    """Phase 22: arctic-480b smoke (8 experts and the dense residual) at
+    f32, one store on the card and the CPU: logits within 2e-3, greedy
+    tokens by ``margin_ok``; then the paged scheduler with 16-token pages
+    on the card, prefix hits, tokens equal ``reference_generate``'s."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import (DecodeScheduler, GenerateSpec,
+                                     reference_generate)
+    from repro_torch.store.store import WeightStore, deploy_model
+
+    cfg = dataclasses.replace(get_config("arctic-480b", smoke=True),
+                              compute_dtype=torch.float32)
+    cpu_model = transformer.build(cfg, device="cpu")
+    gpu_model = transformer.build(cfg)
+    store = WeightStore(os.path.join(workdir, "arctic-smoke"))
+    deploy_model(store, cpu_model, "arctic", seed=1)
+    base = np.random.default_rng(3).integers(0, cfg.vocab_size, (48,))
+    per_fwd, per_step = lm_counts(cfg)
+    ops.registry.reset_counts()
+    got = {}
+    for side, m, d in (("card", gpu_model, None), ("cpu", cpu_model, "cpu")):
+        res = ColdStartEngine(m, "arctic", store, strategy="cicada",
+                              device=d).load({"tokens": torch.as_tensor(
+                                  base[None])})
+        toks = reference_generate(m, res.params, base, n_new=16, device=d)
+        got[side] = (res.logits.float().cpu(), toks, res.params)
+    a, b = got["card"][0], got["cpu"][0]
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"  arctic-480b smoke ({cfg.n_experts} experts, dense residual) "
+          f"f32: card vs CPU logits max rel diff {rel:.3e} (tol 2e-3)")
+    need(rel <= 2e-3, f"arctic: card and CPU logits differ by {rel}")
+    ta, tb = got["card"][1], got["cpu"][1]
+    print(f"  16 greedy tokens card {ta}\n                      cpu  {tb}")
+    need(margin_ok(cpu_model, got["cpu"][2], base, tb, ta, 2e-3,
+                   "arctic card vs CPU"),
+         "arctic: greedy tokens differ away from a near-tie")
+    params = got["card"][2]
+    prompts = [base[:n] for n in (37, 40, 45, 48)]
+    specs = [GenerateSpec(prompt=p, n_new=16) for p in prompts]
+    sched = DecodeScheduler(gpu_model, params, n_slots=4, cache_len=128,
+                            kv_page_tokens=16)
+    need(gpu_model.paged_kinds() == ["moe"] and
+         gpu_model.supports_prefix_cache, "arctic does not page its KV")
+    before = ops.registry.dispatch_snapshot()
+    lead = sched.generate(specs[3])      # publishes the shared prefix pages
+    rest = run_concurrent(sched, specs[:3], {})
+    torch.cuda.synchronize()
+    st = sched.stats()
+    launched = delta(before)
+    path = ops.registry.dispatch_snapshot()
+    print(f"  paged scheduler: {st['steps']} steps, prefix hits "
+          f"{st['kv_prefix_hits']} pages, misses {st['kv_prefix_misses']}; "
+          f"launches {nonzero(launched)}")
+    need(st["kv_prefix_hits"] > 0 and st["kv_pages_pinned"] == 0,
+         f"arctic paged stats {st}")
+    need(launched["decode_attention_paged"] == cfg.n_layers * st["steps"],
+         f"arctic: decode_attention_paged launched "
+         f"{launched['decode_attention_paged']} times in {st['steps']} steps")
+    sched.kvpool.check_invariants()
+    for p, r in zip(prompts, rest + [lead]):
+        ref = reference_generate(gpu_model, params, p, n_new=16)
+        same = r.tokens == ref
+        print(f"  prompt {len(p)}: paged tokens "
+              f"{'equal to' if same else 'DIFFER from'} reference_generate")
+        need(same, f"arctic paged prompt {len(p)} differs from "
+             f"reference_generate at token {first_diff(ref, r.tokens)}")
+    return {"launches": path,
+            "kernels": ("flash_attention", "decode_attention",
+                        "decode_attention_paged", "rmsnorm")}
+
+
+def hubert_family(dev, workdir: str) -> dict:
+    """Phase 23: hubert-xlarge at full width (48 encoder layers, dh 80 in
+    the dh-128 instances, non-causal), int8 store, cicada with bf16 at A
+    on a (1, HUBERT_FRAMES, 512) frame batch and a warm one-shot forward;
+    then 4 layers at f32 on the card and the CPU from one store."""
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import example_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.store.store import WeightStore, deploy_model
+
+    cfg = get_config("hubert-xlarge")
+    model = transformer.build(cfg)
+    store = deploy_int8(model, workdir, "hubert-int8")
+    n_q, n_other = leaf_counts(store, "hubert-int8")
+    batch = example_batch(cfg, HUBERT_FRAMES)
+    per_fwd, _ = lm_counts(cfg)
+    ops.registry.reset_counts()
+    load = cicada_load(model, store, "hubert-int8", batch, "cicada, bf16 at "
+                       "A", apply_dtype=torch.bfloat16)
+    path = ops.registry.dispatch_snapshot()
+    need_counts(load["load"], {**per_fwd, "weight_transform": n_q + n_other,
+                               "rmsnorm": 0, "quant_matmul": 0},
+                "hubert load")
+    need_counts(load["forward"], per_fwd, "hubert one-shot forward")
+    need(tuple(load["res"].logits.shape) == (1, HUBERT_FRAMES,
+                                             cfg.vocab_size),
+         "hubert: logits are not one row a frame")
+    del load
+    cfg4 = dataclasses.replace(cfg, n_layers=4, compute_dtype=torch.float32)
+    cpu_model = transformer.build(cfg4, device="cpu")
+    st4 = WeightStore(os.path.join(workdir, "hubert4"))
+    deploy_model(st4, cpu_model, "h4", seed=1)
+    got = {}
+    for side, d in (("card", None), ("cpu", "cpu")):
+        m = transformer.build(cfg4, device=d)
+        got[side] = ColdStartEngine(m, "h4", st4, strategy="cicada",
+                                    device=d).load(batch).logits.float().cpu()
+    a, b = got["card"], got["cpu"]
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    top = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    print(f"  hubert 4 layers full width f32: card vs CPU logits max rel "
+          f"diff {rel:.3e} (tol 2e-3), per-frame top-1 equal at {top:.2%}")
+    need(rel <= 2e-3, f"hubert: card and CPU logits differ by {rel}")
+    return {"launches": path, "kernels": ("flash_attention",
+                                          "weight_transform")}
+
+
+def vlm_greedy(model, params, batch, n_new: int,
+               cache_len: int = 256) -> list:
+    """Greedy tokens of a VLM request (image rows, then tokens): the
+    prefill over both, then decode steps at positions counted past the
+    image rows."""
+    import torch
+    dev = model.device
+    b = batch_dev(batch, dev)
+    S = b["img"].shape[1] + b["tokens"].shape[1]
+    cache = model.init_cache(1, cache_len)
+    lg, cache = model.prefill(params, b, cache)
+    out = [int(lg[0, -1].float().argmax())]
+    for t in range(S, S + n_new - 1):
+        lg, cache = model.decode_step(
+            params, cache, torch.tensor([[out[-1]]], device=dev),
+            torch.tensor([t], dtype=torch.int32, device=dev))
+        out.append(int(lg[0, -1].float().argmax()))
+    return out
+
+
+def internvl_family(dev, workdir: str) -> dict:
+    """Phase 24: internvl2-76b at full width, INTERNVL_LAYERS layers, int8
+    store: cicada with bf16 at A on 8 image rows and 56 tokens, 16 greedy
+    tokens; then the card against the CPU at f32 from the same store."""
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import example_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+
+    cfg = dataclasses.replace(get_config("internvl2-76b"),
+                              n_layers=INTERNVL_LAYERS)
+    model = transformer.build(cfg)
+    store = deploy_int8(model, workdir, "internvl2-int8")
+    n_q, n_other = leaf_counts(store, "internvl2-int8")
+    batch = example_batch(cfg, 64)
+    per_fwd, per_step = lm_counts(cfg)
+    ops.registry.reset_counts()
+    load = cicada_load(model, store, "internvl2-int8", batch, "cicada, bf16 "
+                       "at A", apply_dtype=torch.bfloat16)
+    need_counts(load["load"], {**per_fwd, "weight_transform": n_q + n_other},
+                "internvl2 load")
+    before = ops.registry.dispatch_snapshot()
+    t0 = time.perf_counter()
+    toks = vlm_greedy(model, load["res"].params, batch, 16)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    path = ops.registry.dispatch_snapshot()
+    need_counts(delta(before), {k: per_fwd.get(k, 0) + 15 * per_step.get(
+        k, 0) for k in set(per_fwd) | set(per_step)}, "internvl2 generation")
+    need(toks[0] == load["first"][0],
+         "internvl2: the first greedy token is not the in-pipeline one")
+    print(f"  8 image rows + 56 tokens: 16 greedy tokens in {gen_ms:.1f} ms "
+          f"(host clock, prefill + 15 decode steps): {toks}")
+    del load
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    got = {}
+    for side, d in (("card", None), ("cpu", "cpu")):
+        m = transformer.build(cfg32, device=d)
+        t0 = time.perf_counter()
+        res = ColdStartEngine(m, "internvl2-int8", store, strategy="cicada",
+                              device=d).load(batch)
+        toks = vlm_greedy(m, res.params, batch, CPU_TOKENS)
+        got[side] = (res.logits.float().cpu(), toks, res.params, m)
+        print(f"  {side}: f32 load and {CPU_TOKENS} greedy tokens in "
+              f"{time.perf_counter() - t0:.1f} s (host clock)")
+    a, b = got["card"][0], got["cpu"][0]
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"  internvl2 {cfg.n_layers} layers full width f32: card vs CPU "
+          f"logits max rel diff {rel:.3e} (tol 2e-3)")
+    need(rel <= 2e-3, f"internvl2: card and CPU logits differ by {rel}")
+    ta, tb = got["card"][1], got["cpu"][1]
+    print(f"  {CPU_TOKENS} greedy tokens card {ta}\n"
+          f"                     cpu  {tb}")
+    need(margin_ok(got["cpu"][3], got["cpu"][2], batch["tokens"][0].numpy(),
+                   tb, ta, 2e-3, "internvl2 card vs CPU",
+                   extra={"img": batch["img"]}),
+         "internvl2: greedy tokens differ away from a near-tie")
+    return {"launches": path,
+            "kernels": ("flash_attention", "decode_attention",
+                        "weight_transform", "rmsnorm")}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2699,6 +3428,33 @@ def main() -> int:
             auto["launches"],
             ("flash_attention", "decode_attention", "weight_transform",
              "rmsnorm"))
+        torch.cuda.empty_cache()
+        phase(f"[20] full-width mixtral-8x7b at {MIXTRAL_LAYERS} of 32 "
+              f"layers: int8 store, cicada with bf16 at A and "
+              f"int8-resident, greedy generation, slotted DecodeScheduler "
+              f"on both, rows probe")
+        mix = mixtral_family(dev, wd)
+        paths["mixtral-8x7b"] = (mix["launches"], mix["kernels"])
+        phase(f"[21] card against CPU, mixtral-8x7b at {MIXTRAL_LAYERS} "
+              f"layers, f32 from the int8 store, routing compared")
+        mixtral_card_vs_cpu(wd, mix)
+        del mix
+        torch.cuda.empty_cache()
+        phase("[22] arctic-480b smoke: card against CPU, paged "
+              "DecodeScheduler with prefix reuse")
+        arc = arctic_smoke(dev, wd)
+        paths["arctic-480b smoke"] = (arc["launches"], arc["kernels"])
+        phase("[23] full-width hubert-xlarge (48 layers): int8 store, "
+              "cicada with bf16 at A, one-shot forward; card against CPU "
+              "at 4 layers")
+        hub = hubert_family(dev, wd)
+        paths["hubert-xlarge"] = (hub["launches"], hub["kernels"])
+        torch.cuda.empty_cache()
+        phase(f"[24] full-width internvl2-76b at {INTERNVL_LAYERS} of 80 "
+              f"layers: int8 store, cicada with bf16 at A on image rows and "
+              f"tokens, greedy generation; card against CPU")
+        vlm = internvl_family(dev, wd)
+        paths["internvl2-76b"] = (vlm["launches"], vlm["kernels"])
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

@@ -387,11 +387,19 @@ def _row(t4, t1, n: int):
     return t4.narrow(axes[0], 0, t1.shape[axes[0]])
 
 
+def _bytes(t):
+    """A tensor's bytes, from a dense copy (a narrowed row of any
+    strides, size-1 axes included, views as bytes only so)."""
+    import torch
+    flat = torch.empty(t.numel(), dtype=t.dtype, device=t.device)
+    return flat.copy_(t.reshape(-1)).view(torch.uint8)
+
+
 def _same(a, b) -> bool:
     """Bit for bit (NaNs compare by their bits)."""
     import torch
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        _bytes(a), _bytes(b))
 
 
 class _Recorder:

@@ -51,13 +51,28 @@ STRATEGIES = ["traditional", "pisel", "mini", "preload", "cicada"]
 
 
 def example_batch(cfg, seq: int = 32):
-    """A representative one-shot request: a (1, 3, img_res, img_res) f32
-    image for the vision family, a token batch for decoder LMs."""
+    """A representative one-shot request, as the reference draws it: a
+    (1, 3, img_res, img_res) f32 image for the vision family, (1, seq,
+    frontend_dim) bf16 frames for the audio encoder, ``min(8, seq // 2)``
+    bf16 image rows and the rest tokens for the VLM, a token batch for
+    the other LMs.  The float64 draws convert as ``jnp.asarray`` converts
+    them (through float32), so both packages get the same bits."""
     rng = np.random.default_rng(0)
     if cfg.family == Family.VISION:
         return {"image": torch.as_tensor(
             rng.standard_normal((1, 3, cfg.img_res, cfg.img_res)),
             dtype=torch.float32)}
+    if cfg.family == Family.AUDIO:
+        return {"frames": torch.as_tensor(
+            rng.standard_normal((1, seq, cfg.frontend_dim)),
+            dtype=torch.bfloat16)}
+    if cfg.family == Family.VLM:
+        n_img = min(8, seq // 2)
+        return {"tokens": torch.as_tensor(
+                    rng.integers(0, cfg.vocab_size, (1, seq - n_img))),
+                "img": torch.as_tensor(
+                    rng.standard_normal((1, n_img, cfg.frontend_dim)),
+                    dtype=torch.bfloat16)}
     return {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (1, seq)))}
 

@@ -102,8 +102,25 @@ class ArchConfig:
         return self.d_model // max(self.n_heads, 1)
 
     @property
+    def q_rep(self) -> int:
+        """GQA repetition factor (query heads per KV head)."""
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    @property
     def is_encoder(self) -> bool:
         return not self.causal
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == Family.SSM
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if long-context decode (500k) is feasible: the per-token
+        state is O(window) or O(1), not O(seq)."""
+        if self.family in (Family.SSM, Family.HYBRID):
+            return True
+        return self.sliding_window > 0
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head)."""
@@ -180,6 +197,15 @@ class ArchConfig:
         if self.family == Family.MOE:
             return ["moe"] * self.n_layers
         return ["attn"] * self.n_layers
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k experts only)."""
+        if self.family != Family.MOE:
+            return self.param_count()
+        d = self.d_model
+        f = self.moe_d_ff or self.d_ff
+        inactive = self.n_layers * (self.n_experts - self.top_k) * 3 * d * f
+        return self.param_count() - inactive
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """LM assembly of the port: the stacked steady-state view and the
-streaming unit view of ``repro.models.transformer``, for the dense, SSM
-(Mamba-2) and hybrid (Griffin) families.
+streaming unit view of ``repro.models.transformer``, for every LM family:
+dense, MoE (Mixtral, Arctic), SSM (Mamba-2), hybrid (Griffin), and the
+audio encoder (hubert) and VLM (internvl2) backbones behind their stub
+frontends.
 
 Parameters are nested dicts of tensors with the reference's tree
 structure and layouts: ``{"embed": {"tok"}, "blocks": {"s0": {...}, ...,
@@ -22,39 +24,38 @@ construction: on ``torch.device("meta")`` it is MiniLoader's shape-only
 structure (:meth:`LM.abstract_unit`), on a real device with ``init_`` it
 is the PISeL-faithful numerical initialization (:meth:`LM.init_unit`).
 
+The audio family embeds its frames (``frames @ proj``) and ends in an
+encoder head; the VLM embeds its image rows (``img @ mm_proj``) ahead of
+the tokens, so positions count the image rows first.  A token-only VLM
+batch (the schedulers' prompts, and every decode step, where the
+reference passes a zero-length image) has no image rows.
+
 The paged side (``decode_step_paged`` over page pools ``(n_units, P, K,
 pt, dh)``, ``gather_pages`` / ``pack_pages`` / ``copy_page``, and
 ``prefill_continue`` for prefix reuse) follows the reference's
-``transformer.py:615-830`` for the dense family; like the slotted caches,
-pools and caches are written in place.  Paging the hybrid's attention
-layers waits (ROADMAP queue 1 item 12).
-
-The MoE, audio and VLM families raise ``NotImplementedError`` naming
-their ROADMAP item; :func:`build` hands the vision family to
-:mod:`repro_torch.models.vision`.
+``transformer.py:615-830`` for the uniform stacks (dense, MoE, audio,
+VLM); like the slotted caches, pools and caches are written in place.
+Paging the hybrid's attention layers waits (ROADMAP queue 1 item 12).
+:func:`build` hands the vision family to :mod:`repro_torch.models.vision`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import quant
 from repro_torch import tree as tree_util
 from repro_torch.kernels import ops
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import griffin, layers, ssm
+from repro_torch.models import griffin, layers, moe, ssm
 from repro_torch.models.api import ArchConfig, Family
 from repro_torch.quant import QuantLeaf
 
 PyTree = Any
 
-_PENDING = {
-    Family.MOE: "ROADMAP queue 1 item 11 (MoE)",
-    Family.AUDIO: "ROADMAP queue 1 item 12 (hubert stub path)",
-    Family.VLM: "ROADMAP queue 1 item 12 (internvl2 stub path)",
-}
 PAGING_PENDING = ("ROADMAP queue 1 item 12 (paged decode of the recurrent "
                   "families)")
 
@@ -90,25 +91,44 @@ class UnitModule(nn.Module):
 
 
 class EmbedUnit(UnitModule):
+    """The token table; the audio family's frame projection ``proj``
+    instead; the VLM's table and its image projection ``mm_proj``."""
+
     def __init__(self, cfg: ArchConfig, device):
-        super().__init__(cfg, {"tok": (cfg.vocab_size, cfg.d_model)}, device)
+        proj = (cfg.frontend_dim, cfg.d_model)
+        if cfg.family == Family.AUDIO:
+            shapes = {"proj": proj}
+        elif cfg.family == Family.VLM:
+            shapes = {"tok": (cfg.vocab_size, cfg.d_model), "mm_proj": proj}
+        else:
+            shapes = {"tok": (cfg.vocab_size, cfg.d_model)}
+        super().__init__(cfg, shapes, device)
 
     def init_(self, gen: torch.Generator) -> "EmbedUnit":
-        layers.embed_init_(self.tok.data, gen)
+        p = self.tree()
+        if "tok" in p:
+            layers.embed_init_(p["tok"], gen)
+        for name in ("proj", "mm_proj"):
+            if name in p:
+                layers.dense_init_(p[name], gen)
         return self
 
 
 class BlockUnit(UnitModule):
-    """One pre-norm block of ``kind``: ``attn`` (attention + MLP), ``ssd``
-    (the Mamba-2 mixer) or ``rglru`` (the RG-LRU mixer + MLP)."""
+    """One pre-norm block of ``kind``: ``attn`` / ``local_attn``
+    (attention + MLP), ``moe`` (attention + the MoE FFN), ``ssd`` (the
+    Mamba-2 mixer) or ``rglru`` (the RG-LRU mixer + MLP)."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device):
         _check_kind(kind)
         shapes: Dict[str, Any] = {"norm1": layers.norm_shapes(cfg)}
-        if kind == "attn":
+        if kind in ATTN_KINDS:
             shapes.update(attn=layers.attn_shapes(cfg),
-                          norm2=layers.norm_shapes(cfg),
-                          mlp=layers.mlp_shapes(cfg))
+                          norm2=layers.norm_shapes(cfg))
+            if kind == "moe":
+                shapes["moe"] = moe.moe_shapes(cfg)
+            else:
+                shapes["mlp"] = layers.mlp_shapes(cfg)
         elif kind == "ssd":
             shapes["ssd"] = ssm.ssd_shapes(cfg)
         else:
@@ -120,18 +140,21 @@ class BlockUnit(UnitModule):
 
     def init_(self, gen: torch.Generator) -> "BlockUnit":
         """The reference's ``block_params`` init rules, drawn in the order
-        norm1, mixer, norm2, MLP."""
+        norm1, mixer, norm2, MLP or MoE."""
         cfg, p = self.cfg, self.tree()
         layers.norm_init_(cfg, p["norm1"])
-        if self.kind == "attn":
+        if self.kind in ATTN_KINDS:
             layers.attn_init_(cfg, p["attn"], gen)
         elif self.kind == "ssd":
             ssm.ssd_init_(cfg, p["ssd"], gen)
         else:
             griffin.rglru_init_(cfg, p["rglru"], gen)
-        if "mlp" in p:
+        if "norm2" in p:
             layers.norm_init_(cfg, p["norm2"])
+        if "mlp" in p:
             layers.mlp_init_(cfg, p["mlp"], gen)
+        if "moe" in p:
+            moe.moe_init_(cfg, p["moe"], gen)
         return self
 
 
@@ -153,43 +176,56 @@ class FinalUnit(UnitModule):
 
 
 # ---------------------------------------------------------------------------
-# per-kind block functions: "attn", "ssd", "rglru"
+# per-kind block functions: "attn", "local_attn", "moe", "ssd", "rglru"
 # ---------------------------------------------------------------------------
 
-KINDS = ("attn", "ssd", "rglru")
-ATTN = "attn"          # the block kind of every dense layer
+ATTN_KINDS = ("attn", "local_attn", "moe")    # attention + an FFN
+KINDS = ATTN_KINDS + ("ssd", "rglru")
 
 
 def _check_kind(kind: str):
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r}: only {KINDS} blocks are ported (see "
-            f"ROADMAP queue 1 items 11-12)")
+        raise ValueError(f"unknown block kind {kind!r}; have {KINDS}")
+
+
+def _kind_window(cfg, kind: str) -> int:
+    if kind == "local_attn":
+        return cfg.local_attn_window
+    return cfg.sliding_window
 
 
 def block_params(cfg, kind: str, gen: torch.Generator) -> PyTree:
     return BlockUnit(cfg, kind, gen.device).init_(gen).tree()
 
 
-def _mlp_half(cfg, p: PyTree, x: torch.Tensor) -> torch.Tensor:
+def _ffn_half(cfg, kind: str, p: PyTree, x: torch.Tensor, *,
+              with_aux: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's second half: norm2, then the MLP or the MoE FFN, and
+    the residual.  Returns (x, the MoE aux loss if ``with_aux``, else
+    None)."""
     h = layers.apply_norm(cfg, p["norm2"], x)
-    return x + layers.mlp_block(cfg, p["mlp"], h)
+    if kind == "moe":
+        y, aux = moe.moe_block(cfg, p["moe"], h, with_aux=with_aux)
+        return x + y, aux
+    return x + layers.mlp_block(cfg, p["mlp"], h), None
 
 
 def block_apply(cfg, kind: str, p: PyTree, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward of one block (the reference also returns an
-    aux loss, which only MoE blocks make)."""
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence forward of one block.  Returns (x, aux loss), the
+    aux loss None for every kind but ``moe``."""
     _check_kind(kind)
     h = layers.apply_norm(cfg, p["norm1"], x)
     if kind == "ssd":
-        return x + ssm.ssd_block(cfg, p["ssd"], h)
+        return x + ssm.ssd_block(cfg, p["ssd"], h), None
     if kind == "rglru":
         x = x + griffin.rglru_block(cfg, p["rglru"], h)
     else:
         x = x + layers.attention_block(cfg, p["attn"], h, positions,
-                                       window=cfg.sliding_window)
-    return _mlp_half(cfg, p, x)
+                                       window=_kind_window(cfg, kind))
+    return _ffn_half(cfg, kind, p, x, with_aux=True)
 
 
 def kind_cache(cfg, kind: str, batch: int, cache_len: int,
@@ -202,7 +238,7 @@ def kind_cache(cfg, kind: str, batch: int, cache_len: int,
     if kind == "rglru":
         conv, h = griffin.init_states(cfg, batch, device)
         return {"conv": conv, "h": h}
-    w = cfg.sliding_window
+    w = _kind_window(cfg, kind)
     n = min(cache_len, w) if w > 0 else cache_len
     shape = (batch, cfg.n_kv_heads, n, cfg.dh)            # kv-head-major
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
@@ -235,8 +271,8 @@ def block_decode(cfg, kind: str, p: PyTree, x: torch.Tensor,
     else:
         y, _, _ = layers.attention_decode(cfg, p["attn"], h, pos, cache["k"],
                                           cache["v"],
-                                          window=cfg.sliding_window)
-    return _mlp_half(cfg, p, x + y), cache
+                                          window=_kind_window(cfg, kind))
+    return _ffn_half(cfg, kind, p, x + y)[0], cache
 
 
 def block_prefill(cfg, kind: str, p: PyTree, x: torch.Tensor,
@@ -254,9 +290,9 @@ def block_prefill(cfg, kind: str, p: PyTree, x: torch.Tensor,
         y, (conv, hs) = griffin.rglru_block(cfg, p["rglru"], h,
                                             return_state=True)
         _store(cache, conv=conv, h=hs)
-        return _mlp_half(cfg, p, x + y), cache
+        return _ffn_half(cfg, kind, p, x + y)[0], cache
     y, k, v = layers.attention_block(cfg, p["attn"], h, positions,
-                                     window=cfg.sliding_window,
+                                     window=_kind_window(cfg, kind),
                                      return_kv=True)
     x = x + y
     S = k.shape[1]
@@ -267,14 +303,14 @@ def block_prefill(cfg, kind: str, p: PyTree, x: torch.Tensor,
         cache["k"].dtype)
     cache["v"][:, :, slots] = v[:, S - n:].transpose(1, 2).to(
         cache["v"].dtype)
-    return _mlp_half(cfg, p, x), cache
+    return _ffn_half(cfg, kind, p, x)[0], cache
 
 
 def _kind_paged(cfg, kind: str) -> bool:
     """True when this layer kind's KV can live in a shared page pool:
     full attention only (a sliding-window ring reuses physical slots
     for rolling positions, so it stays slot-resident)."""
-    return kind == ATTN and cfg.sliding_window == 0
+    return kind in ATTN_KINDS and _kind_window(cfg, kind) == 0
 
 
 def block_decode_paged(cfg, kind: str, p: PyTree, x: torch.Tensor,
@@ -291,9 +327,8 @@ def block_decode_paged(cfg, kind: str, p: PyTree, x: torch.Tensor,
     h = layers.apply_norm(cfg, p["norm1"], x)
     y, kp, vp = layers.attention_decode_paged(cfg, p["attn"], h, pos,
                                               pages["k"], pages["v"], tables)
-    x = x + y
-    h = layers.apply_norm(cfg, p["norm2"], x)
-    return x + layers.mlp_block(cfg, p["mlp"], h), cache, {"k": kp, "v": vp}
+    x = _ffn_half(cfg, kind, p, x + y)[0]
+    return x, cache, {"k": kp, "v": vp}
 
 
 def block_chunk(cfg, kind: str, p: PyTree, x: torch.Tensor, cache_l: PyTree,
@@ -312,8 +347,7 @@ def block_chunk(cfg, kind: str, p: PyTree, x: torch.Tensor, cache_l: PyTree,
     o = ops.flash_attention(q, kc[:, :, :off + cs].transpose(1, 2),
                             vc[:, :, :off + cs].transpose(1, 2), causal=True)
     x = x + layers.attn_out(cfg, p["attn"], o)
-    h = layers.apply_norm(cfg, p["norm2"], x)
-    return x + layers.mlp_block(cfg, p["mlp"], h), cache_l
+    return _ffn_half(cfg, kind, p, x)[0], cache_l
 
 
 def _head(cfg, params: PyTree, x: torch.Tensor) -> torch.Tensor:
@@ -335,10 +369,6 @@ class LM:
     ``device``."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
-        if cfg.family in _PENDING:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family.value!r} is not ported yet "
-                f"— {_PENDING[cfg.family]}")
         self.cfg = cfg
         self.device = device
         self.pattern, self.n_units, self.tail_kinds = self._groups(cfg)
@@ -442,8 +472,8 @@ class LM:
             out["logits"] = _head(cfg, params, state["x"])
             return out
         kind = self.layer_kind(int(name.split("_")[1]))
-        out["x"] = block_apply(cfg, kind, uparams, state["x"],
-                               state["positions"])
+        out["x"], _ = block_apply(cfg, kind, uparams, state["x"],
+                                  state["positions"])
         return out
 
     # ------------------------------------------------------------------ init
@@ -466,20 +496,35 @@ class LM:
     # --------------------------------------------------------------- forward
     def embed(self, params: PyTree, batch: Dict[str, torch.Tensor]
               ) -> torch.Tensor:
-        return layers.embed_lookup(self.cfg, params["embed"],
-                                   batch["tokens"])
+        """Token rows; the audio family's ``frames @ proj``; the VLM's
+        ``img @ mm_proj`` rows ahead of its token rows, none for a batch
+        without ``img`` (a decode step's: the reference passes a
+        zero-length image there, which adds no rows)."""
+        cfg = self.cfg
+        p = params["embed"]
+        cd = cfg.compute_dtype
+        if cfg.family == Family.AUDIO:
+            return quant.einsum(batch["frames"].to(cd), p["proj"], cd)
+        x = layers.embed_lookup(cfg, p, batch["tokens"])
+        if cfg.family == Family.VLM and batch.get("img") is not None:
+            img = quant.einsum(batch["img"].to(cd), p["mm_proj"], cd)
+            x = torch.cat([img, x], dim=1)
+        return x
 
     @torch.no_grad()
     def forward(self, params: PyTree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full forward.  Returns (logits (B, S, V), aux_loss)."""
+        """Full forward.  Returns (logits (B, S, V), aux_loss: the sum of
+        the MoE blocks' load-balance losses, else 0)."""
         cfg = self.cfg
         x = self.embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in self._layers(params["blocks"]):
-            x = block_apply(cfg, kind, p, x, positions)
-        return (_head(cfg, params, x),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+            x, a = block_apply(cfg, kind, p, x, positions)
+            if a is not None:
+                aux = aux + a
+        return _head(cfg, params, x), aux
 
     # ------------------------------------------------------- decode + cache
     def init_cache(self, batch: int, cache_len: int) -> PyTree:
@@ -524,22 +569,26 @@ class LM:
     # ----------------------------------------------------- paged KV decode
     @property
     def paged(self) -> bool:
-        """Whether the layers' KV can live in a page pool (dense family;
-        the recurrent families raise, their paging waits)."""
-        if self.cfg.family != Family.DENSE:
+        """Whether the layers' KV can live in a page pool: a uniform
+        stack of full-attention blocks (dense, MoE, audio, VLM) without a
+        window.  The recurrent families raise: their paging waits."""
+        if self.cfg.family in (Family.SSM, Family.HYBRID):
             raise NotImplementedError(
                 f"{self.cfg.name}: paged decode of the "
                 f"{self.cfg.family.value!r} family is not ported yet — "
                 f"{PAGING_PENDING}")
-        return _kind_paged(self.cfg, ATTN)
+        return _kind_paged(self.cfg, self.pattern[0])
 
     def paged_kinds(self) -> List[str]:
-        return [ATTN] if self.paged else []
+        return [self.pattern[0]] if self.paged else []
 
     @property
     def supports_prefix_cache(self) -> bool:
-        """Prefix reuse needs every layer's sequence state in pages."""
-        return not self.cfg.is_encoder and self.paged
+        """Prefix reuse needs every layer's sequence state in pages and a
+        token-only prompt identity (no image or audio side inputs)."""
+        return (not self.cfg.is_encoder
+                and self.cfg.family not in (Family.AUDIO, Family.VLM)
+                and self.paged)
 
     def kv_page_bytes(self, page_tokens: int) -> int:
         """Device bytes one page id costs across all paged layers (K and
@@ -650,9 +699,10 @@ class LM:
         cfg = self.cfg
         x = self.embed(params, {"tokens": tokens})
         blocks = params["blocks"]["s0"]
+        kind = self.pattern[0]
         for i in range(self.n_units):
             pages = None if pools["s0"] is None else _index(pools["s0"], i)
-            x, _, _ = block_decode_paged(cfg, ATTN, _index(blocks, i), x,
+            x, _, _ = block_decode_paged(cfg, kind, _index(blocks, i), x,
                                          pos, _index(cache["s0"], i), pages,
                                          tables)
         return _head(cfg, params, x), cache, pools

@@ -15,9 +15,7 @@ the per-layer indexing of the stacked blocks) acts on ``q`` and
 the store's leaf name.  ``.shape`` mirrors the logical leaf, so
 structural checks against the abstract tree still pass; ``.astype``
 dequantizes, bit-equal to the plain ``weight_transform``.
-
-``expert_einsum`` (MoE experts) comes with the MoE family (ROADMAP
-queue 1 item 11).
+:func:`expert_einsum` runs the MoE experts' per-expert contractions.
 """
 from __future__ import annotations
 
@@ -106,6 +104,31 @@ def einsum(x: torch.Tensor, w, cd: torch.dtype, *,
     else:
         y = x2 @ w.to(cd).reshape(K, N)
     return y.reshape(lead + ndims)
+
+
+def expert_einsum(x: torch.Tensor, w, cd: torch.dtype, *,
+                  shared_x: bool = False) -> torch.Tensor:
+    """Per-expert contraction of the reference's ``becd,edf->becf`` (and
+    its ``wd`` twin ``becf,efd->becd``): ``x`` (B, E, C, k) against ``w``
+    (E, k, n) gives (B, E, C, n) in ``cd``.  ``shared_x``: every expert
+    sees the same activations ``x`` (B, S, k) (the dense oracle's
+    ``bsd,edf->besf``).
+
+    One 2-D product per expert, in expert order, for a plain weight and a
+    :class:`QuantLeaf` alike; a ``QuantLeaf`` launches one
+    ``ops.quant_matmul`` per expert over ``w.q[e]``, with the scale (over
+    the last axis) shared by all experts."""
+    E, K, N = w.shape
+    outs = []
+    for e in range(E):
+        xe = x if shared_x else x[:, e]
+        x2 = xe.to(cd).reshape(-1, K)
+        if isinstance(w, QuantLeaf):
+            y = ops.quant_matmul(x2, w.q[e], w.scale, out_dtype=cd)
+        else:
+            y = x2 @ w[e].to(cd)
+        outs.append(y.reshape(xe.shape[:-1] + (N,)))
+    return torch.stack(outs, dim=1)
 
 
 def gather_rows(w, idx: torch.Tensor, cd: torch.dtype) -> torch.Tensor:

@@ -120,6 +120,20 @@ def unflatten_unit(abstract: PyTree, leaves: Dict[str, Any]) -> PyTree:
     return tree_util.unflatten(abstract, leaves)
 
 
+def quantize_int8(leaf: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-column int8 of a float leaf over its last axis, as the
+    reference's store computes it in numpy: f32 scales amax / 127 (1 for
+    an all-zero column), values rounded half to even and clipped to
+    +-127.  In torch's threaded CPU ops, bit-equal to numpy's and several
+    times faster on a multi-GB leaf."""
+    w = torch.from_numpy(np.require(leaf, requirements="W"))
+    w2 = w.reshape(-1, leaf.shape[-1]).float()
+    amax = w2.abs().amax(dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w2 / scale), -127, 127).to(torch.int8)
+    return q.numpy(), scale.numpy()
+
+
 # ---------------------------------------------------------------------------
 # the store
 # ---------------------------------------------------------------------------
@@ -164,12 +178,7 @@ class WeightStore:
                                        "dtype": str(leaf.dtype)}
                 if quant == "int8" and leaf.ndim >= 2 and \
                         np.issubdtype(leaf.dtype, np.floating):
-                    w2 = leaf.reshape(-1, leaf.shape[-1]).astype(np.float32)
-                    amax = np.abs(w2).max(axis=0)
-                    scale = np.where(amax > 0, amax / 127.0, 1.0
-                                     ).astype(np.float32)
-                    q = np.clip(np.round(w2 / scale), -127, 127
-                                ).astype(np.int8)
+                    q, scale = quantize_int8(leaf)
                     payload = q.tobytes() + scale.tobytes()
                     rec["quant"] = "int8"
                     rec["scale_nbytes"] = scale.nbytes

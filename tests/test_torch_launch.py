@@ -1,7 +1,8 @@
 """The port's serving launcher (``repro_torch.launch.serve``) on the CPU at
 smoke size, held against the JAX package's launcher on the same
 arguments: per strategy, the same cold/warm mix and pool counts, for
-the LMs and for a vision model served one-shot; and ``--autoscale``, whose
+the LMs, for the MoE, audio and VLM families and for a vision model
+served one-shot; and ``--autoscale``, whose
 background autoscaler prewarms instances during the replay."""
 import numpy as np
 import pytest
@@ -76,6 +77,29 @@ def test_launcher_serves_a_vision_model_oneshot(tmp_path, capsys):
         np.asarray(jserve.example_batch(jserve.get_config(
             "resnet50", smoke=True))["image"]))
     assert batch["image"].shape == (1, 3, 32, 32)
+
+
+def test_launcher_serves_the_moe_audio_and_vlm_families(tmp_path, capsys):
+    """``--models mixtral-8x7b hubert-xlarge internvl2-76b --smoke``, one-shot,
+    on the CPU: each model's example batch (tokens; bf16 frames; image rows
+    and tokens) is served through its pool, and the replay's cold/warm mix
+    and pool counts are the JAX launcher's."""
+    args = ARGS + ["--models", "mixtral-8x7b", "hubert-xlarge",
+                   "internvl2-76b", "--smoke", "--workload", "oneshot",
+                   "--keep-alive", "60"]
+    got = tserve.main(args + ["--store", str(tmp_path / "t"), "--device",
+                              "cpu"])["cicada"]
+    tout = capsys.readouterr().out
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_PALLAS", "ref")
+        want = jserve.main(args + ["--store", str(tmp_path / "j")])
+    jout = capsys.readouterr().out
+    assert [(r.model, r.cold) for r in got] == \
+        [(r.model, r.cold) for r in want]
+    assert {r.model for r in got} == {"mixtral-8x7b", "hubert-xlarge",
+                                      "internvl2-76b"}
+    assert 0 < sum(r.cold for r in got) < len(got)
+    assert _pools(tout) == _pools(jout)
 
 
 def test_launcher_refuses_unported_options_and_needs_a_device(tmp_path,

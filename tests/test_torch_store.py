@@ -127,3 +127,25 @@ def test_manifest_layout_is_aligned(tmp_path, jax_units):
         assert json.load(f) == man
     for rec in man["units"]["block_000"]["extents"]:
         assert rec["offset"] % tstore.ALIGN == 0
+
+
+def test_int8_quantization_bytes_equal_reference_on_ties(tmp_path):
+    """The port quantizes in torch (``store.quantize_int8``); a 3-D leaf
+    (an expert stack) with values exactly half-way between integers, an
+    all-zero column and a float64 leaf deploy to the JAX store's bytes."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((2, 3, 5)).astype(np.float32)
+    w[..., 0] = np.array([[127.0, 2.5, -3.5], [0.5, -1.5, 4.5]])
+    w[..., 1] = 0.0
+    units = {"u": {"experts": {"wg": w}, "b": w.astype(np.float64)[0]}}
+    jst = jstore.WeightStore(str(tmp_path / "j"))
+    tst = tstore.WeightStore(str(tmp_path / "t"))
+    jst.deploy("m", units, quant="int8")
+    tst.deploy("m", units, quant="int8")
+    with open(tmp_path / "j" / "m" / "u.bin", "rb") as f:
+        want = f.read()
+    with open(tmp_path / "t" / "m" / "u.bin", "rb") as f:
+        assert f.read() == want
+    q, scale = tstore.quantize_int8(w)
+    assert q.dtype == np.int8 and q.shape == (6, 5) and scale[1] == 1.0
+    np.testing.assert_array_equal(q[:, 0], [127, 2, -4, 0, -2, 4])
