@@ -59,7 +59,12 @@ plain PyTorch version on the card, the attention kernels also at head dims
 ``prefill_continue``-shaped ``flash_attention`` call bit-equal to the full
 prefill's last rows, decode rows bit-equal across the batch, the cache
 length and pages against slots, the scans' rows bit-equal across the batch
-and under trailing padding.  It checks that each path launched its kernels
+and under trailing padding, ``weight_transform`` bit-equal on every path of
+its plan (one row, 17 and 5003 at each column width it tells apart, a
+misaligned ``w`` and ``scale``, the cast, a leaf past 2^31 elements); for
+the recurrentgemma-2b and mixtral-8x7b loads that transform at A it prints
+the load's summed ``weight_transform`` device time beside its work_A.
+It checks that each path launched its kernels
 (counts set to 0 just before a path and read just after; exact counts per
 forward, prefill and decode step for the recurrent families), that the
 scheduler's tokens equal ``reference_generate``'s and the paged run's the
@@ -177,20 +182,24 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(dev, report: dict):
+# (n, m) of the dequant cases: one row, 17 rows and a ragged 5003, at the
+# main path's column widths, multiples of 16 (64, 960, 14336) and not (8,
+# 120, 504, 1000: mixtral's router, h2o-danube's dh, hubert, the vision
+# heads)
+WT_WIDTHS = (8, 64, 120, 504, 960, 1000, 14336)
+WT_ROWS = (1, 17, 5003)
+# a leaf of more than 2^31 elements at arctic-480b's expert width
+WT_HUGE = (450000, 4864)
+
+
+def check_weight_transform(dev, report: dict, g):
+    """``weight_transform`` bit-equal to plain on the path's leaf shapes
+    and on cases that reach every path of its plan, then timed at
+    smollm's tok leaf (the JSON line's shape) and the cast of the same
+    shape (``more``)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as dmod
-    from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import weight_transform as wmod
 
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    # --- weight_transform: exact ------------------------------------------
-    err = 0.0
     cases = []
     for n, m in [(14400, 64), (960, 960), (49152, 960), (17, 300)]:
         w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
@@ -198,23 +207,63 @@ def check_kernels(dev, report: dict):
         s = torch.rand(m, generator=g, device=dev) * 0.05
         for dt in (torch.bfloat16, torch.float32):
             cases.append((f"dequant ({n},{m})->{str(dt)[6:]}", w, s, dt))
-    buf = torch.randint(-127, 128, (17 * 300 + 1,), generator=g, device=dev,
-                        dtype=torch.int8)
-    cases.append(("dequant misaligned (17,300)->bfloat16",
-                  buf[1:].view(17, 300), torch.rand(300, device=dev),
-                  torch.bfloat16))
-    for n, m in [(49152, 960), (17, 300)]:
-        cases.append((f"cast ({n},{m}) f32->bf16", randn(n, m), None,
-                      torch.bfloat16))
+    for m in WT_WIDTHS:
+        s = torch.rand(m, generator=g, device=dev) * 0.05
+        for n in WT_ROWS:
+            w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
+                              dtype=torch.int8)
+            for dt in (torch.bfloat16, torch.float32):
+                cases.append((f"dequant ({n},{m})->{str(dt)[6:]}", w, s, dt))
+    buf = torch.randint(-127, 128, (5003 * 1000 + 8,), generator=g,
+                        device=dev, dtype=torch.int8)
+    sbuf = torch.rand(1001, generator=g, device=dev) * 0.05
+    cases += [("dequant misaligned w (17,300)->bfloat16",
+               buf[1:17 * 300 + 1].view(17, 300), sbuf[:300],
+               torch.bfloat16),
+              ("dequant w at 8 mod 16 (5003,960)->float32",
+               buf[8:5003 * 960 + 8].view(5003, 960), sbuf[:960],
+               torch.float32),
+              ("dequant scale at 4 mod 16 (5003,1000)->bfloat16",
+               buf[:5003 * 1000].view(5003, 1000), sbuf[1:], torch.bfloat16)]
+    fbuf = torch.randn(49152 * 960 + 1, generator=g, device=dev)
+    for n, m in ((49152, 960), (17, 300), (3, 7)):
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append((f"cast ({n},{m}) f32->{str(dt)[6:]}",
+                          fbuf[:n * m].view(n, m), None, dt))
+    cases.append(("cast misaligned (17,300) f32->bfloat16",
+                  fbuf[1:17 * 300 + 1].view(17, 300), None, torch.bfloat16))
+    err, paths = 0.0, {}
     for name, w, s, dt in cases:
+        # the path the wrapper takes (its output is a fresh, aligned tensor)
+        p = wmod.plan(*w.shape, dt, w.data_ptr(),
+                      None if s is None else s.data_ptr(), 0)
         got = wmod.weight_transform(w, s, out_dtype=dt)
         want = wmod.plain(w, s, out_dtype=dt)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         err = max(err, (got.float() - want.float()).abs().max().item())
-        print(f"  weight_transform {name}: "
-              f"{'exact' if same else 'MISMATCH'}")
+        kind = ("dequant " if s is not None else "cast ") + p.path
+        paths[kind] = paths.get(kind, 0) + 1
+        if not same:
+            print(f"  weight_transform {name} ({p}): MISMATCH")
         need(same, f"weight_transform {name} differs from its plain version")
+    del buf, fbuf, cases
+    print(f"  weight_transform: {sum(paths.values())} cases exact, by path "
+          f"{paths}")
+    # one leaf past 2^31 elements (64-bit offsets), and its plain version's
+    # f32 temporaries, freed before the next check
+    n, m = WT_HUGE
+    w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(m, generator=g, device=dev) * 0.05
+    got = wmod.weight_transform(w, s, out_dtype=torch.bfloat16)
+    same = torch.equal(got, wmod.plain(w, s, out_dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    print(f"  weight_transform dequant {WT_HUGE} ({n * m / 2 ** 31:.2f} x "
+          f"2^31 elements)->bfloat16: {'exact' if same else 'MISMATCH'}")
+    need(same, f"weight_transform {WT_HUGE} differs from its plain version")
+    del w, s, got
+    torch.cuda.empty_cache()
     # main-path timing shape: the largest leaf, tok (49152, 960) int8 -> f32
     n, m = 49152, 960
     w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
@@ -233,10 +282,71 @@ def check_kernels(dev, report: dict):
         library="(w.float() * s).to(dt)",
         bound_ms=b_ms, bound_by=b_by,
         shape="int8 (49152, 960) + f32 scale (960,) -> f32")
-    wf = randn(n, m)
-    print(f"  weight_transform cast (49152,960) f32->bf16: "
-          f"{device_ms(lambda: wmod.weight_transform(wf, None)):.4f} ms, "
-          f"bound {bound(n * m * 6, 0, torch.float32)[0]:.4f} ms")
+    wf = torch.randn(n, m, generator=g, device=dev)
+    extra_line("weight_transform", "cast f32 (49152,960) -> bf16",
+               lambda: wmod.weight_transform(wf, None),
+               lambda: wmod.plain(wf, None),
+               lambda: wf.to(torch.bfloat16),
+               bound(n * m * 6, 0, torch.float32), "w.to(torch.bfloat16)")
+
+
+def transform_share(store, name: str, out_dtype, work_a: float,
+                    launched: int):
+    """An estimate of the device time of a load's ``weight_transform``
+    launches, not a time taken inside the load: each extent shape the A
+    phase hands the kernel (as ``_apply_leaves`` shapes it: an int8 leaf as
+    (-1, last), a cast as (first, -1) or (1, n)) timed alone with
+    ``device_ms`` on random values, times its count; printed beside the
+    load's work_A (host clock, summed over A's threads)."""
+    import torch
+    from repro_torch.kernels import weight_transform as wmod
+    shapes = {}
+    for u in store.manifest(name)["units"].values():
+        for rec in u["extents"]:
+            shape = rec["shape"]
+            if rec.get("quant") == "int8":
+                key = ("int8", math.prod(shape[:-1]), shape[-1])
+            elif len(shape) >= 2:
+                key = ("f32", shape[0], math.prod(shape[1:]))
+            else:
+                key = ("f32", 1, math.prod(shape))
+            shapes[key] = shapes.get(key, 0) + 1
+    need(sum(shapes.values()) == launched,
+         f"{name}: {sum(shapes.values())} transformed extents, "
+         f"{launched} weight_transform launches")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    total = 0.0
+    for (kind, n, m), count in sorted(shapes.items()):
+        if kind == "int8":
+            w = torch.randint(-127, 128, (n, m), generator=g, device="cuda",
+                              dtype=torch.int8)
+            s = torch.rand(m, generator=g, device="cuda")
+        else:
+            w, s = torch.randn(n, m, generator=g, device="cuda"), None
+        total += count * device_ms(
+            lambda: wmod.weight_transform(w, s, out_dtype=out_dtype))
+        del w, s
+    torch.cuda.empty_cache()
+    print(f"  A share of {name}'s load (estimate: each extent shape timed "
+          f"alone by graph replay, times its count): weight_transform "
+          f"{launched} launches over {len(shapes)} extent shapes, "
+          f"{total:.4f} ms of device time in all, beside work_A "
+          f"{work_a * 1e3:.1f} ms (host clock)")
+    return total
+
+
+def check_kernels(dev, report: dict):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    check_weight_transform(dev, report, g)
 
     # --- flash_attention -----------------------------------------------------
     fl_err = 0.0
@@ -415,14 +525,22 @@ def check_flash_continue(randn):
         need(same, f"flash_attention rows depend on S at dh {dh}")
 
 
+# kernel name -> the shapes timed beside its JSON line's own (``more``)
+EXTRA = {}
+
+
 def extra_line(name: str, shape: str, kernel, plain, library_fn, bnd,
                library: str = "library"):
-    """Time a kernel at a second main-path shape and print it (the JSON
-    line carries one shape per kernel)."""
-    print(f"  {name} [{shape}]: kernel {device_ms(kernel):.4f} ms on the "
-          f"device ({call_ms(kernel):.4f} ms per eager call), plain "
-          f"{device_ms(plain):.4f} ms, {library} "
-          f"{device_ms(library_fn):.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})")
+    """Time a kernel at a second main-path shape, print it and keep it for
+    the kernel's ``more`` list in the JSON line."""
+    r = {"shape": shape, "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+         "plain_ms": device_ms(plain), "library_ms": device_ms(library_fn),
+         "library": library, "bound_ms": bnd[0], "bound_by": bnd[1]}
+    EXTRA.setdefault(name, []).append(r)
+    print(f"  {name} [{shape}]: kernel {r['ms']:.4f} ms on the device "
+          f"({r['call_ms']:.4f} ms per eager call), plain "
+          f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms, "
+          f"bound {bnd[0]:.6f} ms ({bnd[1]})")
 
 
 def rel_err(got, want) -> float:
@@ -1555,6 +1673,9 @@ def recurrent_family(dev, workdir: str, arch: str) -> dict:
             for k in set(per_fwd) | set(per_step)}
     need_counts(delta(before), want, f"{arch} scheduler")
     path = ops.registry.dispatch_snapshot()
+    if quant == "int8":
+        transform_share(store, arch, torch.bfloat16, summ["work_A"],
+                        in_load["weight_transform"])
     ms1, ms4 = step_ms([solo]), step_ms(results)
     print(f"  scheduler: one request alone 32 tokens in "
           f"{(t2 - t1) * 1e3:.1f} ms; four concurrent {(t3 - t2) * 1e3:.1f} "
@@ -2981,6 +3102,9 @@ def mixtral_family(dev, workdir: str) -> dict:
             "int8": mixtral_scheduler(model, pq, prompts, quant["first"],
                                       fwd_q, step_q, "int8-resident")}
     path = ops.registry.dispatch_snapshot()
+    transform_share(store, "mixtral-int8", torch.bfloat16,
+                    cast["res"].trace.summary()["work_A"],
+                    cast["load"]["weight_transform"])
     for label, params in (("bf16", pb), ("int8", pq)):
         for p, got in zip(prompts, runs[label]["tokens"]):
             ref = toks if label == "bf16" and len(p) == 128 else \
@@ -3475,7 +3599,8 @@ def main() -> int:
             "kernel_ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "library": r.get("library"), "shape": r["shape"]})
+            "library": r.get("library"), "shape": r["shape"],
+            "more": EXTRA.get(name, [])})
     need(cuda_lib.status()["built"], "kernel library not loaded")
     phase("done")
     print(card)

@@ -4,9 +4,11 @@ launch choices of this tree's plans, and the rows probe.
     python3 src/repro_torch/kernels/ab.py --turns parent=DIR change=.
 
 builds ``quant_matmul.cu``, ``flash_attention.cu``, ``decode_attention.cu``,
-``ssd_scan.cu`` and ``rglru_scan.cu`` (with the headers beside them) of
-each named tree into that tree's own ``build/``, then times the kernels at
-the main path's shapes (the decode kernels also at a 2048-row cache) in
+``ssd_scan.cu``, ``rglru_scan.cu`` and ``weight_transform.cu`` (with the
+headers beside them) of each named tree into that tree's own ``build/``,
+then times the kernels at the main path's shapes (the decode kernels also
+at a 2048-row cache, ``weight_transform`` at its large leaves and at four
+launch-bound small ones) in
 turns, each tree in a process of its own, in the order A, B, B, A, so that
 a drift of the card over the run shows up as a difference between the two
 runs of one tree.  The decode kernels and the scans are also timed as
@@ -26,7 +28,9 @@ h2o-danube-3-4b's and recurrentgemma-2b's heads), ``ssd_scan`` at each
 (chunk length L, dp columns a block) it is built for and ``rglru_scan`` at
 (slices, slice length T) pairs.  The plan's own choice is checked
 bit-equal to the wrapper, the others against the plain version within
-phase 3's tolerances.
+phase 3's tolerances; ``weight_transform``'s dequant at its large leaves
+over the grid (steps a thread), each launch bit-equal to the plain
+version.
 
     python3 src/repro_torch/kernels/ab.py --probe DIR
 
@@ -50,10 +54,11 @@ import time
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
                                     ".."))
 KEEP = ("quant_matmul.cu", "flash_attention.cu", "decode_attention.cu",
-        "ssd_scan.cu", "rglru_scan.cu")
+        "ssd_scan.cu", "rglru_scan.cu", "weight_transform.cu")
 ENTRIES = ("repro_quant_matmul", "repro_flash_attention",
            "repro_decode_attention", "repro_decode_attention_paged",
-           "repro_ssd_scan", "repro_rglru_scan")
+           "repro_ssd_scan", "repro_rglru_scan", "repro_wt_dequant",
+           "repro_wt_cast")
 
 # (name, M, K, N): the distinct smollm-360m projections at a 4-slot decode
 # step and a 128-token prefill, and the head at the decode step
@@ -85,6 +90,28 @@ DECODE_DIMS = [("decode dh128 pos159", 32, 4, 128, 256, (159,), 0),
 SSD = [("ssd bf16 (1,48,128,64) N128", 1, 48, 128, 64, 128)]
 # (name, B, S, W): recurrentgemma-2b's RG-LRU block at a 128-token prefill
 RGLRU = [("rglru f32 (1,128,2560)", 1, 128, 2560)]
+# (name, n, m, int8 or cast, output type): smollm-360m's tok leaf, vgg16's
+# fc1, a mixtral-8x7b expert leaf (8 experts x 4096 rows), the f32 cast of
+# the tok leaf; then launch-bound small leaves: smollm's (960, 960) and wq
+# (14400, 64), mixtral's router (4096, 8), a vision head (4096, 1000)
+WT = [("wt int8 (49152,960) f32", 49152, 960, True, "float32"),
+      ("wt int8 (25088,4096) f32", 25088, 4096, True, "float32"),
+      ("wt int8 (32768,14336) bf16", 32768, 14336, True, "bfloat16"),
+      ("wt cast (49152,960) bf16", 49152, 960, False, "bfloat16")]
+WT_SMALL = [("wt int8 (960,960) bf16", 960, 960, True, "bfloat16"),
+            ("wt int8 (14400,64) bf16", 14400, 64, True, "bfloat16"),
+            ("wt int8 (4096,8) bf16", 4096, 8, True, "bfloat16"),
+            ("wt int8 (4096,1000) f32", 4096, 1000, True, "float32")]
+
+
+def wt_inputs(dev, g, n, m, quantized):
+    """(w, scale) of one WT shape: int8 with f32 scales, or f32 and None."""
+    import torch
+    if quantized:
+        return (torch.randint(-127, 128, (n, m), generator=g, device=dev,
+                              dtype=torch.int8),
+                torch.rand(m, generator=g, device=dev) * 0.05)
+    return torch.randn(n, m, generator=g, device=dev), None
 
 
 def scan_inputs(dev, g, kind, *shape):
@@ -125,7 +152,7 @@ def decode_inputs(chip_smoke, dev, g, H, K, dh, S_max, pos, pt):
 def use_tree(tree: str):
     """Import ``tree``'s port, its build restricted to the kept kernels;
     returns (cuda_lib, flash_attention, quant_matmul, decode_attention,
-    ssd_scan, rglru_scan, chip_smoke)."""
+    ssd_scan, rglru_scan, weight_transform, chip_smoke)."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
@@ -135,6 +162,7 @@ def use_tree(tree: str):
     from repro_torch.kernels import quant_matmul as qmod
     from repro_torch.kernels import rglru_scan as rmod
     from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.kernels import weight_transform as wmod
     assert os.path.abspath(cuda_lib.__file__).startswith(
         os.path.abspath(tree)), cuda_lib.__file__
     cuda_lib._sources = lambda: sorted(
@@ -143,13 +171,13 @@ def use_tree(tree: str):
                            if k in ENTRIES}
     sys.path.append(ROOT)
     import chip_smoke                 # after the tree's repro_torch
-    return cuda_lib, fmod, qmod, dmod, smod, rmod, chip_smoke
+    return cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke
 
 
 def one_tree(tree: str) -> dict:
     """Build and time one tree's kernels (in this process)."""
     import torch
-    cuda_lib, fmod, qmod, dmod, smod, rmod, chip_smoke = use_tree(tree)
+    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke = use_tree(tree)
     t0 = time.perf_counter()
     cuda_lib.library()
     build_s = time.perf_counter() - t0
@@ -182,6 +210,12 @@ def one_tree(tree: str) -> dict:
         out[name] = chip_smoke.device_ms(lambda: rmod.rglru_scan(*args))
         out[name + " eager"] = chip_smoke.call_ms(
             lambda: rmod.rglru_scan(*args))
+    for name, n, m, quantized, dt in WT + WT_SMALL:
+        w, s = wt_inputs(dev, g, n, m, quantized)
+        dt = getattr(torch, dt)
+        out[name] = chip_smoke.device_ms(
+            lambda: wmod.weight_transform(w, s, out_dtype=dt))
+        del w, s
     return {"build_s": build_s, "ms": out}
 
 
@@ -189,10 +223,12 @@ def sweep() -> None:
     """The launch choices of this tree's plans, timed at the path shapes
     (the results of each choice are checked bit-equal to the wrapper's)."""
     import torch
-    cuda_lib, fmod, qmod, dmod, smod, rmod, chip_smoke = use_tree(ROOT)
+    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke = \
+        use_tree(ROOT)
     lib = cuda_lib.library()
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
+    sweep_transform(wmod, chip_smoke, lib, dev, g)
     sweep_scans(cuda_lib, smod, rmod, chip_smoke, lib, dev, g)
     sweep_decode(cuda_lib, dmod, chip_smoke, lib, dev, g)
     for name, B, S, H, K, dh in FLASH[:3]:
@@ -244,6 +280,46 @@ def sweep() -> None:
                        f"{chip_smoke.device_ms(call):.5f} ms")
         print(f"{name} ({p.n_slices} slices of {p.slice_k}): "
               + ", ".join(row), flush=True)
+
+
+def sweep_transform(wmod, chip_smoke, lib, dev, g) -> None:
+    """weight_transform at its large leaves: the dequant's grid at the
+    plan's columns a thread, from one pass to 256 steps a thread (about an
+    SM-sized grid that loops; the cast: the plan's one tile a block); each
+    launch bit-equal to plain.  Prints each variant's device ms and its
+    share of the byte bound, the plan's own choice starred."""
+    import torch
+    for name, n, m, quantized, dt in WT:
+        w, s = wt_inputs(dev, g, n, m, quantized)
+        dt = getattr(torch, dt)
+        want = wmod.plain(w, s, out_dtype=dt)
+        nbytes = w.numel() * (w.element_size() + want.element_size()) + \
+            (0 if s is None else s.numel() * 4)
+        bound_ms = nbytes / chip_smoke.HBM_BPS * 1e3
+        ptrs = (w.data_ptr(), None if s is None else s.data_ptr(),
+                want.data_ptr())
+        best = wmod.plan(n, m, dt, *ptrs)
+        plans = [best]
+        for steps in ((1, 2, 4, 8, 16, 64, 256) if quantized else ()):
+            p = best._replace(grid=wmod.walk_grid(n, m // best.vec, steps))
+            if p not in plans:
+                plans.append(p)
+        row = []
+        o = torch.empty_like(want)
+        for p in plans:
+            def call():
+                wmod.cuda_lib.check(wmod.launch(p, w, s, o, lib), name)
+            o.zero_()
+            call()
+            torch.cuda.synchronize()
+            assert torch.equal(o, want), (name, p)
+            ms = chip_smoke.device_ms(call)
+            row.append(f"{p.path} {p.grid} blocks{'*' if p == best else ''}"
+                       f" {ms:.5f} ms {bound_ms / ms:.1%}")
+        print(f"{name} [bound {bound_ms:.5f} ms]: " + ", ".join(row),
+              flush=True)
+        del w, s, want, o
+        torch.cuda.empty_cache()
 
 
 def sweep_scans(cuda_lib, smod, rmod, chip_smoke, lib, dev, g) -> None:

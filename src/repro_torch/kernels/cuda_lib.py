@@ -41,8 +41,8 @@ F = ctypes.c_float
 
 # C signatures of the entry points (argtypes, restype int)
 SIGNATURES = {
-    "repro_wt_dequant": [P, P, P, LL, I, I, P],
-    "repro_wt_cast": [P, P, LL, I, P],
+    "repro_wt_dequant": [P, P, P, LL, I, I, I, I, I, P],
+    "repro_wt_cast": [P, P, LL, I, I, I, I, P],
     "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I,
                               LL, LL, LL, LL, LL, LL, LL, LL, LL,
                               I, I, F, I, I, P],
