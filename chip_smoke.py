@@ -16,7 +16,13 @@ and at the full width of the two recurrent families, mamba2-780m (48 SSD
 layers, f32 store cast to bf16 at A) and recurrentgemma-2b (8 x (rglru,
 rglru, attn) + 2 rglru, int8 store dequantized to bf16 at A): a cicada
 cold start, greedy generation, and four concurrent requests through the
-slotted scheduler.  Last, the serverless platform serves both smollm-360m
+slotted scheduler and through the paged one (recurrentgemma's 8 attn
+layers in 16-token pages, the recurrent states slot-resident; mamba2 pages
+nothing); then each family int8-resident (``compute_quant``, mamba2 from
+an int8 store of the same seed-0 weights): the cold start held to phase
+6's rule against an f32 oracle, and the slotted and paged schedulers on
+its params, with exact ``quant_matmul`` and ``weight_transform``
+launches.  Last, the serverless platform serves both smollm-360m
 and recurrentgemma-2b from their int8 stores with a shared WeightCache:
 a 16-invocation Azure-like trace replayed serially (its keep-alive
 re-triggers cold starts, which read nothing from the store) and at
@@ -190,6 +196,11 @@ WT_WIDTHS = (8, 64, 120, 504, 960, 1000, 14336)
 WT_ROWS = (1, 17, 5003)
 # a leaf of more than 2^31 elements at arctic-480b's expert width
 WT_HUGE = (450000, 4864)
+# the leaves dequantized whole at each use on the int8-resident recurrent
+# paths
+WT_AT_USE = (((1536, 6448), "mamba2 in_proj"),
+             ((3072, 1536), "mamba2 out_proj"),
+             ((256000, 2560), "recurrentgemma tied head"))
 
 
 def check_weight_transform(dev, report: dict, g):
@@ -288,6 +299,31 @@ def check_weight_transform(dev, report: dict, g):
                lambda: wmod.plain(wf, None),
                lambda: wf.to(torch.bfloat16),
                bound(n * m * 6, 0, torch.float32), "w.to(torch.bfloat16)")
+    del w, s, wf
+    # the int8-resident recurrent paths' dequant at each use, to bf16:
+    # mamba2's in_proj and out_proj, and recurrentgemma's tied head
+    for (n, m), what in WT_AT_USE:
+        w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand(m, generator=g, device=dev) * 0.05
+        got = wmod.weight_transform(w, s, out_dtype=torch.bfloat16)
+        want = wmod.plain(w, s, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"  weight_transform dequant ({n},{m})->bfloat16 ({what}): "
+              f"{'exact' if same else 'MISMATCH'}")
+        need(same, f"weight_transform ({n},{m}) differs from its plain "
+             f"version")
+        del got, want
+        extra_line("weight_transform", f"int8 ({n},{m}) -> bf16, {what}",
+                   lambda: wmod.weight_transform(w, s,
+                                                 out_dtype=torch.bfloat16),
+                   lambda: wmod.plain(w, s, out_dtype=torch.bfloat16),
+                   lambda: (w.float() * s).to(torch.bfloat16),
+                   bound(n * m * 3 + m * 4, n * m, torch.float32),
+                   "(w.float() * s).to(dt)")
+        del w, s
+    torch.cuda.empty_cache()
 
 
 def transform_share(store, name: str, out_dtype, work_a: float,
@@ -549,6 +585,12 @@ def rel_err(got, want) -> float:
     return d / max(want.float().abs().max().item(), 1e-30)
 
 
+# recurrentgemma-2b's int8-resident products: wx, wgate, wy, wq and wo
+# (2560, 2560), wk and wv (2560, 256), the GeGLU MLP's wg and wu (2560,
+# 7680) and wd (7680, 2560)
+RG_PRODUCTS = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560))
+
+
 def check_quant_matmul(dev, report: dict, randn, g):
     import torch
     from repro_torch.kernels import quant_matmul as qmod
@@ -560,7 +602,8 @@ def check_quant_matmul(dev, report: dict, randn, g):
 
     err = 0.0                               # max abs error
     cases = [(4, 960, 49152), (128, 960, 2560), (1, 960, 960),
-             (4, 2560, 960), (100, 70, 33), (17, 300, 5), (5, 64, 8192)]
+             (4, 2560, 960), (100, 70, 33), (17, 300, 5), (5, 64, 8192)] + [
+        (4, k, n) for k, n in RG_PRODUCTS]
     for (m, k, n) in cases:
         w, s = qweight(k, n)
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
@@ -591,7 +634,7 @@ def check_quant_matmul(dev, report: dict, randn, g):
     # row independence: each row of an M-row product equals the M=1
     # product of that row, bit for bit (the scheduler steps at B = n_slots)
     for (k, n) in ((960, 49152), (960, 320), (2560, 960), (4096, 14336),
-                   (14336, 4096)):
+                   (14336, 4096), *RG_PRODUCTS):
         w, s = qweight(k, n)
         x = randn(64, k, dtype=torch.bfloat16)
         rows = torch.cat([qmod.quant_matmul(x[i:i + 1], w, s)
@@ -626,7 +669,8 @@ def check_quant_matmul(dev, report: dict, randn, g):
     for (m, k, n) in [(mm, kk, nn) for mm in (4, 128)
                       for (kk, nn) in ((960, 960), (960, 320), (960, 2560),
                                        (2560, 960))] + [
-            (4, 4096, 14336), (4, 14336, 4096)]:
+            (4, 4096, 14336), (4, 14336, 4096)] + [
+            (4, k, n) for k, n in RG_PRODUCTS]:
         w, s = qweight(k, n)
         x = randn(m, k, dtype=torch.bfloat16)
         wd = (w.float() * s).to(torch.bfloat16)
@@ -697,6 +741,23 @@ def check_paged(dev, report: dict, randn, g):
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 q (4,15,64), pools (65,5,16,64) shuffled, tables "
               "(4,16), pos 37/80/123/159")
+    # recurrentgemma's paged step: 10 query heads of dh 256 over 1 kv head
+    H, K, dh = 10, 1, 256
+    q, kp, vp, tb, p = make(pos, torch.bfloat16, 2)
+    idx = tb.long()
+    kg = kp[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)
+    vg = vp[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)
+    q4 = q[:, :, None]
+    extra_line("decode_attention_paged", "bf16 q (4,10,256), pools "
+               "(65,1,16,256) shuffled, tables (4,16), pos 37/80/123/159",
+               lambda: dmod.decode_attention_paged(q, kp, vp, tb, p),
+               lambda: dmod.plain_paged(q, kp, vp, tb, p),
+               lambda: F.scaled_dot_product_attention(
+                   q4, kg, vg, attn_mask=valid, enable_gqa=True),
+               bound(2 * B * H * dh * 2 + 2 * rows * K * dh * 2
+                     + B * NP * 4 + B * 4, 4 * H * dh * rows,
+                     torch.bfloat16),
+               "SDPA over the gathered rows")
 
 
 def page_tables(pos, pt: int, np_: int, seed: int, dev):
@@ -1279,6 +1340,41 @@ def param_bytes(params) -> int:
 # phase 6: the int8-resident cold start
 # ---------------------------------------------------------------------------
 
+def hold_to_oracle(label: str, logits, deq, oracle, first: int):
+    """An int8-resident load's logits against the f32 oracle of its int8
+    store, beside the dequant-at-A load's.  bf16 compute drifts from f32
+    with depth (the residual stream is rounded after every block; the JAX
+    package drifts alike, see tests/test_torch_quant.py), so the two loads
+    are not held to each other: the dequant-at-A load's error is the noise
+    floor of this depth, and the int8-resident load, whose weights are not
+    rounded to bf16, may exceed it by a tenth at most.  Its greedy first
+    token is the oracle's, or the oracle's top two are within the bf16
+    noise."""
+    import torch
+    scale = oracle.abs().max().item()
+    e_deq = (deq - oracle).abs().max().item() / scale
+    e_q = (logits - oracle).abs().max().item() / scale
+    d = (logits - deq).abs().max().item()
+    top = torch.topk(oracle[0, -1], 2)
+    margin = (top.values[0] - top.values[1]).item()
+    n = oracle.shape[1]
+    agree = {k: int((v.argmax(-1) == oracle.argmax(-1)).sum())
+             for k, v in ((label, logits), ("dequant-at-A", deq))}
+    print(f"  logits against the f32 oracle (max |logit| {scale:.3f}): "
+          f"{label} {e_q:.3e}, dequant-at-A {e_deq:.3e} relative (limit "
+          f"1.1 x {e_deq:.3e}); {label} vs dequant-at-A max abs diff "
+          f"{d:.3e}; argmax equal to the oracle's at {agree} of {n} "
+          f"positions; first token {first}, oracle {int(top.indices[0])} "
+          f"(top-two margin {margin:.3e})")
+    need(e_q <= 1.1 * e_deq,
+         f"{label} logits {e_q:.3e} from the f32 oracle, beyond 1.1 x the "
+         f"dequant-at-A load's {e_deq:.3e}")
+    need(first == int(top.indices[0]) or margin <= 2 * e_deq * scale,
+         f"{label} first token {first} is not the oracle's "
+         f"{int(top.indices[0])}, whose margin {margin:.3e} is beyond the "
+         f"bf16 noise")
+
+
 def quant_cold_start(dev, cs: dict):
     import torch
     from repro_torch.core import ColdStartEngine
@@ -1312,23 +1408,6 @@ def quant_cold_start(dev, cs: dict):
     need(launched["weight_transform"] == 0,
          f"int8-resident load launched weight_transform "
          f"{launched['weight_transform']} times")
-    # both bf16 loads of the int8 store against its f32 oracle.  bf16
-    # compute drifts from f32 with depth (the residual stream is rounded
-    # after every block; the JAX package drifts alike, see
-    # tests/test_torch_quant.py), so the two loads are not held to each
-    # other: the dequant-at-A load's error is the noise floor of this depth,
-    # and the int8-resident load, whose weights are not rounded to bf16,
-    # may exceed it by a tenth at most
-    deq, oracle = cs["dequant"].logits.float(), cs["oracle"]
-    scale = oracle.abs().max().item()
-    e_deq = (deq - oracle).abs().max().item() / scale
-    e_q = (logits.float() - oracle).abs().max().item() / scale
-    d = (logits.float() - deq).abs().max().item()
-    top = torch.topk(oracle[0, -1], 2)
-    margin = (top.values[0] - top.values[1]).item()
-    agree = {k: int((v.argmax(-1) == oracle.argmax(-1)).sum())
-             for k, v in (("int8-resident", logits.float()),
-                          ("dequant-at-A", deq))}
     cast = cs["cast"]
     summ, csumm = tr.summary(), cast.trace.summary()
     qb, cb = param_bytes(res.params), param_bytes(cast.params)
@@ -1343,20 +1422,9 @@ def quant_cold_start(dev, cs: dict):
         for k in ("work_L", "work_R", "work_A", "work_E")))
     print(f"  resident params {qb / 1e6:.1f} MB against {cb / 1e6:.1f} MB "
           f"for the bf16-cast load ({qb / cb:.3f}x)")
-    print(f"  logits against the f32 oracle (max |logit| {scale:.3f}): "
-          f"int8-resident {e_q:.3e}, dequant-at-A {e_deq:.3e} relative "
-          f"(limit 1.1 x {e_deq:.3e}); int8-resident vs dequant-at-A max "
-          f"abs diff {d:.3e}; argmax equal to the oracle's at {agree} of "
-          f"128 positions; first token {first[0][0]}, oracle "
-          f"{int(top.indices[0])} (top-two margin {margin:.3e})")
     print(tr.render_gantt(100))
-    need(e_q <= 1.1 * e_deq,
-         f"int8-resident logits {e_q:.3e} from the f32 oracle, beyond 1.1 x "
-         f"the dequant-at-A load's {e_deq:.3e}")
-    need(first[0][0] == int(top.indices[0]) or margin <= 2 * e_deq * scale,
-         f"int8-resident first token {first[0][0]} is not the oracle's "
-         f"{int(top.indices[0])}, whose margin {margin:.3e} is beyond the "
-         f"bf16 noise")
+    hold_to_oracle("int8-resident", logits.float(),
+                   cs["dequant"].logits.float(), cs["oracle"], first[0][0])
     return res.params, first[0]
 
 
@@ -1469,14 +1537,9 @@ def scheduler_slotted(cs: dict, params_q, first):
     need(solo.tokens == results[0].tokens,
          f"prompt 37's tokens changed between occupancy 1 and 4 (first "
          f"difference at {first_diff(solo.tokens, results[0].tokens)})")
-    for p, r in zip(prompts, results):
-        ref = reference_generate(model, params_q, p, n_new=32)
-        same = r.tokens == ref
-        print(f"  prompt {len(p)}: {'equal to' if same else 'DIFFERS from'}"
-              f" reference_generate: {r.tokens}")
-        need(len(r.tokens) == 32 and same,
-             f"slotted prompt {len(p)} differs from reference_generate at "
-             f"token {first_diff(ref, r.tokens)}")
+    check_tokens("slotted", prompts, [r.tokens for r in results],
+                 [reference_generate(model, params_q, p, n_new=32)
+                  for p in prompts])
     need(results[3].tokens[0] == first[0],
          "the resumed request did not keep its in-pipeline first token")
     return {"launches": launches, "tokens": [r.tokens for r in results],
@@ -1520,15 +1583,65 @@ def scheduler_paged(cs: dict, params_q, first, slotted: dict):
          f"{launches['decode_attention_paged']} times in {st['steps']} "
          f"steps")
     sched.kvpool.check_invariants()
-    for p, r, want in zip(prompts, results, slotted["tokens"]):
-        same = r.tokens == want
-        print(f"  prompt {len(p)}: paged tokens "
-              f"{'equal' if same else 'DIFFER from'} the slotted run's")
-        need(len(r.tokens) == 32 and same,
-             f"paged prompt {len(p)} differs from the slotted run at token "
-             f"{first_diff(want, r.tokens)}")
+    check_tokens("paged", prompts, [r.tokens for r in results],
+                 slotted["tokens"], "the slotted run's")
     return {"launches": launches, "ms": (step_ms([lead]), step_ms(rest)),
             "steps": st["steps"]}
+
+
+def run_scheduler(model, params, prompts, first, per_fwd, per_step,
+                  label: str, pages=None) -> dict:
+    """Four requests through the scheduler, slotted or with ``pages``-token
+    pages (prompt 37 alone first, then all four together, the 128-token
+    one resuming from the load's in-pipeline first token), with exact
+    launch counts; a paged run leaves no page pinned and its pool's
+    invariants hold.  Returns the tokens, the launches and the ms per
+    step."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeScheduler, GenerateSpec
+    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts]
+    sched = DecodeScheduler(model, params, n_slots=4, cache_len=256,
+                            kv_page_tokens=pages)
+    need(set(sched.kernel_modes().values()) == {"cuda"},
+         f"scheduler kernel modes {sched.kernel_modes()}")
+    before = ops.registry.dispatch_snapshot()
+    t1 = time.perf_counter()
+    solo = sched.generate(specs[0])
+    t2 = time.perf_counter()
+    results = run_concurrent(sched, specs, {3: first})
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    st = sched.stats()
+    got = delta(before)
+    want = {k: 5 * per_fwd.get(k, 0) + st["steps"] * per_step.get(k, 0)
+            for k in set(per_fwd) | set(per_step)}
+    need_counts(got, want, f"{label} scheduler")
+    ms1, ms4 = step_ms([solo]), step_ms(results)
+    kv = "" if pages is None else (
+        f"; {pages}-token pages of {model.kv_page_bytes(pages)} B, "
+        f"{st['kv_pages_used']} of {st['kv_pages_total']} used, "
+        f"{st['kv_pages_pinned']} pinned, prefix hits "
+        f"{st['kv_prefix_hits']}")
+    print(f"  scheduler, {label}: one request alone 32 tokens in "
+          f"{(t2 - t1) * 1e3:.1f} ms; four concurrent {(t3 - t2) * 1e3:.1f} "
+          f"ms; {st['steps']} steps, max occupancy {st['max_occupancy']}; "
+          f"ms per step by occupancy (host clock, median): alone {ms1}, "
+          f"concurrent {ms4}; launches {nonzero(got)}{kv}")
+    need(st["max_occupancy"] == 4 and st["active"] == 0,
+         f"{label} scheduler stats {st}")
+    if pages is not None:
+        need(st["kv_pages_pinned"] == 0,
+             f"{label} scheduler left pages pinned: {st}")
+        sched.kvpool.check_invariants()
+    need(results[3].tokens[0] == first[0],
+         f"{label}: the resumed request did not keep its first token")
+    need(solo.tokens == results[0].tokens,
+         f"{label}: prompt 37's tokens changed between occupancy 1 and 4 "
+         f"(first difference at "
+         f"{first_diff(solo.tokens, results[0].tokens)})")
+    return {"tokens": [r.tokens for r in results], "ms": (ms1, ms4),
+            "launches": got}
 
 
 # ---------------------------------------------------------------------------
@@ -1540,18 +1653,37 @@ def scheduler_paged(cs: dict, params_q, first, slotted: dict):
 RECURRENT = {"mamba2-780m": None, "recurrentgemma-2b": "int8"}
 
 
-def kernel_counts(cfg) -> tuple:
+def kernel_counts(cfg, *, quant: bool = False, paged: bool = False) -> tuple:
     """Launches of the recurrent families' kernels per forward or prefill,
-    and per decode step, from the layer kinds."""
+    and per decode step, from the layer kinds.  A paged step runs
+    ``decode_attention_paged`` where a slotted one runs
+    ``decode_attention`` (and then none of the latter).  Int8-resident
+    params (``quant``) add a ``quant_matmul`` for every weight product, 6
+    an rglru layer (wx, wgate, wy and the GeGLU MLP's wg, wu, wd) and 7
+    an attention layer (wq, wk, wv, wo and the MLP), and a
+    ``weight_transform`` for every dequant at use: 2 an ssd layer
+    (in_proj, out_proj) and 1 for the tied head.  The keys a path must
+    not launch are kept at 0."""
     kinds = cfg.layer_kinds()
+    n = {k: kinds.count(k) for k in ("ssd", "rglru", "attn")}
     norms = 2 * len(kinds) + 1         # two a layer, and the final norm
-    per_forward = {"ssd_scan": kinds.count("ssd"),
-                   "rglru_scan": kinds.count("rglru"),
-                   "flash_attention": kinds.count("attn"),
-                   "rmsnorm": norms}
-    per_step = {"decode_attention": kinds.count("attn"), "rmsnorm": norms}
-    return ({k: v for k, v in per_forward.items() if v},
-            {k: v for k, v in per_step.items() if v})
+    per_forward = {"ssd_scan": n["ssd"], "rglru_scan": n["rglru"],
+                   "flash_attention": n["attn"], "rmsnorm": norms}
+    per_step = {"decode_attention_paged" if paged else "decode_attention":
+                n["attn"], "rmsnorm": norms}
+    keep = set()
+    if paged:
+        per_step["decode_attention"] = 0
+        keep.add("decode_attention")
+    if quant:
+        products = {"quant_matmul": 6 * n["rglru"] + 7 * n["attn"],
+                    "weight_transform": 2 * n["ssd"] + int(
+                        cfg.tie_embeddings)}
+        per_forward.update(products)
+        per_step.update(products)
+        keep |= set(products)
+    return tuple({k: v for k, v in d.items() if v or k in keep}
+                 for d in (per_forward, per_step))
 
 
 def need_counts(got: dict, want: dict, what: str):
@@ -1569,35 +1701,47 @@ def recurrent_family(dev, workdir: str, arch: str) -> dict:
     """Full-width cicada cold start of ``arch`` (first token inside the
     final E), warm forward against the in-pipeline logits, greedy
     generation, then four concurrent requests through the slotted
-    scheduler.  Returns the path's launch counts (zeroed at the start,
-    read at the end; the token checks against ``reference_generate`` run
-    after) and its numbers."""
+    scheduler and the rows probe; then the same four through the paged
+    scheduler (16-token pages), and the int8-resident load and its
+    schedulers (:func:`recurrent_int8`).  Returns each path's launch
+    counts (zeroed at the start of the path, read at its end; the token
+    checks against ``reference_generate`` run after) and the kernels it
+    must have launched."""
     import numpy as np
     import torch
     from repro_torch.core import ColdStartEngine
-    from repro_torch.kernels import ab, ops
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer
     from repro_torch.models.api import get_config
-    from repro_torch.serving import (DecodeScheduler, GenerateSpec,
-                                     reference_generate)
+    from repro_torch.serving import GenerateSpec, reference_generate
     from repro_torch.serving.decode import sample_first
     from repro_torch.store.store import (BandwidthModel, WeightStore,
                                          deploy_model)
 
     cfg = get_config(arch)
     quant = RECURRENT[arch]
+    int8_name = arch if quant == "int8" else f"{arch}-int8"
     per_fwd, per_step = kernel_counts(cfg)
     model = transformer.build(cfg)
     t0 = time.perf_counter()
     store = WeightStore(os.path.join(workdir, arch),
                         BandwidthModel(bandwidth_mbps=2000))
-    deploy_model(store, transformer.build(cfg, device="cpu"), arch,
-                 quant=quant)
+    cpu_model = transformer.build(cfg, device="cpu")
+    units = {name: cpu_model.init_unit(name, torch.Generator().manual_seed(
+        transformer.unit_seed(0, i)))
+        for i, name in enumerate(cpu_model.unit_names())}
+    deploy_model(store, cpu_model, arch, quant=quant, params_by_unit=units)
+    if int8_name != arch:          # the int8-resident load's store
+        deploy_model(store, cpu_model, int8_name, quant="int8",
+                     params_by_unit=units)
+    del units
     print(f"  deployed {arch} ({cfg.param_count() / 1e6:.1f} M params, "
           f"layers {''.join(k[0] for k in cfg.layer_kinds())}) "
-          f"{quant or 'f32'} {store.model_nbytes(arch) / 1e9:.3f} GB in "
-          f"{time.perf_counter() - t0:.1f} s (set-up); kernels per forward "
-          f"{per_fwd}, per decode step {per_step}")
+          f"{quant or 'f32'} {store.model_nbytes(arch) / 1e9:.3f} GB"
+          + ("" if int8_name == arch else
+             f" and int8 {store.model_nbytes(int8_name) / 1e9:.3f} GB")
+          + f" from seed 0 in {time.perf_counter() - t0:.1f} s (set-up); "
+          f"kernels per forward {per_fwd}, per decode step {per_step}")
 
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 128))
     batch = {"tokens": torch.as_tensor(prompt)}
@@ -1657,63 +1801,139 @@ def recurrent_family(dev, workdir: str, arch: str) -> dict:
           f"{toks}")
 
     prompts = [prompt[0][:n] for n in (37, 64, 100, 128)]
-    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts]
-    sched = DecodeScheduler(model, params, n_slots=4, cache_len=256)
-    need(set(sched.kernel_modes().values()) == {"cuda"},
-         f"scheduler kernel modes {sched.kernel_modes()}")
-    before = ops.registry.dispatch_snapshot()
-    t1 = time.perf_counter()
-    solo = sched.generate(specs[0])
-    t2 = time.perf_counter()
-    results = run_concurrent(sched, specs, {3: first[0]})
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    st = sched.stats()
-    want = {k: 5 * per_fwd.get(k, 0) + st["steps"] * per_step.get(k, 0)
-            for k in set(per_fwd) | set(per_step)}
-    need_counts(delta(before), want, f"{arch} scheduler")
+    slotted = run_scheduler(model, params, prompts, first[0], per_fwd,
+                            per_step, f"{arch} slotted")
     path = ops.registry.dispatch_snapshot()
     if quant == "int8":
         transform_share(store, arch, torch.bfloat16, summ["work_A"],
                         in_load["weight_transform"])
-    ms1, ms4 = step_ms([solo]), step_ms(results)
-    print(f"  scheduler: one request alone 32 tokens in "
-          f"{(t2 - t1) * 1e3:.1f} ms; four concurrent {(t3 - t2) * 1e3:.1f} "
-          f"ms; {st['steps']} steps, max occupancy {st['max_occupancy']}; "
-          f"ms per step by occupancy (host clock, median): alone {ms1}, "
-          f"concurrent {ms4}")
     print(f"  kernel launches on the path: {path}")
-    need(st["max_occupancy"] == 4 and st["active"] == 0,
-         f"{arch} scheduler stats {st}")
-    need(results[3].tokens[0] == first[0][0],
-         f"{arch}: the resumed request did not keep its first token")
-    need(solo.tokens == results[0].tokens,
-         f"{arch}: prompt 37's tokens changed between occupancy 1 and 4 "
-         f"(first difference at {first_diff(solo.tokens, results[0].tokens)})")
-    for p, r in zip(prompts, results):
-        ref = toks if len(p) == 128 else reference_generate(
-            model, params, p, n_new=32)
-        same = r.tokens == ref
-        print(f"  prompt {len(p)}: {'equal to' if same else 'DIFFERS from'}"
-              f" reference_generate: {r.tokens}")
-        need(len(r.tokens) == 32 and same,
-             f"{arch} prompt {len(p)} differs from reference_generate at "
-             f"token {first_diff(ref, r.tokens)}")
-    # every op of one decode step, its row at B = 4 against B = 1 (the
-    # probe that found rmsnorm's mean; kernels/ab.py)
+    refs = [toks if len(p) == 128 else reference_generate(
+        model, params, p, n_new=32) for p in prompts]
+    check_tokens(f"{arch} slotted", prompts, slotted["tokens"], refs)
+    rows_probe(model, params, prompts, arch)
+    paths = {arch: (path, tuple(sorted(nonzero({**per_fwd, **per_step}))))}
+
+    # the same four requests with 16-token pages: the attn layers' K/V in
+    # the pools, the recurrent states slot-resident beside them
+    page_bytes = 2 * cfg.n_kv_heads * 16 * cfg.dh * 2 * \
+        cfg.layer_kinds().count("attn")
+    print(f"  kv_page_bytes(16) = {model.kv_page_bytes(16)} B (bf16 K and V "
+          f"of {cfg.layer_kinds().count('attn')} paged layers)")
+    need(model.kv_page_bytes(16) == page_bytes,
+         f"{arch}: kv_page_bytes(16) {model.kv_page_bytes(16)}, not "
+         f"{page_bytes}")
+    fwd_p, step_p = kernel_counts(cfg, paged=True)
+    ops.registry.reset_counts()
+    paged = run_scheduler(model, params, prompts, first[0], fwd_p, step_p,
+                          f"{arch} paged", pages=16)
+    paths[f"{arch} paged"] = (ops.registry.dispatch_snapshot(), tuple(
+        sorted(nonzero({**fwd_p, **step_p}))))
+    check_tokens(f"{arch} paged", prompts, paged["tokens"],
+                 slotted["tokens"], "the slotted run's")
+    paths.update(recurrent_int8(dev, model, store, int8_name, batch,
+                                prompts, res,
+                                res if quant == "int8" else None))
+    return paths
+
+
+def check_tokens(label: str, prompts, got, want,
+                 what: str = "reference_generate"):
+    """Each request's 32 tokens equal ``want``'s."""
+    for p, g, w in zip(prompts, got, want):
+        same = g == w
+        print(f"  {label} prompt {len(p)}: "
+              f"{'equal to' if same else 'DIFFERS from'} {what}: {g}")
+        need(len(g) == 32 and same,
+             f"{label} prompt {len(p)} differs from {what} at token "
+             f"{first_diff(w, g)}")
+
+
+def rows_probe(model, params, prompts, label: str) -> dict:
+    """Every op of one decode step, its row at B = 4 against B = 1 (the
+    probe that found rmsnorm's mean; kernels/ab.py): none may differ."""
+    from repro_torch.kernels import ab
     t1 = time.perf_counter()
     probe = ab.probe_rows(model, params, [prompts[3], prompts[0], prompts[1],
                                           prompts[2]])
-    print(f"  rows probe, one decode step at B=4 against B=1 "
+    print(f"  rows probe, {label}, one decode step at B=4 against B=1 "
           f"({(time.perf_counter() - t1):.1f} s): {probe['compared']} of "
           f"{probe['ops']} ops compared, first op that differs "
           f"{probe['first']}, sources {probe['sources']}, logits "
           f"{'bit-equal' if probe['logits_equal'] else 'DIFFER'}")
     need(probe["misaligned"] is None and not probe["sources"] and
          probe["logits_equal"],
-         f"{arch}: a decode step's row depends on the batch: {probe}")
-    return {"launches": path, "kernels": tuple(sorted(set(per_fwd)
-                                                      | set(per_step)))}
+         f"{label}: a decode step's row depends on the batch: {probe}")
+    return probe
+
+
+def recurrent_int8(dev, model, store, name: str, batch, prompts, bf16,
+                   deq) -> dict:
+    """The int8-resident (``compute_quant``) cicada cold start of ``name``
+    (first token inside the final E; the warm forward equal to the
+    in-pipeline logits; resident bytes beside the bf16-at-A load
+    ``bf16``'s), ``reference_generate`` on its params, and the slotted and
+    paged schedulers (tokens equal ``reference_generate``'s), with exact
+    launches; then, outside the path, phase 6's rule against the f32
+    oracle (the f32-compute forward over the same int8 weights) beside
+    the dequant-at-A load ``deq`` (where None, the int8 store dequantized
+    to f32 at A and cast at use, as phase 6 loads it), and the rows probe
+    on the int8 params."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import reference_generate
+
+    cfg = model.cfg
+    arch = cfg.name
+    if deq is None:
+        deq = cicada_load(model, store, name, batch, f"{arch} int8 store "
+                          f"dequantized at A (the oracle rule's floor)")["res"]
+    fwd_q, step_q = kernel_counts(cfg, quant=True)
+    fwd_qp, step_qp = kernel_counts(cfg, quant=True, paged=True)
+    print(f"  int8-resident: kernels per forward {fwd_q}, per slotted step "
+          f"{step_q}, per paged step {step_qp}")
+    ops.registry.reset_counts()
+    q = cicada_load(model, store, name, batch,
+                    f"{arch} int8-resident (compute_quant)",
+                    compute_quant=True)
+    need_counts(q["load"], fwd_q, f"{arch} int8-resident load")
+    need_counts(q["forward"], fwd_q, f"{arch} int8-resident warm forward")
+    need(q["diff"] == 0.0, f"{arch} int8-resident: warm forward differs "
+         f"from the in-pipeline logits by {q['diff']:.3e}")
+    pq = q["res"].params
+    qb, bb = param_bytes(pq), param_bytes(bf16.params)
+    print(f"  resident params: int8-resident {qb / 1e6:.1f} MB, bf16 at A "
+          f"{bb / 1e6:.1f} MB ({qb / bb:.3f}x)")
+    before = ops.registry.dispatch_snapshot()
+    t1 = time.perf_counter()
+    refs = [reference_generate(model, pq, p, n_new=32) for p in prompts]
+    torch.cuda.synchronize()
+    print(f"  reference_generate on the int8-resident params, prompts "
+          f"37/64/100/128: 4 x 32 greedy tokens in "
+          f"{(time.perf_counter() - t1) * 1e3:.1f} ms (host clock)")
+    need_counts(delta(before), {k: 4 * (fwd_q.get(k, 0) + 31 * step_q.get(
+        k, 0)) for k in set(fwd_q) | set(step_q)},
+                f"{arch} int8-resident reference_generate")
+    runs = {pages: run_scheduler(
+        model, pq, prompts, q["first"], fwd_q if pages is None else fwd_qp,
+        step_q if pages is None else step_qp,
+        f"{arch} int8-resident {'slotted' if pages is None else 'paged'}",
+        pages=pages) for pages in (None, 16)}
+    path = ops.registry.dispatch_snapshot()
+    kernels = tuple(sorted(nonzero({**fwd_q, **step_q, **step_qp})))
+    for pages, run in runs.items():
+        check_tokens(f"{arch} int8-resident "
+                     f"{'slotted' if pages is None else 'paged'}", prompts,
+                     run["tokens"], refs)
+    f32_model = transformer.build(dataclasses.replace(
+        cfg, compute_dtype=torch.float32))
+    oracle, _ = f32_model.forward(pq, batch_dev(batch, dev))
+    hold_to_oracle(f"{arch} int8-resident", q["res"].logits.float(),
+                   deq.logits.float(), oracle.float(), q["first"][0])
+    del oracle
+    rows_probe(model, pq, prompts, f"{arch} int8-resident")
+    return {f"{arch} int8-resident": (path, kernels)}
 
 
 # ---------------------------------------------------------------------------
@@ -2848,7 +3068,8 @@ def cicada_load(model, store, name: str, batch, label: str, **kw) -> dict:
           + f"; waits (s): A {summ['wait_A']:.3f}, E {summ['wait_E']:.3f}")
     need(diff <= BF16_ATOL * max(1.0, scale),
          f"{label}: warm forward differs from in-pipeline logits")
-    return {"res": res, "first": first[0], "load": load, "forward": fwd}
+    return {"res": res, "first": first[0], "load": load, "forward": fwd,
+            "diff": diff}
 
 
 def nonzero(counts: dict) -> dict:
@@ -2900,49 +3121,6 @@ def quant_products(cfg) -> int:
     head."""
     per_layer = 4 + 3 * cfg.n_experts + (3 if cfg.dense_residual else 0)
     return cfg.n_layers * per_layer + 1
-
-
-def mixtral_scheduler(model, params, prompts, first, per_fwd, per_step,
-                      label: str) -> dict:
-    """Four requests through the slotted scheduler (prompt 37 alone first,
-    then all four together, the 128-token one resuming from the load's
-    in-pipeline first token), with exact launch counts; returns the
-    tokens, the launches and the ms per step."""
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.serving import DecodeScheduler, GenerateSpec
-    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts]
-    sched = DecodeScheduler(model, params, n_slots=4, cache_len=256)
-    need(set(sched.kernel_modes().values()) == {"cuda"},
-         f"scheduler kernel modes {sched.kernel_modes()}")
-    before = ops.registry.dispatch_snapshot()
-    t1 = time.perf_counter()
-    solo = sched.generate(specs[0])
-    t2 = time.perf_counter()
-    results = run_concurrent(sched, specs, {3: first})
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    st = sched.stats()
-    got = delta(before)
-    want = {k: 5 * per_fwd.get(k, 0) + st["steps"] * per_step.get(k, 0)
-            for k in set(per_fwd) | set(per_step)}
-    need_counts(got, want, f"mixtral {label} scheduler")
-    ms1, ms4 = step_ms([solo]), step_ms(results)
-    print(f"  scheduler, {label}: one request alone 32 tokens in "
-          f"{(t2 - t1) * 1e3:.1f} ms; four concurrent {(t3 - t2) * 1e3:.1f} "
-          f"ms; {st['steps']} steps, max occupancy {st['max_occupancy']}; "
-          f"ms per step by occupancy (host clock, median): alone {ms1}, "
-          f"concurrent {ms4}; launches {nonzero(got)}")
-    need(st["max_occupancy"] == 4 and st["active"] == 0,
-         f"mixtral {label} scheduler stats {st}")
-    need(results[3].tokens[0] == first[0],
-         f"mixtral {label}: the resumed request did not keep its first "
-         f"token")
-    need(solo.tokens == results[0].tokens,
-         f"mixtral {label}: prompt 37's tokens changed between occupancy 1 "
-         f"and 4 (first difference at "
-         f"{first_diff(solo.tokens, results[0].tokens)})")
-    return {"tokens": [r.tokens for r in results], "ms": (ms1, ms4)}
 
 
 def kernel_profile(fn, calls: int = 3) -> tuple:
@@ -3041,7 +3219,7 @@ def mixtral_family(dev, workdir: str) -> dict:
     (:func:`mixtral_costs`), and the card's memory returned."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ab, ops
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer
     from repro_torch.models.api import get_config
     from repro_torch.serving import reference_generate
@@ -3097,36 +3275,20 @@ def mixtral_family(dev, workdir: str) -> dict:
           f"{gen_ms:.1f} ms (host clock, prefill + 31 decode steps): {toks}")
     step_q = {**per_step, "quant_matmul": n_qm}
     fwd_q = {**per_fwd, "quant_matmul": n_qm}
-    runs = {"bf16": mixtral_scheduler(model, pb, prompts, cast["first"],
-                                      per_fwd, per_step, "bf16"),
-            "int8": mixtral_scheduler(model, pq, prompts, quant["first"],
-                                      fwd_q, step_q, "int8-resident")}
+    runs = {"bf16": run_scheduler(model, pb, prompts, cast["first"],
+                                  per_fwd, per_step, "mixtral bf16"),
+            "int8": run_scheduler(model, pq, prompts, quant["first"],
+                                  fwd_q, step_q, "mixtral int8-resident")}
     path = ops.registry.dispatch_snapshot()
     transform_share(store, "mixtral-int8", torch.bfloat16,
                     cast["res"].trace.summary()["work_A"],
                     cast["load"]["weight_transform"])
     for label, params in (("bf16", pb), ("int8", pq)):
-        for p, got in zip(prompts, runs[label]["tokens"]):
-            ref = toks if label == "bf16" and len(p) == 128 else \
-                reference_generate(model, params, p, n_new=32)
-            same = got == ref
-            print(f"  {label} prompt {len(p)}: "
-                  f"{'equal to' if same else 'DIFFERS from'} "
-                  f"reference_generate: {got}")
-            need(same, f"mixtral {label} prompt {len(p)} differs from "
-                 f"reference_generate at token {first_diff(ref, got)}")
-        t1 = time.perf_counter()
-        probe = ab.probe_rows(model, params, [prompts[3], prompts[0],
-                                              prompts[1], prompts[2]])
-        print(f"  rows probe, {label}, one decode step at B=4 against B=1 "
-              f"({time.perf_counter() - t1:.1f} s): {probe['compared']} of "
-              f"{probe['ops']} ops compared, first op that differs "
-              f"{probe['first']}, sources {probe['sources']}, logits "
-              f"{'bit-equal' if probe['logits_equal'] else 'DIFFER'}")
-        need(probe["misaligned"] is None and not probe["sources"] and
-             probe["logits_equal"],
-             f"mixtral {label}: a decode step's row depends on the batch: "
-             f"{probe}")
+        check_tokens(f"mixtral {label}", prompts, runs[label]["tokens"],
+                     [toks if label == "bf16" and len(p) == 128 else
+                      reference_generate(model, params, p, n_new=32)
+                      for p in prompts])
+        rows_probe(model, params, prompts, f"mixtral {label}")
     mixtral_costs(model, pb, pq)
     out = {"launches": path,
            "kernels": ("flash_attention", "decode_attention", "quant_matmul",
@@ -3516,9 +3678,9 @@ def main() -> int:
         for i, arch in enumerate(RECURRENT):
             phase(f"[{10 + i}] full-width {arch}: cicada cold start "
                   f"({RECURRENT[arch] or 'f32'} store, bf16 at A), greedy "
-                  f"generation, slotted DecodeScheduler (4 requests)")
-            fam = recurrent_family(dev, wd, arch)
-            paths[arch] = (fam["launches"], fam["kernels"])
+                  f"generation, slotted and paged DecodeScheduler (4 "
+                  f"requests); int8-resident cold start, slotted and paged")
+            paths.update(recurrent_family(dev, wd, arch))
             torch.cuda.empty_cache()
         for i, arch in enumerate((*RECURRENT, "h2o-danube-3-4b")):
             phase(f"[{12 + i}] card against CPU, {arch} at 4 layers of full "

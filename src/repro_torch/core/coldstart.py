@@ -123,11 +123,6 @@ class ColdStartEngine:
         self.cache = cache
         self.metrics = metrics_mod.resolve(metrics)
         self.device = resolve_device(device)
-        if compute_quant and model.cfg.family in (Family.SSM, Family.HYBRID):
-            raise NotImplementedError(
-                f"{model.cfg.name}: compute_quant (int8-resident weights) is "
-                f"not ported for the {model.cfg.family.value!r} family yet — "
-                f"ROADMAP queue 1 item 12")
         if compute_quant and model.cfg.family == Family.VISION:
             raise NotImplementedError(
                 f"{model.cfg.name}: compute_quant is not supported for the "

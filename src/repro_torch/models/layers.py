@@ -304,9 +304,7 @@ def head_logits(cfg, params: PyTree, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings and not cfg.is_encoder:
         # the tied head contracts the table's scaled axis: a per-vocab
         # scale cannot ride a (d, V) product, so a QuantLeaf dequantizes
-        tok = params["embed"]["tok"]
-        w = tok.astype(cd) if quant.is_quant(tok) else tok.to(cd)
-        logits = x @ w.t()
+        logits = x @ quant.dequant(params["embed"]["tok"], cd).t()
     else:
         logits = quant.einsum(x, params["final"]["head"]["w"], cd)
     if cfg.logit_softcap > 0:

@@ -12,6 +12,11 @@ SSD state (B, nh, dp, N) f32 -- O(1) in sequence length.  With
 ``return_state`` the block runs the same kernel from the carried state and
 returns the final one, where the reference runs its sequential ``ref.ssd``:
 both compute the recurrence's final state.
+
+Int8-resident (``compute_quant``) params keep ``in_proj`` and ``out_proj``
+as ``QuantLeaf``s; each use dequantizes the whole leaf to the compute
+dtype (``quant.dequant``: ``weight_transform`` on the card), where the
+reference calls ``QuantLeaf.astype(cd)`` -- the same values, bit for bit.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import quant
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -65,7 +71,7 @@ def _in_proj(cfg, p: PyTree, x: torch.Tensor):
     by the sequence and the decode paths."""
     d_inner, nh, dp, N = dims(cfg)
     cd = cfg.compute_dtype
-    zxbcdt = x.to(cd) @ p["in_proj"].to(cd)
+    zxbcdt = x.to(cd) @ quant.dequant(p["in_proj"], cd)
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [d_inner, d_inner, N, N, nh],
                                     dim=-1)
     return z, torch.cat([xs, Bm, Cm], dim=-1), dt
@@ -88,7 +94,7 @@ def _out(cfg, p: PyTree, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     cd = cfg.compute_dtype
     y = y * F.silu(z.float()).to(cd)
     y = layers.rmsnorm(y, p["ssd_norm"]["scale"])
-    return y @ p["out_proj"].to(cd)
+    return y @ quant.dequant(p["out_proj"], cd)
 
 
 def ssd_block(cfg, p: PyTree, x: torch.Tensor,

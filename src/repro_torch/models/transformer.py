@@ -30,12 +30,15 @@ the tokens, so positions count the image rows first.  A token-only VLM
 batch (the schedulers' prompts, and every decode step, where the
 reference passes a zero-length image) has no image rows.
 
-The paged side (``decode_step_paged`` over page pools ``(n_units, P, K,
-pt, dh)``, ``gather_pages`` / ``pack_pages`` / ``copy_page``, and
-``prefill_continue`` for prefix reuse) follows the reference's
-``transformer.py:615-830`` for the uniform stacks (dense, MoE, audio,
-VLM); like the slotted caches, pools and caches are written in place.
-Paging the hybrid's attention layers waits (ROADMAP queue 1 item 12).
+The paged side (``decode_step_paged``, ``gather_pages`` /
+``pack_pages`` / ``copy_page``, and ``prefill_continue`` for prefix
+reuse) follows the reference's ``transformer.py:615-844``: it runs over
+every cache group, and the full-attention kinds' K/V of a group live in
+page pools, ``(n_units, P, K, pt, dh)`` stacked and ``(P, K, pt, dh)`` in
+the tail, while SSM and RG-LRU states and sliding-window rings stay
+slot-resident beside them (Griffin pages its ``attn`` layers, Mamba-2
+pages nothing).  Like the slotted caches, pools and caches are written
+in place.
 :func:`build` hands the vision family to :mod:`repro_torch.models.vision`.
 """
 from __future__ import annotations
@@ -55,9 +58,6 @@ from repro_torch.models.api import ArchConfig, Family
 from repro_torch.quant import QuantLeaf
 
 PyTree = Any
-
-PAGING_PENDING = ("ROADMAP queue 1 item 12 (paged decode of the recurrent "
-                  "families)")
 
 
 # ---------------------------------------------------------------------------
@@ -528,16 +528,8 @@ class LM:
 
     # ------------------------------------------------------- decode + cache
     def init_cache(self, batch: int, cache_len: int) -> PyTree:
-        cfg, dev = self.cfg, self.device
-        caches: Dict[str, PyTree] = {}
-        for slot, kind in enumerate(self.pattern):
-            per = [kind_cache(cfg, kind, batch, cache_len, dev)
-                   for _ in range(self.n_units)]
-            caches[f"s{slot}"] = tree_util.tree_map(
-                lambda *xs: torch.stack(xs), *per)
-        for t, kind in enumerate(self.tail_kinds):
-            caches[f"t{t}"] = kind_cache(cfg, kind, batch, cache_len, dev)
-        return caches
+        return {key: self._group_cache(kind, stacked, batch, cache_len)
+                for key, kind, stacked in self._cache_groups()}
 
     @torch.no_grad()
     def prefill(self, params: PyTree, batch: Dict[str, torch.Tensor],
@@ -567,80 +559,116 @@ class LM:
         return _head(cfg, params, x), cache
 
     # ----------------------------------------------------- paged KV decode
-    @property
-    def paged(self) -> bool:
-        """Whether the layers' KV can live in a page pool: a uniform
-        stack of full-attention blocks (dense, MoE, audio, VLM) without a
-        window.  The recurrent families raise: their paging waits."""
-        if self.cfg.family in (Family.SSM, Family.HYBRID):
-            raise NotImplementedError(
-                f"{self.cfg.name}: paged decode of the "
-                f"{self.cfg.family.value!r} family is not ported yet — "
-                f"{PAGING_PENDING}")
-        return _kind_paged(self.cfg, self.pattern[0])
+    def _cache_groups(self) -> List[Tuple[str, str, bool]]:
+        """(key, kind, stacked) for every block cache group: the pattern
+        slots ``s{i}``, then the tail layers ``t{t}``."""
+        out = [(f"s{i}", k, True) for i, k in enumerate(self.pattern)]
+        out += [(f"t{t}", k, False) for t, k in enumerate(self.tail_kinds)]
+        return out
+
+    def _paged_groups(self) -> List[Tuple[str, bool]]:
+        """(key, stacked) of the groups whose K/V live in page pools."""
+        return [(key, stacked) for key, kind, stacked in self._cache_groups()
+                if _kind_paged(self.cfg, kind)]
+
+    def _paged_leaves(self, *trees: PyTree):
+        """Per paged group and per ``"k"`` / ``"v"``, that leaf of each
+        tree (pools, caches) with a leading unit axis: the stacked
+        group's leaf itself, a tail group's as a ``[None]`` view, so one
+        indexing writes both in place."""
+        for key, stacked in self._paged_groups():
+            for n in ("k", "v"):
+                yield tuple(t[key][n] if stacked else t[key][n][None]
+                            for t in trees)
+
+    def _group_cache(self, kind: str, stacked: bool, batch: int,
+                     cache_len: int) -> PyTree:
+        """One group's zeroed cache: ``(n_units, B, ...)`` leaves when
+        stacked, ``(B, ...)`` in the tail."""
+        per = [kind_cache(self.cfg, kind, batch, cache_len, self.device)
+               for _ in range(self.n_units if stacked else 1)]
+        if not stacked:
+            return per[0]
+        return tree_util.tree_map(lambda *xs: torch.stack(xs), *per)
 
     def paged_kinds(self) -> List[str]:
-        return [self.pattern[0]] if self.paged else []
+        return sorted(k for k in set(self.pattern) | set(self.tail_kinds)
+                      if _kind_paged(self.cfg, k))
 
     @property
     def supports_prefix_cache(self) -> bool:
-        """Prefix reuse needs every layer's sequence state in pages and a
+        """Prefix reuse needs every layer's sequence state in pages (an
+        unshared SSM, RG-LRU or ring state would silently diverge) and a
         token-only prompt identity (no image or audio side inputs)."""
-        return (not self.cfg.is_encoder
-                and self.cfg.family not in (Family.AUDIO, Family.VLM)
-                and self.paged)
+        cfg = self.cfg
+        return (not cfg.is_encoder
+                and cfg.family not in (Family.AUDIO, Family.VLM)
+                and all(_kind_paged(cfg, k)
+                        for k in set(self.pattern) | set(self.tail_kinds)))
 
     def kv_page_bytes(self, page_tokens: int) -> int:
         """Device bytes one page id costs across all paged layers (K and
-        V); 0 when no layer pages."""
-        if not self.paged:
-            return 0
+        V); 0 when no layer pages (Mamba-2, ring-only models)."""
         cfg = self.cfg
         item = torch.empty((), dtype=cfg.compute_dtype).element_size()
-        return (self.n_units * 2 * cfg.n_kv_heads * page_tokens * cfg.dh
-                * item)
+        per = 2 * cfg.n_kv_heads * page_tokens * cfg.dh * item
+        return per * sum(self.n_units if stacked else 1
+                         for _, stacked in self._paged_groups())
 
     def init_kv_pages(self, n_pages: int, page_tokens: int) -> PyTree:
-        """Physical page pools ``{"s0": {"k", "v"}}`` of ``(n_units,
-        n_pages, K, pt, dh)`` (``{"s0": None}`` when no layer pages).  The
-        caller sizes ``n_pages`` to the budget + 1 (the scratch page)."""
-        if not self.paged:
-            return {"s0": None}
+        """Physical page pools: per paged group ``{"k", "v"}`` of
+        ``(n_units, n_pages, K, pt, dh)`` (stacked) or ``(n_pages, K, pt,
+        dh)`` (tail); ``None`` for the groups that do not page.  The caller
+        sizes ``n_pages`` to the budget + 1 (the scratch page)."""
         cfg = self.cfg
-        shape = (self.n_units, n_pages, cfg.n_kv_heads, page_tokens, cfg.dh)
-        return {"s0": {n: torch.zeros(shape, dtype=cfg.compute_dtype,
-                                      device=self.device)
-                       for n in ("k", "v")}}
+        pools: Dict[str, PyTree] = {key: None
+                                    for key, _, _ in self._cache_groups()}
+        for key, stacked in self._paged_groups():
+            shape = (n_pages, cfg.n_kv_heads, page_tokens, cfg.dh)
+            if stacked:
+                shape = (self.n_units,) + shape
+            pools[key] = {n: torch.zeros(shape, dtype=cfg.compute_dtype,
+                                         device=self.device)
+                          for n in ("k", "v")}
+        return pools
 
     def init_cache_paged(self, batch: int, cache_len: int) -> PyTree:
-        """Slot-resident decode state with paged K/V leaves ``None`` (they
-        live in the pools): the structure of :meth:`init_cache`."""
-        if self.paged:
-            return {"s0": {"k": None, "v": None}}
-        return self.init_cache(batch, cache_len)
+        """Slot-resident decode state with the paged groups' K/V leaves
+        ``None`` (they live in the pools): the structure of
+        :meth:`init_cache`, so the per-slot join applies."""
+        return {key: {"k": None, "v": None} if _kind_paged(self.cfg, kind)
+                else self._group_cache(kind, stacked, batch, cache_len)
+                for key, kind, stacked in self._cache_groups()}
 
     def init_request_cache(self, paged_len: int, state_len: int) -> PyTree:
-        """B=1 prefill cache for paged admission: sized to the request's
-        page span when the layers page, else to the slot state length."""
-        return self.init_cache(1, paged_len if self.paged else state_len)
+        """B=1 prefill cache for paged admission: the paged kinds sized to
+        the request's page span (``paged_len`` rows feed
+        :meth:`pack_pages`), the slot-resident kinds to the scheduler's
+        state length, so that the slot-join shapes match."""
+        return {key: self._group_cache(
+                    kind, stacked, 1,
+                    paged_len if _kind_paged(self.cfg, kind) else state_len)
+                for key, kind, stacked in self._cache_groups()}
 
     def strip_paged(self, cache: PyTree) -> PyTree:
-        """A per-request cache projected onto the paged state structure
-        (paged K/V content moves by :meth:`pack_pages` instead)."""
-        return {"s0": {"k": None, "v": None}} if self.paged else cache
+        """A per-request cache projected onto the paged state structure:
+        the paged groups' K/V leaves become ``None`` (their content moves
+        by :meth:`pack_pages` instead)."""
+        out = dict(cache)
+        for key, _ in self._paged_groups():
+            out[key] = {"k": None, "v": None}
+        return out
 
     def gather_pages(self, cache: PyTree, pools: PyTree,
                      ids: torch.Tensor) -> PyTree:
         """Copy physical pages ``ids`` (in logical order) into rows
         ``[0, len(ids) * pt)`` of a contiguous B=1 cache, in place — the
         device half of a prefix hit."""
-        if self.paged:
-            m, idx = int(ids.numel()), ids.long()
-            for n in ("k", "v"):
-                pool, c = pools["s0"][n], cache["s0"][n]
-                L, _, K, pt, dh = pool.shape
-                c[:, 0, :, :m * pt] = pool[:, idx].transpose(1, 2).reshape(
-                    L, K, m * pt, dh).to(c.dtype)
+        m, idx = int(ids.numel()), ids.long()
+        for pool, c in self._paged_leaves(pools, cache):
+            L, _, K, pt, dh = pool.shape
+            c[:, 0, :, :m * pt] = pool[:, idx].transpose(1, 2).reshape(
+                L, K, m * pt, dh).to(c.dtype)
         return cache
 
     def pack_pages(self, pools: PyTree, cache: PyTree, ids: torch.Tensor,
@@ -648,22 +676,19 @@ class LM:
         """Copy B=1 cache rows ``[first_page * pt, (first_page + len(ids))
         * pt)`` into physical pages ``ids``, in place — the device half
         of admission."""
-        if self.paged:
-            m, idx = int(ids.numel()), ids.long()
-            for n in ("k", "v"):
-                pool, c = pools["s0"][n], cache["s0"][n]
-                L, _, K, pt, dh = pool.shape
-                lo = first_page * pt
-                seg = c[:, 0, :, lo:lo + m * pt].reshape(L, K, m, pt, dh)
-                pool[:, idx] = seg.transpose(1, 2).to(pool.dtype)
+        m, idx = int(ids.numel()), ids.long()
+        for pool, c in self._paged_leaves(pools, cache):
+            L, _, K, pt, dh = pool.shape
+            lo = first_page * pt
+            seg = c[:, 0, :, lo:lo + m * pt].reshape(L, K, m, pt, dh)
+            pool[:, idx] = seg.transpose(1, 2).to(pool.dtype)
         return pools
 
     def copy_page(self, pools: PyTree, src: int, dst: int) -> PyTree:
         """Device half of a copy-on-write fork: page ``src`` into ``dst``
         across every paged layer, in place."""
-        if self.paged:
-            for n in ("k", "v"):
-                pools["s0"][n][:, dst] = pools["s0"][n][:, src]
+        for (pool,) in self._paged_leaves(pools):
+            pool[:, dst] = pool[:, src]
         return pools
 
     @torch.no_grad()
@@ -698,12 +723,13 @@ class LM:
         """
         cfg = self.cfg
         x = self.embed(params, {"tokens": tokens})
-        blocks = params["blocks"]["s0"]
-        kind = self.pattern[0]
-        for i in range(self.n_units):
-            pages = None if pools["s0"] is None else _index(pools["s0"], i)
-            x, _, _ = block_decode_paged(cfg, kind, _index(blocks, i), x,
-                                         pos, _index(cache["s0"], i), pages,
+        # every layer in order, each with its cache view and its pages
+        # (None for a slot-resident kind, which block_decode_paged hands
+        # to block_decode)
+        for (kind, p), (_, c), (_, pages) in zip(
+                self._layers(params["blocks"]), self._layers(cache),
+                self._layers(pools)):
+            x, _, _ = block_decode_paged(cfg, kind, p, x, pos, c, pages,
                                          tables)
         return _head(cfg, params, x), cache, pools
 

@@ -131,6 +131,20 @@ def expert_einsum(x: torch.Tensor, w, cd: torch.dtype, *,
     return torch.stack(outs, dim=1)
 
 
+def dequant(w, cd: torch.dtype) -> torch.Tensor:
+    """A whole weight in ``cd`` for a product at its use (the reference's
+    ``w.astype(cd)``).  A plain tensor is cast; a :class:`QuantLeaf` is
+    dequantized by ``ops.weight_transform`` over its ``(-1, last)`` view,
+    bit-equal to :meth:`QuantLeaf.astype` and the hand-written kernel on
+    the card.  Mamba-2's projections and the tied heads take this route:
+    the reference does not run them through ``quant_matmul``."""
+    if not isinstance(w, QuantLeaf):
+        return w.to(cd)
+    n = w.shape[-1]
+    return ops.weight_transform(w.q.reshape(-1, n), w.scale,
+                                out_dtype=cd).reshape(w.shape)
+
+
 def gather_rows(w, idx: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     """Embedding lookup ``w[idx]`` in ``cd``.  For a :class:`QuantLeaf`
     the int8 rows are gathered, then scaled (elementwise, so equal bit

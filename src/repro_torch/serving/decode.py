@@ -311,8 +311,12 @@ class DecodeScheduler:
                                                  self.cache_len)
             self._tables = np.full((self.n_slots, self.np_max),  # guarded-by: _cv
                                    self.kvpool.scratch_id, np.int32)
+            # prefix reuse needs every sequence state paged; a model with
+            # any slot-resident kind (ring, SSM or RG-LRU state) pages its
+            # full-attention K/V but keeps the slotted length ceiling
             self._prefix_ok = model.supports_prefix_cache
-            self._all_paged = bool(model.paged_kinds())
+            self._all_paged = set(model.paged_kinds()) == set(
+                model.pattern) | set(model.tail_kinds)
         else:
             self._cache = model.init_cache(self.n_slots, self.cache_len)
         # host-side per-slot step inputs
@@ -370,7 +374,8 @@ class DecodeScheduler:
                                     n_pages=self.np_max,
                                     stats=self.kvpool.stats())
         if not self._all_paged:
-            # slot-resident state (ring windows) keeps its ceiling
+            # slot-resident state (rings, SSM and RG-LRU states) keeps
+            # its ceiling
             n_new = validate_spec(spec, n_prompt, self.cache_len)
         need = -(-(n_prompt + n_new) // pt)
         hit: List[int] = []

@@ -4,12 +4,13 @@ every strategy's in-pipeline logits match the JAX ``ColdStartEngine``'s
 within 1e-4, for an f32 store, an int8 store (dequantized at A) and an
 f32 store cast to bf16 at A (which casts the recurrent blocks' 1-D f32
 leaves, ``lam``, ``a_log``, ``d_skip`` and the rest, as the JAX engine
-does); ``compute_quant`` on these families raises."""
+does); ``compute_quant`` keeps the int8 leaves resident."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import STRATEGIES, ColdStartEngine
+from repro_torch.quant import QuantLeaf
 from torch_testlib import COLDSTART_TOL as TOL
 from torch_testlib import coldstart_setup
 from torch_testlib import coldstart_load as load
@@ -47,7 +48,12 @@ def test_cicada_transformed_loads_match(setups, arch, case):
 
 
 def test_compute_quant_raises_for_the_recurrent_families(setups):
+    """``compute_quant`` loads both families from the int8 store (the
+    int8 leaves stay resident as ``QuantLeaf``s), and the logits equal
+    the JAX engine's dequant-at-A load of that store within 1e-4."""
     for arch in ARCHS:
-        tm, ts, _, _ = setups[arch]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ColdStartEngine(tm, "q", ts, compute_quant=True, device="cpu")
+        tm, ts, batch, want = setups[arch]
+        res = ColdStartEngine(tm, "q", ts, strategy="cicada",
+                              compute_quant=True, device="cpu").load(batch)
+        np.testing.assert_allclose(res.logits.numpy(), want["int8"], **TOL)
+        assert isinstance(res.params["embed"]["tok"], QuantLeaf)

@@ -2,8 +2,8 @@
 assigned architecture names the same model, at full size and at smoke
 size, field for field and in its derived sizes (``active_param_count``
 is the MoE-aware count); every config of ``list_archs()`` builds with the
-reference's unit shapes; the recurrent families' paged decode raises
-with its ROADMAP item."""
+reference's unit shapes; every LM config pages the layers the
+reference pages."""
 import dataclasses
 
 import jax
@@ -64,15 +64,22 @@ def test_every_config_builds_with_the_reference_shapes():
 
 
 def test_other_families_name_their_roadmap_item():
-    """The recurrent families build; their paged decode waits for ROADMAP
-    queue 1 item 12, and says so.  The other LM families page."""
-    for name in ("mamba2-780m", "recurrentgemma-2b"):
-        m = ttransformer.build(tget_config(name, smoke=True), device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 12"):
-            m.paged_kinds()
-    for name in ("smollm-360m", "arctic-480b", "hubert-xlarge",
-                 "internvl2-76b"):
-        cfg = tget_config(name, smoke=True)
-        assert cfg.family != Family.VISION
-        assert ttransformer.build(cfg, device="cpu").paged_kinds()
+    """Every LM config pages as the reference pages it: the same paged
+    kinds, prefix-cache support and page bytes, full and smoke.  Only
+    full-attention layers page: mamba2 none (0 bytes a page),
+    recurrentgemma its 8 ``attn`` layers."""
+    for name in tlist_archs():
+        for smoke in (False, True):
+            cfg = tget_config(name, smoke=smoke)
+            if cfg.family == Family.VISION:
+                continue
+            tm = ttransformer.build(cfg, device="cpu")
+            jm = jtransformer.build(jget_config(name, smoke=smoke))
+            assert tm.paged_kinds() == sorted(jm.paged_kinds()), name
+            assert tm.supports_prefix_cache == jm.supports_prefix_cache
+            assert tm.kv_page_bytes(16) == jm.kv_page_bytes(16), name
+    mamba = ttransformer.build(tget_config("mamba2-780m"), device="cpu")
+    assert mamba.paged_kinds() == [] and mamba.kv_page_bytes(16) == 0
+    full = ttransformer.build(tget_config("recurrentgemma-2b"), device="cpu")
+    assert full.paged_kinds() == ["attn"]
+    assert full.kv_page_bytes(16) == 8 * 2 * 1 * 16 * 256 * 2

@@ -1,8 +1,9 @@
 """The port's serving launcher (``repro_torch.launch.serve``) on the CPU at
 smoke size, held against the JAX package's launcher on the same
 arguments: per strategy, the same cold/warm mix and pool counts, for
-the LMs, for the MoE, audio and VLM families and for a vision model
-served one-shot; and ``--autoscale``, whose
+the LMs, for the MoE, audio and VLM families, for the recurrent families
+paged and int8-resident, and for a vision model served one-shot; and
+``--autoscale``, whose
 background autoscaler prewarms instances during the replay."""
 import numpy as np
 import pytest
@@ -99,6 +100,31 @@ def test_launcher_serves_the_moe_audio_and_vlm_families(tmp_path, capsys):
     assert {r.model for r in got} == {"mixtral-8x7b", "hubert-xlarge",
                                       "internvl2-76b"}
     assert 0 < sum(r.cold for r in got) < len(got)
+    assert _pools(tout) == _pools(jout)
+
+
+def test_launcher_pages_the_recurrent_families_int8_resident(tmp_path,
+                                                              capsys):
+    """``--models recurrentgemma-2b mamba2-780m --smoke --workload generate
+    --kv-page-tokens 16 --compute-quant`` on the CPU: both families serve
+    paged and int8-resident, and the replay's cold/warm mix and pool
+    counts are the JAX launcher's."""
+    args = ARGS + ["--models", "recurrentgemma-2b", "mamba2-780m", "--smoke",
+                   "--workload", "generate", "--kv-page-tokens", "16",
+                   "--compute-quant", "--n-new", "3", "--prompt-len", "5",
+                   "--concurrency", "1"]
+    got = tserve.main(args + ["--store", str(tmp_path / "t"), "--device",
+                              "cpu"])["cicada"]
+    tout = capsys.readouterr().out
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_PALLAS", "ref")
+        want = jserve.main(args + ["--store", str(tmp_path / "j")])
+    jout = capsys.readouterr().out
+    assert [(r.model, r.cold) for r in got] == \
+        [(r.model, r.cold) for r in want]
+    assert {r.model for r in got} == {"recurrentgemma-2b", "mamba2-780m"}
+    assert 0 < sum(r.cold for r in got) < len(got)
+    assert all(r.n_generated == 3 for r in got)
     assert _pools(tout) == _pools(jout)
 
 

@@ -4,8 +4,8 @@ port's ``reference_generate`` at concurrency 1 and 4 and the JAX
 scheduler's greedy tokens (``REPRO_PALLAS=ref``).  recurrentgemma-2b
 smoke has a two-layer tail, whose cache leaves are ``(B, ...)`` and not
 ``(n_units, B, ...)``: the join of a request's state into its slot
-must tell the two apart.  Paged decode and ``compute_quant`` on these
-families raise, naming their ROADMAP item."""
+must tell the two apart.  The paged scheduler's tokens equal the slotted
+one's."""
 import dataclasses
 import threading
 
@@ -132,9 +132,22 @@ def test_resume_from_injected_first_token(fam):
 
 
 def test_paged_decode_raises_naming_its_roadmap_item(fam):
-    _, m, params, _, _ = fam
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        DecodeScheduler(m, params, n_slots=2, cache_len=CACHE_LEN,
-                        kv_page_tokens=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.kv_page_bytes(16)
+    """The paged scheduler serves both families (recurrentgemma pages its
+    ``attn`` layer; mamba2 pages nothing, so its pool's pages cost 0
+    bytes): the four prompts' tokens, one resumed from an injected first
+    token, equal the slotted scheduler's, and no page stays pinned."""
+    cfg, m, params, _, _ = fam
+    assert m.kv_page_bytes(16) == (0 if cfg.name.startswith("mamba2")
+                                   else 2 * 16 * cfg.dh * 4)
+    prompts = [_prompt(cfg, 20 + i, n) for i, n in enumerate((5, 8, 13, 21))]
+    specs = [GenerateSpec(prompt=p, n_new=7) for p in prompts]
+    slotted = DecodeScheduler(m, params, n_slots=4, cache_len=CACHE_LEN)
+    want = [slotted.generate(s).tokens for s in specs]
+    paged = DecodeScheduler(m, params, n_slots=4, cache_len=CACHE_LEN,
+                            kv_page_tokens=16)
+    got = _concurrent(paged, specs[:3])
+    got.append(paged.generate(specs[3], first_token=want[3][0],
+                              t_first=0.0))
+    assert [r.tokens for r in got] == want
+    assert paged.stats()["kv_pages_pinned"] == 0
+    paged.kvpool.check_invariants()
