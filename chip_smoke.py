@@ -56,7 +56,16 @@ through the paged scheduler with prefix reuse; hubert-xlarge (all 48
 encoder layers, dh 80, non-causal) from an int8 store, a one-shot frame
 batch, and 4 layers against the CPU; internvl2-76b at 2 of its 80 layers
 from an int8 store, image rows ahead of the tokens, greedy generation,
-and the card against the CPU.
+and the card against the CPU.  Last, the multi-node cluster on this one
+card: smollm-360m from its int8 store served by simulated nodes with
+per-node WeightCaches, a 2000 MB/s origin shared by all and a 10000 MB/s
+link a node, under the lock probe: a second node's cold start streams
+every unit from its peer (no origin read), a four-node cold burst pays
+one origin read a unit (four with peer exchange off), a trace replayed
+through the locality-aware front end keeps the TTL's cold flags, every
+response equals a standalone load's logits or ``reference_generate``'s
+tokens, each load launches one ``weight_transform`` an int8 leaf, and
+``flush()`` returns the card's memory and empties the placement table.
 It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
 seven TPU kernels' counterparts and ``rmsnorm``), holds each against its
 plain PyTorch version on the card, the attention kernels also at head dims
@@ -2959,6 +2968,286 @@ def autoscaled_platform(dev, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 25: the multi-node cluster on one card
+# ---------------------------------------------------------------------------
+
+CLUSTER_ORIGIN_MBPS = 2000.0      # the origin store: one shared channel
+CLUSTER_LINK_MBPS = 10000.0       # the intra-cluster link, a channel a node
+CLUSTER_NODES = 4
+CLUSTER_TRACE_SEED = 0            # three cold starts at a 60 s keep-alive
+
+
+def cluster_platform(dev, workdir: str) -> dict:
+    """smollm-360m at full width from phase 4's int8 store (dequantized at
+    A), served by simulated cluster nodes that all run on this card, with
+    unbounded per-node WeightCaches, the origin at 2000 MB/s on one
+    shared channel and the cluster link at 10000 MB/s a node, all under
+    the lock probe: (a) node0 then node1 cold-start on pinned
+    submissions, the second from its peer; (b) after ``flush()``, all four
+    nodes cold-start at once, with peer exchange and without; (c) a
+    16-invocation trace replayed serially through ``run_trace`` on two
+    nodes; (d) the card's memory returns after ``flush()``.  Every
+    response's logits equal a standalone load's and every token
+    ``reference_generate``'s.  Returns the path's launch counts (zeroed at
+    the start, read before the standalone load)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import analysis
+    from repro_torch.analysis import lint, lockgraph
+    from repro_torch.cluster import ClusterPlatform
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import Request, reference_generate
+    from repro_torch.serving import pool as pool_mod
+    from repro_torch.serving.trace import azure_like_trace, summarize
+
+    a = "smollm-360m"
+    answers = []
+    invoke = pool_mod.FunctionInstance.invoke
+
+    def recording_invoke(self, b):
+        out, info = invoke(self, b)
+        answers.append(out.float().cpu())
+        return out, info
+
+    def cluster(n, **kw):
+        return ClusterPlatform(store, {a: lambda: (model, batch)},
+                               n_nodes=n, cluster_bw_mbps=CLUSTER_LINK_MBPS,
+                               cache_budget_bytes=0, **kw)
+
+    def reads(cp):
+        return [(nd.origin_reads(), nd.peer_reads()) for nd in cp.nodes]
+
+    # only locks made while the switch is on are instrumented: set it
+    # before the store (its BandwidthModel lock) and the clusters
+    os.environ["REPRO_ANALYZE"] = "1"
+    analysis.probe.reset()
+    pool_mod.FunctionInstance.invoke = recording_invoke
+    try:
+        store = platform_store(workdir, {a: PLATFORM_STORES[a]}, "cluster")
+        need((store.device.bandwidth_mbps, store.device.channels) ==
+             (CLUSTER_ORIGIN_MBPS, 1), f"origin {store.device}")
+        model = transformer.build(get_config(a))
+        keys = len(model.unit_names())
+        leaves = int8_leaves(store, a)
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(3).integers(
+            0, model.cfg.vocab_size, (1, PLATFORM_PROMPT)))}
+        print(f"  {keys} units (placement keys), {leaves} int8 leaves, "
+              f"{store.model_nbytes(a) / 1e9:.3f} GB a load; origin "
+              f"{CLUSTER_ORIGIN_MBPS:.0f} MB/s on one shared channel, "
+              f"link {CLUSTER_LINK_MBPS:.0f} MB/s a node; {card_line()}")
+        mem0 = settled_memory()
+        ops.registry.reset_counts()
+
+        # --- (a) two pinned cold starts on a four-node cluster
+        cp = cluster(CLUSTER_NODES, keep_alive_s=1e9)
+        router = cp.router(workers_per_node=2)
+        pinned, wt = [], []
+        try:
+            for i in range(2):
+                before = ops.registry.dispatch_snapshot()
+                t0 = time.perf_counter()
+                pinned.append(router.submit_to(
+                    f"node{i}", Request(req_id=i, model=a, batch=batch))
+                    .result())
+                wall = (time.perf_counter() - t0) * 1e3
+                wt.append(delta(before)["weight_transform"])
+                print(f"  (a) node{i}: cold {pinned[-1].cold}, load "
+                      f"{pinned[-1].load_s * 1e3:.1f} ms, wall {wall:.1f} "
+                      f"ms (host clock over the simulated pipes); "
+                      f"(origin, peer) reads {reads(cp)[i]}")
+        finally:
+            router.shutdown()
+        pl = cp.placement.snapshot()
+        need(all(r.cold for r in pinned) and
+             [r.node for r in pinned] == ["node0", "node1"],
+             f"(a) responses {[(r.cold, r.node) for r in pinned]}")
+        need(reads(cp)[:2] == [(keys, 0), (0, keys)],
+             f"(a) (origin, peer) reads {reads(cp)}, not "
+             f"[({keys}, 0), (0, {keys})]")
+        need(pl["models"] == {a: {"keys": keys, "copies": 2 * keys}},
+             f"(a) placement {pl}")
+        need(wt == [leaves, leaves],
+             f"(a) weight_transform launches {wt} per load, not {leaves}")
+        r_ev = cp.node("node1").platform.pools[a]._instances[0] \
+            .last_load.trace.events_for("R")
+        need(len(r_ev) == keys and
+             all(e.meta == {"peer": True} for e in r_ev.values()),
+             "(a) node1's R events are not all peer transfers")
+        answers_a = list(answers)
+        need(len(answers_a) == 2, f"(a) {len(answers_a)} answers")
+
+        # --- (b) one simultaneous cold burst on every node, after flush()
+        bursts = {}
+        for tag, peer in (("peer", True), ("origin-only", False)):
+            if peer:
+                cp.flush()
+            else:
+                cp = cluster(CLUSTER_NODES, keep_alive_s=1e9,
+                             peer_exchange=False)
+            need(cp.placement.snapshot()["models"] == {},
+                 f"(b) {tag}: placement not empty before the burst")
+            del answers[:]
+            n_reads = len(store.reads)
+            reads0 = reads(cp)
+            before = ops.registry.dispatch_snapshot()
+            router = cp.router(workers_per_node=2)
+            try:
+                t0 = time.perf_counter()
+                futs = [router.submit_to(nd.node_id,
+                                         Request(req_id=10 + i, model=a,
+                                                 batch=batch))
+                        for i, nd in enumerate(cp.nodes)]
+                rs = [f.result() for f in futs]
+                wall = (time.perf_counter() - t0) * 1e3
+            finally:
+                router.shutdown()
+            d = delta(before)
+            rd = [(o - o0, p - p0)
+                  for (o, p), (o0, p0) in zip(reads(cp), reads0)]
+            origin = len(store.reads) - n_reads
+            print(f"  (b) {tag}: {CLUSTER_NODES}-node cold burst wall "
+                  f"{wall:.1f} ms (host clock over the simulated pipes); "
+                  f"loads {[round(r.load_s * 1e3, 1) for r in rs]} ms; "
+                  f"store reads {origin}; (origin, peer) reads by node "
+                  f"{rd}; weight_transform {d['weight_transform']}; "
+                  f"placement {cp.placement.snapshot()}")
+            need(all(r.cold for r in rs), f"(b) {tag}: a warm response")
+            want_origin = keys if peer else CLUSTER_NODES * keys
+            need(origin == want_origin,
+                 f"(b) {tag}: {origin} origin reads, not {want_origin}")
+            if peer:
+                need(sum(o for o, _ in rd) == keys and
+                     sum(p for _, p in rd) == (CLUSTER_NODES - 1) * keys,
+                     f"(b) peer: (origin, peer) reads {rd}")
+            need(d["weight_transform"] == CLUSTER_NODES * leaves,
+                 f"(b) {tag}: {d['weight_transform']} weight_transform "
+                 f"launches, not {CLUSTER_NODES} x {leaves}")
+            need(len(answers) == CLUSTER_NODES,
+                 f"(b) {tag}: {len(answers)} answers")
+            bursts[tag] = dict(wall_ms=wall, answers=list(answers))
+            cp.flush()
+            need(cp.placement.snapshot()["models"] == {},
+                 f"(b) {tag}: placement not empty after flush()")
+        del cp, router, futs, rs
+
+        # --- (c) trace replay through the front end, two nodes
+        trace = azure_like_trace(duration_s=600.0, n_invocations=16,
+                                 models=[a], seed=CLUSTER_TRACE_SEED)
+        want_cold = expected_cold(trace, PLATFORM_KEEP_ALIVE_S)
+        need(sum(want_cold) >= 2, "(c) the trace re-triggers no cold start")
+        cp = cluster(2, keep_alive_s=PLATFORM_KEEP_ALIVE_S, gen_slots=4,
+                     gen_cache_len=128)
+        make_spec, prompts = platform_specs()
+        before = ops.registry.dispatch_snapshot()
+        t0 = time.perf_counter()
+        serial = cp.run_trace(trace, None, concurrency=1,
+                              make_spec=make_spec)
+        t_serial = time.perf_counter() - t0
+        d = delta(before)
+        print_responses("(c)", serial)
+        ps = {nd.node_id: nd.platform.pool_stats()[a] for nd in cp.nodes}
+        loads = sum(p.cold_starts for p in ps.values())
+        instances = sum(p.size for p in ps.values())
+        print(f"  (c) {summarize(trace)}: replay {t_serial:.1f} s; nodes "
+              f"{[r.node for r in serial]}; pools (instances, cold, warm, "
+              f"evictions) { {n: (p.size, p.cold_starts, p.warm_hits, p.evictions) for n, p in ps.items()} }; "
+              f"(origin, peer) reads {reads(cp)}; launches {d}")
+        need([r.cold for r in serial] == want_cold,
+             f"(c) cold flags {[r.cold for r in serial]} != TTL's "
+             f"{want_cold}")
+        need(all(r.node in ("node0", "node1") for r in serial),
+             f"(c) Response.node {[r.node for r in serial]}")
+        need(all(r.n_generated == PLATFORM_NEW for r in serial),
+             "(c) a response is short")
+        need(sum(o for o, _ in reads(cp)) == keys,
+             f"(c) origin reads {reads(cp)}, not {keys} in all")
+        per_fwd, per_step = kernel_counts(model.cfg)
+        want = {k: 0 for k in d}
+        # the warmup forward of each provisioned instance, each load's
+        # in-pipeline forward and each request's prefill; then the steps
+        for k, v in per_fwd.items():
+            want[k] += (instances + loads + len(trace)) * v
+        for k, v in per_step.items():
+            want[k] += len(trace) * (PLATFORM_NEW - 1) * v
+        want["weight_transform"] += loads * leaves
+        need(d == want, f"(c) launches {d}, not {want}")
+        cp.flush()
+
+        # --- (d) teardown
+        need(cp.placement.snapshot()["models"] == {},
+             "(d) placement not empty after flush()")
+        need(all(p.live == 0 and p.busy == 0
+                 for nd in cp.nodes for p in nd.platform.pool_stats()
+                 .values()), "(d) an instance is still live")
+        del cp
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = settled_memory()
+        print(f"  (d) memory_allocated before the phase {mem0 / 1e6:.1f} "
+              f"MB, after flush() {mem1 / 1e6:.1f} MB (margin "
+              f"{PLATFORM_MEM_MARGIN / 1e6:.1f} MB)")
+        need(mem1 <= mem0 + PLATFORM_MEM_MARGIN,
+             f"(d) {(mem1 - mem0) / 1e6:.1f} MB stay allocated after "
+             f"flush()")
+        torch.cuda.empty_cache()
+        path = ops.registry.dispatch_snapshot()
+
+        # --- the lock probe over (a)-(c)
+        observed = analysis.probe.report()
+        for line in lock_hotspots(observed):
+            print(line)
+        print(f"  probe: {len(observed['locks'])} instrumented locks, "
+              f"{len(observed['edges'])} observed order edges "
+              f"{[(e['src'], e['dst']) for e in observed['edges']]}")
+        need(observed["cycles"] == [],
+             f"observed lock-order cycles {observed['cycles']}")
+        need(observed["hazards"] == [],
+             f"locks held across I/O {observed['hazards']}")
+        static, _ = lint.build_static_lockgraph(lint.load_models(
+            os.path.join(HERE, "src", "repro_torch")))
+        merged = lockgraph.merge(static, observed)
+        need(merged["cycles"] == [],
+             f"static + observed lock graph cycles {merged['cycles']}")
+    finally:
+        pool_mod.FunctionInstance.invoke = invoke
+        os.environ.pop("REPRO_ANALYZE", None)
+
+    # --- every response against a standalone load of the same store
+    res = ColdStartEngine(model, a, store, strategy="cicada").load(batch)
+    ref = res.logits.float().cpu()
+    for label, got in [("(a)", answers_a)] + [
+            (f"(b) {t}", b["answers"]) for t, b in bursts.items()]:
+        for lg in got:
+            need(torch.equal(lg, ref),
+                 f"{label}: a response differs from a standalone load by "
+                 f"{(lg - ref).abs().max().item()}")
+    ref_tokens = [reference_generate(model, res.params, p,
+                                     n_new=PLATFORM_NEW, seed=i)
+                  for i, p in enumerate(prompts[a])]
+    for k, r in enumerate(serial):
+        i = k % 2                   # the k-th request got prompt k % 2
+        need(list(r.tokens) == ref_tokens[i],
+             f"(c) request {r.req_id} differs from reference_generate at "
+             f"token {first_diff(ref_tokens[i], list(r.tokens))}")
+    print(f"  every response's logits bit-equal to a standalone load's "
+          f"({len(answers_a)} pinned, "
+          f"{sum(len(b['answers']) for b in bursts.values())} in bursts); "
+          f"{len(serial)} replayed responses' tokens equal "
+          f"reference_generate's; burst wall ms peer "
+          f"{bursts['peer']['wall_ms']:.1f}, origin-only "
+          f"{bursts['origin-only']['wall_ms']:.1f} (host clock over the "
+          f"simulated pipes); {card_line()}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": path}
+
+
+# ---------------------------------------------------------------------------
 # phases 20-24: the MoE family (mixtral-8x7b, arctic-480b) and the audio
 # (hubert-xlarge) and VLM (internvl2-76b) stub families
 # ---------------------------------------------------------------------------
@@ -3741,6 +4030,17 @@ def main() -> int:
               f"tokens, greedy generation; card against CPU")
         vlm = internvl_family(dev, wd)
         paths["internvl2-76b"] = (vlm["launches"], vlm["kernels"])
+        torch.cuda.empty_cache()
+        phase(f"[25] the cluster on one card: smollm-360m int8 store, "
+              f"{CLUSTER_NODES} nodes, peer exchange over a "
+              f"{CLUSTER_LINK_MBPS:.0f} MB/s link: pinned cold starts, a "
+              f"cold burst with and without peers, a trace through the "
+              f"front end, under the lock probe")
+        clus = cluster_platform(dev, wd)
+        paths["cluster"] = (
+            clus["launches"],
+            ("flash_attention", "decode_attention", "weight_transform",
+             "rmsnorm"))
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

@@ -28,9 +28,13 @@ instruments (``coldstart/loads``, ``coldstart/load_s``,
 ``coldstart/utilization``, ``pipeline/wait_A_s``, ``pipeline/wait_E_s``)
 in the ``metrics=`` registry.
 
-Single device: the reference's mesh (shard-granular) cold starts and its
-cluster ``source=`` come with later slices (ROADMAP queue 1 items 13 and
-14); passing them raises.
+With ``source=`` (a :class:`~repro_torch.core.decoupler.ShardSource`,
+e.g. a cluster node's peer-exchange tier) the decoupled streams that
+miss the cache read their bytes through it instead of the origin store.
+
+Single device: the reference's mesh (shard-granular) cold starts come
+with a later slice (ROADMAP queue 1 item 13); passing ``mesh=`` or
+``rules=`` raises.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ import torch
 from repro_torch import metrics as metrics_mod
 from repro_torch import tree as tree_util
 from repro_torch.core import miniloader
-from repro_torch.core.decoupler import WeightDecoupler
+from repro_torch.core.decoupler import ShardSource, WeightDecoupler
 from repro_torch.core.pipeline import PipelineTrace
 from repro_torch.core.scheduler import PriorityAwareScheduler
 from repro_torch.core.strategies import Strategy, get_strategy
@@ -78,7 +82,8 @@ class ColdStartEngine:
                  cache: Optional[WeightCache] = None,
                  mesh=None, rules=None,
                  metrics: Optional[metrics_mod.MetricsRegistry] = None,
-                 source=None, device: DeviceLike = None):
+                 source: Optional[ShardSource] = None,
+                 device: DeviceLike = None):
         """apply_dtype: cast weights to this dtype at application time
         (None -> keep the stored dtype; int8 extents dequantize to f32).
         The vision family takes None only.
@@ -98,9 +103,14 @@ class ColdStartEngine:
         metrics: registry of the per-load instruments (default: the
         process registry).
 
-        mesh / rules / source: shard-granular cold starts and the
-        cluster's peer source of the reference; not ported yet (ROADMAP
-        queue 1 items 13 and 14), so anything but None raises.
+        source: where cache-missing streams read their bytes (default:
+        the origin store) — a cluster node passes its peer-exchange
+        tier.  Used only by strategies that decouple, and only with a
+        cache.
+
+        mesh / rules: shard-granular cold starts of the reference; not
+        ported yet (ROADMAP queue 1 item 13), so anything but None
+        raises.
 
         device: where the model is loaded and run (default: the GPU;
         raises without one unless ``device="cpu"``)."""
@@ -108,10 +118,6 @@ class ColdStartEngine:
             raise NotImplementedError(
                 "shard-granular cold starts (mesh=, rules=) are not ported "
                 "yet — ROADMAP queue 1 item 13")
-        if source is not None:
-            raise NotImplementedError(
-                "a cluster ShardSource (source=) is not ported yet — "
-                "ROADMAP queue 1 item 14")
         self.model = model
         self.model_name = model_name
         self.store = store
@@ -121,6 +127,7 @@ class ColdStartEngine:
         self.apply_dtype = apply_dtype
         self.compute_quant = compute_quant
         self.cache = cache
+        self.source = source
         self.metrics = metrics_mod.resolve(metrics)
         self.device = resolve_device(device)
         if compute_quant and model.cfg.family == Family.VISION:
@@ -209,7 +216,9 @@ class ColdStartEngine:
         dec = WeightDecoupler(self.store, self.model_name, scheduler, trace,
                               state, io_workers=self.io_workers,
                               chunk_bytes=self.chunk_bytes,
-                              cache=self.cache if strat.decouple else None)
+                              cache=self.cache if strat.decouple else None,
+                              source=self.source if strat.decouple
+                              and self.cache is not None else None)
         trace.start()
         try:
             if not strat.pipelined:

@@ -21,8 +21,13 @@ retrieval until weight application (released by :meth:`checkin`), so
 eviction pressure never reclaims leaves an in-flight — possibly
 Algorithm-1-critical — load is about to apply.
 
-Retrieval here is unit-granular.  The reference's cluster ``ShardSource``
-and shard-granular plans are ROADMAP queue 1 items 14 and 13.
+A miss reads its bytes through a :class:`ShardSource`: by default the
+origin store, or with ``source=`` a cluster's peer-exchange tier
+(:class:`~repro_torch.cluster.peer.ClusterShardSource`), which serves the
+payload from a peer node's cache over the intra-cluster link and falls
+back to the origin read only when this node is the cluster-wide leader
+for the unit.  Retrieval here is unit-granular (shard key 0); the
+reference's shard-granular plans are ROADMAP queue 1 item 13.
 
 In the PISeL baseline the two phases are fused and strictly ordered;
 :meth:`WeightDecoupler.fetch_sync` provides that path.
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 from repro_torch import analysis
 from repro_torch.core.pipeline import PipelineTrace
@@ -41,19 +46,58 @@ from repro_torch.store.cache import LOAD, WeightCache
 from repro_torch.store.store import Leaves, WeightStore
 
 
+class ShardSource:
+    """Where a stream's bytes come from when the local cache misses.
+
+    The default source is the origin store: :meth:`fetch` just invokes
+    the ``read_origin`` thunk the decoupler hands it.  The cluster tier
+    (``repro_torch.cluster.peer.ClusterShardSource``) overrides it to
+    consult a cluster-wide placement table first and serve the payload
+    from a peer node's cache over the intra-cluster link; the origin
+    thunk then runs only when this node is elected the cluster-wide
+    single-flight leader for the key.
+
+    Contract with the decoupler (it mirrors the WeightCache protocol):
+    ``fetch`` returns ``(payload, src)`` with ``src`` in {"origin",
+    "peer"}; after the payload is published to the local cache the
+    decoupler calls :meth:`publish`, and on any failure between fetch
+    and publish it calls :meth:`abort` (both no-ops here)."""
+
+    def fetch(self, model: str, unit: str, skey: Hashable, nbytes: int,
+              read_origin: Callable[[], Any], *,
+              gate=None, on_chunk: Optional[Callable[[int], None]] = None
+              ) -> Tuple[Any, str]:
+        return read_origin(), "origin"
+
+    def publish(self, model: str, unit: str, skey: Hashable):
+        pass
+
+    def abort(self, model: str, unit: str, skey: Hashable):
+        pass
+
+
 class WeightDecoupler:
     def __init__(self, store: WeightStore, model_name: str,
                  scheduler: PriorityAwareScheduler, trace: PipelineTrace,
                  state: PipelineState, *, io_workers: int = 4,
                  chunk_bytes: int = 1 << 20,
-                 cache: Optional[WeightCache] = None):
+                 cache: Optional[WeightCache] = None,
+                 source: Optional[ShardSource] = None):
         """``state``: the run's PipelineState.  The decoupler shares its
         condition variable, so stream completions directly wake pipeline
         units blocked on that state, and puts stream errors there.
 
         ``cache``: optional node-local WeightCache consulted before any
         I/O is issued (shared across engines/instances for scale-out
-        reuse and single-flight reads)."""
+        reuse and single-flight reads).
+
+        ``source``: where a local-cache miss reads its bytes (see
+        :class:`ShardSource`).  Requires a cache: the source's publish
+        step is what makes this node's resident copy visible to peers,
+        and peers are served from that cache."""
+        if source is not None and cache is None:
+            raise ValueError("a ShardSource requires a WeightCache "
+                             "(peers are served from this node's cache)")
         self.store = store
         self.model_name = model_name
         self.scheduler = scheduler
@@ -61,6 +105,7 @@ class WeightDecoupler:
         self.chunk_bytes = chunk_bytes
         self.io_workers = io_workers
         self.cache = cache
+        self.source = source
         self._pool: Optional[ThreadPoolExecutor] = None
         self.state = state
         # the run's condition variable, borrowed; the factory call names
@@ -88,9 +133,26 @@ class WeightDecoupler:
 
     @staticmethod
     def _src_meta(src: str) -> Optional[Dict[str, Any]]:
-        """Trace annotation of a stream's byte source: store reads are
-        unmarked, cache hits carry ``cached``."""
-        return {"cached": True} if src == "cache" else None
+        """Trace annotation of a stream's byte source: origin reads are
+        unmarked, cache hits carry ``cached``, peer-exchange transfers
+        carry ``peer``."""
+        if src == "cache":
+            return {"cached": True}
+        if src == "peer":
+            return {"peer": True}
+        return None
+
+    def _progress_cb(self, unit: str, total: int) -> Callable[[int], None]:
+        """Per-chunk progress callback of a source-driven transfer (the
+        peer link): accumulates into the scheduler's stream state as
+        :meth:`_read_store` does for origin reads."""
+        done = [0]
+        t = max(1, int(total))
+
+        def cb(n: int):
+            done[0] += n
+            self.scheduler.on_progress(unit, done[0], t)
+        return cb
 
     def _fetch(self, unit: str, st):
         try:
@@ -111,28 +173,44 @@ class WeightDecoupler:
 
     def _retrieve(self, unit: str, st) -> Tuple[Leaves, str]:
         """One stream's leaves: cache hit / single-flight wait / leader
-        read of the store.  Returns ``(leaves, src)`` with src in
-        {"cache", "origin"}."""
+        read through the source (the origin store, or a cluster peer's
+        cache over the intra-cluster link).  Returns ``(leaves, src)``
+        with src in {"cache", "origin", "peer"}."""
         if self.cache is None:
             return self._read_store(unit, st), "origin"
         # A hit OR a wait on another load's read is external to this
         # pipeline's I/O: Algorithm 1 must not prioritize it (see
         # PriorityAwareScheduler.mark_external).  Which one it is shows
-        # only after begin() returns, so flag first and unflag when this
-        # stream turns out to be the leader of a store read.
+        # only after begin() returns, so flag first and unflag only when
+        # this stream turns out to run a genuine origin read.  A peer
+        # transfer stays external too: suspending local streams cannot
+        # speed up another node's cache.
         self.scheduler.mark_external(unit)
         status, leaves = self.cache.begin(self.model_name, unit)
         if status == LOAD:
-            self.scheduler.mark_external(unit, False)
+            def read_origin():
+                self.scheduler.mark_external(unit, False)
+                return self._read_store(unit, st)
+            src = "origin"
             try:
-                leaves = self._read_store(unit, st)
+                if self.source is None:
+                    leaves = read_origin()
+                else:
+                    leaves, src = self.source.fetch(
+                        self.model_name, unit, 0, st.nbytes, read_origin,
+                        gate=st.gate,
+                        on_chunk=self._progress_cb(unit, st.nbytes))
                 self.cache.complete(self.model_name, unit, leaves,
                                     st.nbytes)
             except BaseException:
                 self.cache.abort(self.model_name, unit)
+                if self.source is not None:
+                    self.source.abort(self.model_name, unit, 0)
                 raise
+            if self.source is not None:
+                self.source.publish(self.model_name, unit, 0)
             self._pin(unit)
-            return leaves, "origin"
+            return leaves, src
         self._pin(unit)
         return leaves, "cache"
 

@@ -23,10 +23,21 @@ configs are the default; ``--full`` serves the published widths.
 (:mod:`repro_torch.serving.autoscale`): it ticks in the background for
 the replay, pre-provisions warm instances off the arrival-rate slope and
 queue depth (``--rps-per-instance`` converts a rate into a count), and
-the report prints each pool's prewarms.  The reference's ``--mesh`` and
-``--nodes`` are ROADMAP queue 1 items 13 and 14: they raise here.  The port has no forced
-kernel mode: ``--pallas`` takes ``auto`` only, since a tensor's device
-alone picks its kernel.
+the report prints each pool's prewarms.
+
+``--nodes N`` serves the trace from an N-node cluster
+(:mod:`repro_torch.cluster`, every node on the one device): a
+locality-aware front-end router places each invocation on the node
+already warm or cache-resident for the model, and scale-out cold starts
+stream weights from peer nodes over the intra-cluster link
+(``--cluster-bw-mbps``) instead of re-reading the shared origin store —
+at most one origin read per unit, cluster-wide.  The report then prints
+each node's served / cold / warm counts and origin and peer reads, and
+the placement table; ``--metrics-out`` writes the cluster snapshot.
+
+The reference's ``--mesh`` is ROADMAP queue 1 item 13: it raises here.
+The port has no forced kernel mode: ``--pallas`` takes ``auto`` only,
+since a tensor's device alone picks its kernel.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.cluster import ClusterPlatform
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.api import Family, get_config
@@ -144,10 +156,12 @@ def _parser() -> argparse.ArgumentParser:
                          "starts and run weight matmuls through the "
                          "quant_matmul kernel")
     ap.add_argument("--nodes", type=int, default=1,
-                    help="cluster size (not ported: only 1)")
+                    help="serve from an N-node cluster (repro_torch."
+                         "cluster): locality-aware routing + peer-to-peer "
+                         "weight exchange (1 = single-node platform)")
     ap.add_argument("--cluster-bw-mbps", type=float, default=1000.0,
-                    help="--nodes N: intra-cluster link bandwidth (not "
-                         "ported)")
+                    help="--nodes N: intra-cluster link bandwidth, one "
+                         "channel per node (0 = unthrottled)")
     ap.add_argument("--bandwidth-mbps", type=float, default=400.0,
                     help="simulated store bandwidth")
     ap.add_argument("--store", default=None)
@@ -199,6 +213,9 @@ def _report(args, strategy: str, platform, responses):
             print(f"cold TTFT: mean={ct.mean() * 1e3:.1f}ms "
                   f"(load {cl.mean() * 1e3:.1f}ms — first token "
                   f"in-pipeline: {bool((ct < cl).all())})")
+    if args.nodes > 1:
+        _report_cluster(platform, responses)
+        return
     if args.concurrency > 1:
         q = np.array([r.queue_s for r in responses])
         rs = platform.last_router_stats
@@ -219,18 +236,52 @@ def _report(args, strategy: str, platform, responses):
               f"hit-rate={cs.hit_rate:.0%}")
 
 
-def main(argv=None):
-    """Run the launcher; returns ``{strategy: [Response, ...]}``."""
-    args = _parser().parse_args(argv)
+def _report_cluster(cluster, responses):
+    """The per-node lines and the placement table of a cluster replay."""
+    served = np.array([r.node for r in responses])
+    for nd in cluster.nodes:
+        ps = nd.platform.pool_stats()
+        print(f"node[{nd.node_id}]: "
+              f"served={int((served == nd.node_id).sum())} "
+              f"cold={sum(p.cold_starts for p in ps.values())} "
+              f"warm={sum(p.warm_hits for p in ps.values())} "
+              f"origin-reads={nd.origin_reads():.0f} "
+              f"peer-reads={nd.peer_reads():.0f}")
+    snap = cluster.cluster_snapshot()
+    agg = snap["cluster"]["counters"]
+    print(f"cluster: origin-reads="
+          f"{agg.get('cluster/origin_reads', 0):.0f} "
+          f"peer-reads={agg.get('cluster/peer_reads', 0):.0f} "
+          f"peer-bytes={agg.get('cluster/peer_bytes', 0) / 1e6:.1f}MB")
+    pl = snap["placement"]
+    print(f"placement: models={pl['models']} "
+          f"origin-elections={pl['origin_elections']} "
+          f"peer-referrals={pl['peer_referrals']}")
+
+
+def _refuse(args):
+    """The options the launcher refuses, before anything is deployed."""
     if args.mesh > 1:
         raise NotImplementedError("--mesh: shard-granular serving is not "
                                   "ported yet — ROADMAP queue 1 item 13")
     if args.nodes > 1:
+        # the reference's refusals, with its messages
+        if args.compute_quant:
+            raise SystemExit("--compute-quant serves int8 leaves in place "
+                             "on a single device; not supported with "
+                             "--mesh/--nodes")
         if args.autoscale:
             raise SystemExit("--autoscale is a per-node policy; not "
                              "supported with --nodes > 1")
-        raise NotImplementedError("--nodes: the cluster is not ported yet "
-                                  "— ROADMAP queue 1 item 14")
+        if args.kv_page_tokens:
+            raise SystemExit("--kv-page-tokens is per-node scheduler "
+                             "state; not yet plumbed with --nodes > 1")
+
+
+def main(argv=None):
+    """Run the launcher; returns ``{strategy: [Response, ...]}``."""
+    args = _parser().parse_args(argv)
+    _refuse(args)
     device = resolve_device(args.device)
 
     store_dir = args.store or tempfile.mkdtemp(prefix="cicada-store-")
@@ -255,22 +306,34 @@ def main(argv=None):
     def make_batch(name):
         return example_batch(get_config(name, smoke=args.smoke))
 
+    cache_budget = None if args.cache_budget_mb is None \
+        else int(args.cache_budget_mb * 1e6)
     out = {}
     platform = None
     for strategy in args.strategy:
-        platform = ServerlessPlatform(
-            store, builders, strategy=strategy,
-            keep_alive_s=args.keep_alive,
-            max_instances=args.max_instances,
-            cache_budget_bytes=None if args.cache_budget_mb is None
-            else int(args.cache_budget_mb * 1e6),
-            gen_slots=args.gen_slots, gen_cache_len=args.gen_cache_len,
-            kv_page_tokens=args.kv_page_tokens,
-            kv_budget_bytes=None if args.kv_budget_mb is None
-            else int(args.kv_budget_mb * 1e6),
-            compute_quant=args.compute_quant, device=device,
-            autoscale=dict(rps_per_instance=args.rps_per_instance)
-            if args.autoscale else None)
+        if args.nodes > 1:
+            # the peer tier requires per-node caches: default unbounded
+            platform = ClusterPlatform(
+                store, builders, n_nodes=args.nodes,
+                cluster_bw_mbps=args.cluster_bw_mbps,
+                cache_budget_bytes=0 if cache_budget is None
+                else cache_budget,
+                strategy=strategy, keep_alive_s=args.keep_alive,
+                max_instances=args.max_instances, gen_slots=args.gen_slots,
+                gen_cache_len=args.gen_cache_len, device=device)
+        else:
+            platform = ServerlessPlatform(
+                store, builders, strategy=strategy,
+                keep_alive_s=args.keep_alive,
+                max_instances=args.max_instances,
+                cache_budget_bytes=cache_budget,
+                gen_slots=args.gen_slots, gen_cache_len=args.gen_cache_len,
+                kv_page_tokens=args.kv_page_tokens,
+                kv_budget_bytes=None if args.kv_budget_mb is None
+                else int(args.kv_budget_mb * 1e6),
+                compute_quant=args.compute_quant, device=device,
+                autoscale=dict(rps_per_instance=args.rps_per_instance)
+                if args.autoscale else None)
         make_spec = None
         if args.workload == "generate":
             rng = np.random.default_rng(args.seed)
@@ -283,25 +346,32 @@ def main(argv=None):
                     n_new=args.n_new, temperature=args.temperature,
                     seed=args.seed)
 
-        if platform.autoscaler is not None:
-            platform.autoscaler.start()
+        autoscaler = getattr(platform, "autoscaler", None)
+        if autoscaler is not None:
+            autoscaler.start()
         try:
             responses = platform.run_trace(trace, make_batch,
                                            concurrency=args.concurrency,
                                            make_spec=make_spec)
         finally:
-            if platform.autoscaler is not None:
-                platform.autoscaler.stop()
+            if autoscaler is not None:
+                autoscaler.stop()
         _report(args, strategy, platform, responses)
         out[strategy] = responses
     if args.metrics_out:
-        snap = platform.metrics_snapshot()
+        is_cluster = args.nodes > 1
+        snap = platform.cluster_snapshot() if is_cluster \
+            else platform.metrics_snapshot()
         with open(args.metrics_out, "w") as f:
             json.dump(snap, f, indent=2)
-        print(f"metrics snapshot -> {args.metrics_out} "
-              f"({len(snap['counters'])} counters, "
-              f"{len(snap['gauges'])} gauges, "
-              f"{len(snap['histograms'])} histograms)")
+        if is_cluster:
+            print(f"cluster snapshot -> {args.metrics_out} "
+                  f"({snap['n_nodes']} nodes)")
+        else:
+            print(f"metrics snapshot -> {args.metrics_out} "
+                  f"({len(snap['counters'])} counters, "
+                  f"{len(snap['gauges'])} gauges, "
+                  f"{len(snap['histograms'])} histograms)")
     return out
 
 

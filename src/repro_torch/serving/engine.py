@@ -16,9 +16,10 @@ instances — re-triggering cold starts, the serverless lifecycle of the
 paper's Fig. 2.
 
 ``autoscale=`` attaches the SLO :class:`~repro_torch.serving.autoscale.
-Autoscaler` to the platform's pools and routers.  Single node, single
-device: the reference's mesh (``mesh_shape``, ``rules``) and cluster
-``source`` options are ROADMAP queue 1 items 13 and 14; passing them
+Autoscaler` to the platform's pools and routers.  ``source=`` wires a
+cluster node's peer-exchange tier into every pool's cold starts (see
+:mod:`repro_torch.cluster`).  Single device: the reference's mesh options
+(``mesh_shape``, ``rules``) are ROADMAP queue 1 item 13; passing them
 raises.
 """
 from __future__ import annotations
@@ -97,17 +98,17 @@ class ServerlessPlatform:
         device: where every instance loads and serves (default: the GPU;
         raises without one unless ``device="cpu"``).
 
-        mesh_shape / rules / source: not ported yet (ROADMAP queue 1
-        items 13 and 14); anything but None raises.
+        source: ShardSource wired into every pool's cold-start retrieval
+        streams — a cluster Node passes its peer-exchange tier here (see
+        :mod:`repro_torch.cluster`); requires a cache.
+
+        mesh_shape / rules: not ported yet (ROADMAP queue 1 item 13);
+        anything but None raises.
         """
         if mesh_shape is not None or rules is not None:
             raise NotImplementedError(
                 "shard-granular serving (mesh_shape=, rules=) is not ported "
                 "yet — ROADMAP queue 1 item 13")
-        if source is not None:
-            raise NotImplementedError(
-                "a cluster ShardSource (source=) is not ported yet — "
-                "ROADMAP queue 1 item 14")
         self.store = store
         self.strategy = strategy
         self.device = resolve_device(device)
@@ -118,6 +119,7 @@ class ServerlessPlatform:
         if cache is None and cache_budget_bytes is not None:
             cache = WeightCache(cache_budget_bytes, metrics=self.metrics)
         self.cache = cache
+        self.source = source
         self.pools: Dict[str, InstancePool] = {
             name: InstancePool(name, builder, store, strategy=strategy,
                                policy=self.policy,
@@ -130,7 +132,8 @@ class ServerlessPlatform:
                                kv_page_tokens=kv_page_tokens,
                                kv_budget_bytes=kv_budget_bytes,
                                compute_quant=compute_quant,
-                               metrics=self.metrics, device=self.device)
+                               metrics=self.metrics, source=source,
+                               device=self.device)
             for name, builder in builders.items()}
         self.autoscaler: Optional[Autoscaler] = None
         if autoscale is not None:

@@ -59,16 +59,12 @@ from repro_torch.store.store import WeightStore
 PyTree = Any
 
 
-def _unported(mesh_shape, rules, source):
-    """The reference's mesh and cluster options, not ported yet."""
+def _unported(mesh_shape, rules):
+    """The reference's mesh options, not ported yet."""
     if mesh_shape is not None or rules is not None:
         raise NotImplementedError(
             "shard-granular cold starts (mesh_shape=, rules=) are not "
             "ported yet — ROADMAP queue 1 item 13")
-    if source is not None:
-        raise NotImplementedError(
-            "a cluster ShardSource (source=) is not ported yet — ROADMAP "
-            "queue 1 item 14")
 
 
 class FunctionInstance:
@@ -105,9 +101,12 @@ class FunctionInstance:
         device: where the instance loads and serves (default: the GPU;
         raises without one unless ``device="cpu"``).
 
-        mesh_shape / rules / source: not ported yet; anything but None
-        raises."""
-        _unported(mesh_shape, rules, source)
+        source: ShardSource for the cold starts' cache-missing
+        retrieval streams (a cluster node's peer-exchange tier; default:
+        the origin store).
+
+        mesh_shape / rules: not ported yet; anything but None raises."""
+        _unported(mesh_shape, rules)
         self.model = model
         self.model_name = model_name
         self.example_batch = example_batch
@@ -117,7 +116,7 @@ class FunctionInstance:
                                       chunk_bytes=chunk_bytes,
                                       compute_quant=compute_quant,
                                       cache=cache, metrics=metrics,
-                                      device=device)
+                                      source=source, device=device)
         self.device = self.engine.device
         self.metrics = metrics_mod.resolve(metrics)
         self.params: Optional[PyTree] = None
@@ -300,13 +299,16 @@ class InstancePool:
         single-flight each unit's store read.
         ``gen_slots``/``gen_cache_len``: per-instance DecodeScheduler
         capacity (concurrent generation residency / KV positions).
+        ``source``: ShardSource for cache-missing retrieval streams
+        (the cluster peer-exchange tier; default: the origin store).
         ``device``: where the default instances load and serve.
-        ``mesh_shape``/``rules``/``source``: not ported yet (raise)."""
-        _unported(mesh_shape, rules, source)
+        ``mesh_shape``/``rules``: not ported yet (raise)."""
+        _unported(mesh_shape, rules)
         self.model_name = model_name
         self.policy = policy if policy is not None else NeverEvict()
         self.max_instances = max(1, int(max_instances))
         self.cache = cache
+        self.source = source
         self.gen_slots = int(gen_slots)
         self.gen_cache_len = int(gen_cache_len)
         self.kv_page_tokens = kv_page_tokens
@@ -365,6 +367,7 @@ class InstancePool:
                                 kv_budget_bytes=self.kv_budget_bytes,
                                 compute_quant=self.compute_quant,
                                 metrics=self.metrics,
+                                source=self.source,
                                 device=self.device)
 
     # ------------------------------------------------------------ lifecycle

@@ -53,34 +53,62 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass
 class BandwidthModel:
-    """Simulated storage: per-request latency + a *shared* bandwidth cap.
+    """Simulated storage or link: per-request latency + a *shared*
+    bandwidth cap per channel.
 
-    Bandwidth is one token bucket: all streams split it, so the
-    WeightDecoupler's parallel prefetch gets no free bandwidth over serial
-    PISeL retrieval.  (The reference's per-shard channels come with the
-    shard slice, ROADMAP queue 1 item 13.)
+    Bandwidth is one token bucket per channel: all streams on a channel
+    split it, so the WeightDecoupler's parallel prefetch gets no free
+    bandwidth over serial PISeL retrieval.  ``channels`` models
+    independent links: the cluster's intra-cluster link has one per node
+    NIC (:mod:`repro_torch.cluster`).  The default (1) is one shared
+    device, and every store read goes to channel 0.
     """
-    bandwidth_mbps: float = 0.0          # 0 -> unthrottled
+    bandwidth_mbps: float = 0.0          # 0 -> unthrottled (per channel)
     latency_ms: float = 0.0
+    channels: int = 1
 
     def __post_init__(self):
         self._lock = analysis.make_lock("BandwidthModel._lock")
-        self._next_free = 0.0            # guarded-by: _lock
+        self._next_free = [0.0] * max(1, int(self.channels))  # guarded-by: _lock
 
     def on_open(self):
         if self.latency_ms > 0:
             time.sleep(self.latency_ms / 1e3)
 
-    def on_chunk(self, nbytes: int):
+    def on_chunk(self, nbytes: int, channel: int = 0):
         if self.bandwidth_mbps <= 0:
             return
         dur = nbytes / (self.bandwidth_mbps * 1e6)
         with self._lock:
-            start = max(time.monotonic(), self._next_free)
-            self._next_free = start + dur
+            ch = channel % len(self._next_free)
+            start = max(time.monotonic(), self._next_free[ch])
+            self._next_free[ch] = start + dur
+        # the sleep runs with no lock held
         delay = (start + dur) - time.monotonic()
         if delay > 0:
             time.sleep(delay)
+
+    def transfer(self, nbytes: int, *, channel: int = 0,
+                 chunk_bytes: int = 1 << 20,
+                 gate: Optional[threading.Event] = None,
+                 on_chunk: Optional[Callable[[int], None]] = None):
+        """Simulate moving ``nbytes`` over one channel of this link in
+        suspendable chunks: the peer-exchange path, with no file
+        underneath, only the wire cost of bytes already resident on
+        another node.  ``gate``: the stream's Algorithm-1 suspension
+        event, waited between chunks as a store read waits on it;
+        ``on_chunk``: called with each chunk's size."""
+        self.on_open()
+        done = 0
+        total = max(0, int(nbytes))
+        while done < total:
+            if gate is not None:
+                gate.wait()
+            n = min(int(chunk_bytes), total - done)
+            self.on_chunk(n, channel)
+            done += n
+            if on_chunk is not None:
+                on_chunk(n)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from torch_testlib import (PORT, ROOT, assert_imports_no_jax_and_no_reference,
 torch.set_num_threads(2)
 HERE = ("", "analysis", "configs", "launch", "store")
 # the subpackages test_torch_isolation_{core,serving,kernels}.py check
-ELSEWHERE = ("core", "serving", "kernels", "models")
+ELSEWHERE = ("core", "serving", "cluster", "kernels", "models")
 
 
 @pytest.mark.parametrize("path", port_files(*HERE), ids=path_id)

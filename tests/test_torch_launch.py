@@ -130,13 +130,16 @@ def test_launcher_pages_the_recurrent_families_int8_resident(tmp_path,
 
 def test_launcher_refuses_unported_options_and_needs_a_device(tmp_path,
                                                                monkeypatch):
-    for flag in (["--mesh", "2"], ["--nodes", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.main(flag + ["--store", str(tmp_path)])
-    # the reference's refusal: the autoscaler is a per-node policy
-    with pytest.raises(SystemExit, match="per-node"):
-        tserve.main(["--autoscale", "--nodes", "2", "--store",
-                     str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.main(["--mesh", "2", "--store", str(tmp_path)])
+    # the reference's refusals with --nodes (the cluster is ported): the
+    # autoscaler is a per-node policy, and neither int8-resident serving
+    # nor paged KV is plumbed through the cluster
+    for flag, msg in ((["--autoscale"], "per-node"),
+                      (["--compute-quant"], "single device"),
+                      (["--kv-page-tokens", "16"], "not yet plumbed")):
+        with pytest.raises(SystemExit, match=msg):
+            tserve.main(flag + ["--nodes", "2", "--store", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--store", str(tmp_path)])

@@ -19,6 +19,7 @@ from repro.serving import policy as jpolicy
 from repro.serving.pool import InstancePool as JPool
 from repro.serving.trace import Invocation as JInvocation
 from repro_torch.core import ColdStartEngine
+from repro_torch.core.decoupler import ShardSource
 from repro_torch.metrics import MetricsRegistry
 from repro_torch.models import transformer
 from repro_torch.models.api import get_config
@@ -375,12 +376,16 @@ def test_run_trace_lifecycle_matches_reference(ka, ts, concurrency):
 
 def test_unported_options_raise(tmp_path):
     store = WeightStore(str(tmp_path))
-    for kw, item in ((dict(mesh_shape=4), "13"), (dict(rules={}), "13"),
-                     (dict(source=object()), "14")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for kw in (dict(mesh_shape=4), dict(rules={})):
+        with pytest.raises(NotImplementedError, match="item 13"):
             ServerlessPlatform(store, {}, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 13"):
         InstancePool("m", None, store, mesh_shape=(1, 4))
+    # the cluster's source= is ported: the platform hands it to its pools
+    src = ShardSource()
+    plat = ServerlessPlatform(store, {"m": None}, device="cpu",
+                              cache_budget_bytes=0, source=src)
+    assert plat.source is src and plat.pools["m"].source is src
     # the autoscaler is ported: autoscale= builds one over the platform's
     # pools, and every router the platform makes reports to it
     plat = ServerlessPlatform(store, {}, device="cpu",
@@ -403,7 +408,8 @@ def test_unported_options_raise(tmp_path):
     asc.stop()
     m = transformer.build(get_config("smollm-360m", smoke=True),
                           device="cpu")
-    for kw, item in ((dict(mesh=object()), "13"), (dict(rules={}), "13"),
-                     (dict(source=object()), "14")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for kw in (dict(mesh=object()), dict(rules={})):
+        with pytest.raises(NotImplementedError, match="item 13"):
             ColdStartEngine(m, "m", store, device="cpu", **kw)
+    assert ColdStartEngine(m, "m", store, device="cpu",
+                           source=src).source is src
