@@ -66,6 +66,15 @@ through the locality-aware front end keeps the TTL's cold flags, every
 response equals a standalone load's logits or ``reference_generate``'s
 tokens, each load launches one ``weight_transform`` an int8 leaf, and
 ``flush()`` returns the card's memory and empties the placement table.
+Last, shard-granular cold starts on a logical (1, 4) mesh of this card,
+a simulated store channel a device, under the lock probe: full-width
+smollm-360m from its f32 store (at f32 and with bf16 at A) and its int8
+store (bf16 at A), each bit-equal in logits and params to a
+single-device load, one shard stream a (unit, device) and one
+``weight_transform`` launch a transformed piece; a cache-served second
+load with no store open, an ``InstancePool(mesh_shape=4)`` scale-out,
+``launch/serve.py --mesh 4``, and mixtral-8x7b's int8 store with its
+experts two to a device.
 It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
 seven TPU kernels' counterparts and ``rmsnorm``), holds each against its
 plain PyTorch version on the card, the attention kernels also at head dims
@@ -76,7 +85,8 @@ prefill's last rows, decode rows bit-equal across the batch, the cache
 length and pages against slots, the scans' rows bit-equal across the batch
 and under trailing padding, ``weight_transform`` bit-equal on every path of
 its plan (one row, 17 and 5003 at each column width it tells apart, a
-misaligned ``w`` and ``scale``, the cast, a leaf past 2^31 elements); for
+misaligned ``w`` and ``scale``, the cast, a leaf past 2^31 elements, the
+sharded path's slices); for
 the recurrentgemma-2b and mixtral-8x7b loads that transform at A it prints
 the load's summed ``weight_transform`` device time beside its work_A.
 It checks that each path launched its kernels
@@ -335,6 +345,80 @@ def check_weight_transform(dev, report: dict, g):
     torch.cuda.empty_cache()
 
 
+# the pieces phase 26's placement lanes transform, as the lanes shape them
+# ((-1, cols) of the piece): (label, (n, m), int8 store, out dtype)
+WT_SLICES = (
+    ("smollm mlp/wg column slice at (1,4), cast", (960, 640), False, "bf16"),
+    ("smollm mlp/wd row slice at (1,4), cast", (640, 960), False, "bf16"),
+    ("smollm tok row slice at (1,4), cast", (12288, 960), False, "bf16"),
+    ("smollm tok row slice at (1,4), int8", (12288, 960), True, "bf16"),
+    ("smollm mlp/wg int8 read whole (640-byte runs)", (960, 2560), True,
+     "bf16"),
+    ("mixtral expert wg 2-of-8 slice, int8", (2 * 4096, 14336), True,
+     "bf16"),
+    ("mixtral expert wd 2-of-8 slice, int8", (2 * 14336, 4096), True,
+     "bf16"),
+)
+
+
+def check_slice_transforms(dev, g):
+    """``weight_transform`` on the slice shapes of the sharded cold start,
+    bit-equal to plain, and on one cast slice whose pointer is 4 bytes off
+    16 (the scalar path), timed beside the same slice aligned."""
+    import torch
+    from repro_torch.kernels import weight_transform as wmod
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    timed = {"smollm mlp/wg column slice at (1,4), cast",
+             "mixtral expert wg 2-of-8 slice, int8"}
+    for label, (n, m), q, dt in WT_SLICES:
+        dt = dts[dt]
+        if q:
+            w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
+                              dtype=torch.int8)
+            s = torch.rand(m, generator=g, device=dev) * 0.05
+        else:
+            w = torch.randn(n, m, generator=g, device=dev)
+            s = None
+        got = wmod.weight_transform(w, s, out_dtype=dt)
+        same = torch.equal(got, wmod.plain(w, s, out_dtype=dt))
+        torch.cuda.synchronize()
+        p = wmod.plan(n, m, dt, w.data_ptr(),
+                      None if s is None else s.data_ptr(), got.data_ptr())
+        print(f"  weight_transform {label} ({n},{m}) -> {str(dt)[6:]} "
+              f"({p.path}): {'exact' if same else 'MISMATCH'}")
+        need(same, f"weight_transform {label} differs from plain")
+        if label in timed:
+            b = n * m * (1 if q else 4) + n * m * got.element_size() + \
+                (m * 4 if q else 0)
+            extra_line("weight_transform", f"{label} ({n},{m}) -> "
+                       f"{str(dt)[6:]}",
+                       lambda: wmod.weight_transform(w, s, out_dtype=dt),
+                       lambda: wmod.plain(w, s, out_dtype=dt),
+                       lambda: (w.float() * s).to(dt) if q else w.to(dt),
+                       bound(b, n * m if q else 0, torch.float32),
+                       "(w.float() * s).to(dt)" if q else "w.to(dt)")
+        del w, s, got
+    # the wg column slice at a pointer 4 bytes off 16: the scalar path
+    n, m = 960, 640
+    buf = torch.randn(n * m + 1, generator=g, device=dev)
+    w = buf[1:].view(n, m)
+    p = wmod.plan(n, m, torch.bfloat16, w.data_ptr(), None, 0)
+    need(p.path == "scalar", f"the unaligned slice takes {p.path}")
+    same = torch.equal(wmod.weight_transform(w, None),
+                       wmod.plain(w, None))
+    torch.cuda.synchronize()
+    print(f"  weight_transform unaligned wg slice ({n},{m}) f32 at 4 mod "
+          f"16 -> bf16 ({p.path}): {'exact' if same else 'MISMATCH'}")
+    need(same, "weight_transform on the unaligned slice differs from plain")
+    extra_line("weight_transform", f"smollm mlp/wg column slice ({n},{m}) "
+               f"f32 at 4 mod 16 -> bf16 (scalar path)",
+               lambda: wmod.weight_transform(w, None),
+               lambda: wmod.plain(w, None), lambda: w.to(torch.bfloat16),
+               bound(n * m * 6, 0, torch.float32), "w.to(dt)")
+    del buf, w
+    torch.cuda.empty_cache()
+
+
 def transform_share(store, name: str, out_dtype, work_a: float,
                     launched: int):
     """An estimate of the device time of a load's ``weight_transform``
@@ -392,6 +476,7 @@ def check_kernels(dev, report: dict):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
     check_weight_transform(dev, report, g)
+    check_slice_transforms(dev, g)
 
     # --- flash_attention -----------------------------------------------------
     fl_err = 0.0
@@ -1206,20 +1291,16 @@ def check_rmsnorm(dev, report: dict, randn):
 # phases 4-5: cold starts (cast, dequant, pisel) and greedy generation
 # ---------------------------------------------------------------------------
 
-def cold_starts(dev, workdir: str):
-    import numpy as np
+def deploy_smollm(workdir: str):
+    """Phase 4's stores: smollm-360m at full width, random weights from
+    seed 0 (a CPU generator a unit), as ``smollm`` (f32) and
+    ``smollm-int8`` under ``<workdir>/store`` at 2000 MB/s."""
     import torch
-    from repro_torch.core import ColdStartEngine
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer
     from repro_torch.models.api import get_config
-    from repro_torch.serving.api import GenerateSpec
-    from repro_torch.serving.decode import sample_first
     from repro_torch.store.store import (BandwidthModel, WeightStore,
                                          deploy_model)
-
     cfg = get_config("smollm-360m")
-    model = transformer.build(cfg)
     t0 = time.perf_counter()
     cpu_model = transformer.build(cfg, device="cpu")
     units = {}
@@ -1236,6 +1317,22 @@ def cold_starts(dev, workdir: str):
           f"f32 {store.model_nbytes('smollm') / 1e9:.3f} GB, int8 "
           f"{store.model_nbytes('smollm-int8') / 1e9:.3f} GB in "
           f"{time.perf_counter() - t0:.1f} s (set-up)")
+    return store
+
+
+def cold_starts(dev, workdir: str):
+    import numpy as np
+    import torch
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving.api import GenerateSpec
+    from repro_torch.serving.decode import sample_first
+
+    cfg = get_config("smollm-360m")
+    model = transformer.build(cfg)
+    store = deploy_smollm(workdir)
 
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 128))
     batch = {"tokens": torch.as_tensor(prompt)}
@@ -3248,6 +3345,419 @@ def cluster_platform(dev, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 26: shard-granular cold starts on a logical (1, 4) mesh
+# ---------------------------------------------------------------------------
+
+SHARD_MESH = (1, 4)
+SHARD_MBPS = 2000.0       # each store channel, as phase 4's store
+
+
+def counting_store(root: str, channels: int):
+    """A store at SHARD_MBPS a channel that counts whole-unit reads and
+    shard-stream opens."""
+    import threading
+    from repro_torch.store.store import BandwidthModel, WeightStore
+
+    class CountingStore(WeightStore):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._count_lock = threading.Lock()
+            self.reset()
+
+        def read_unit(self, *a, **kw):
+            with self._count_lock:
+                self.unit_reads += 1
+            return super().read_unit(*a, **kw)
+
+        def open_unit(self, *a, **kw):
+            with self._count_lock:
+                self.shard_opens += 1
+            return super().open_unit(*a, **kw)
+
+        def reset(self):
+            self.unit_reads = self.shard_opens = 0
+
+    return CountingStore(root, BandwidthModel(bandwidth_mbps=SHARD_MBPS,
+                                              channels=channels))
+
+
+def same_params(a, b, what: str):
+    import torch
+    from repro_torch import tree as tree_util
+    fa, fb = tree_util.leaves_with_path(a), tree_util.leaves_with_path(b)
+    need([p for p, _ in fa] == [p for p, _ in fb], f"{what}: leaf paths")
+    for (p, x), (_, y) in zip(fa, fb):
+        need(x.dtype == y.dtype and torch.equal(x, y),
+             f"{what}: param {'/'.join(p)} differs from the single-device "
+             f"load's")
+
+
+def by_shard(trace, stage: str) -> dict:
+    """shard -> summed span (ms) of a stage's shard-tagged events."""
+    out = {}
+    for e in trace.events:
+        if e.stage == stage and e.meta and "shard" in e.meta:
+            out[e.meta["shard"]] = out.get(e.meta["shard"], 0.0) + \
+                e.duration * 1e3
+    return {k: round(v, 1) for k, v in sorted(out.items())}
+
+
+def mesh_vs_single(model, name: str, one, four, mesh, batch, label: str,
+                   **kw) -> dict:
+    """A cicada cold start of ``name`` on one device from ``one`` (one
+    channel) and on ``mesh`` from ``four`` (a channel a device): logits
+    and params bit-equal, one shard stream a (unit, device), no whole
+    read, R events from every shard, a T event for every (unit, shard)
+    that transforms, and one ``weight_transform`` launch a transformed
+    piece.  Returns the mesh load's launches."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    units = model.unit_names()
+    ref_eng = ColdStartEngine(model, name, one, strategy="cicada", **kw)
+    ref_eng.warmup(batch)
+    ref = ref_eng.load(batch)
+    eng = ColdStartEngine(model, name, four, strategy="cicada", mesh=mesh,
+                          **kw)
+    eng.warmup(batch)
+    four.reset()
+    before = ops.registry.dispatch_snapshot()
+    res = eng.load(batch)
+    d = delta(before)
+    plans = [eng._plan(u) for u in units]
+    n = mesh.size
+    need(torch.equal(res.logits, ref.logits),
+         f"{label}: mesh logits differ from the single-device load's")
+    same_params(ref.params, res.params, label)
+    need((four.shard_opens, four.unit_reads) == (len(units) * n, 0),
+         f"{label}: {four.shard_opens} shard opens, {four.unit_reads} "
+         f"whole reads, not {len(units) * n} and 0")
+    R = [e for e in res.trace.events if e.stage == "R"]
+    need(len(R) == len(units) * n and
+         {e.meta["shard"] for e in R} == set(range(n)),
+         f"{label}: R events {len(R)}, shards "
+         f"{sorted({e.meta['shard'] for e in R})}")
+    T = {(e.layer, e.meta["shard"]) for e in res.trace.events
+         if e.stage == "T"}
+    want_t = {(p.unit, s) for p in plans for s in range(n)
+              if p.n_transformed(s)}
+    need(T == want_t, f"{label}: T events on {len(T)} (unit, shard) "
+         f"pairs, not {len(want_t)}")
+    n_t = sum(p.n_transformed() for p in plans)
+    need(d["weight_transform"] == n_t,
+         f"{label}: {d['weight_transform']} weight_transform launches, "
+         f"not the plan's {n_t} transformed pieces")
+    specs = tree_util.leaves(res.shardings)
+    sharded = sum(not s.is_fully_replicated for s in specs)
+    need(sharded > 0, f"{label}: no leaf laid out sharded")
+    nb = one.model_nbytes(name)
+    per_ch = [sum(p.shard_nbytes(s) for p in plans) for s in range(n)]
+    print(f"  {label}: load on one device {ref.trace.total_time() * 1e3:.1f}"
+          f" ms (I/O floor {nb / (SHARD_MBPS * 1e3):.1f} ms on one "
+          f"channel), on {SHARD_MESH} {res.trace.total_time() * 1e3:.1f} ms "
+          f"(I/O floor {max(per_ch) / (SHARD_MBPS * 1e3):.1f} ms on "
+          f"{n} channels: bytes a channel {per_ch}); utilization "
+          f"{ref.trace.utilization():.1%} / {res.trace.utilization():.1%}; "
+          f"{sharded} of {len(specs)} leaves sharded; "
+          f"weight_transform {n_t} (pieces)")
+    summ = res.trace.summary()
+    print(f"    R ms by shard {by_shard(res.trace, 'R')}, T ms by shard "
+          f"{by_shard(res.trace, 'T')}; mesh stage work (s): L "
+          f"{summ['work_L']:.3f}, R {summ['work_R']:.3f}, T "
+          f"{summ['work_T']:.3f}, A {summ['work_A']:.3f}, E "
+          f"{summ['work_E']:.3f}; logits and params bit-equal")
+    return d
+
+
+def sample_threads(stop, period_s: float, out: dict):
+    """Until ``stop`` is set, every ``period_s`` note where each other
+    thread stands: its kind (the name without a pool's ``_N``) and its
+    innermost frame in the port (file, function, line), else ``other``
+    and its innermost function.
+    ``out[(kind, where)]`` counts the samples."""
+    import threading
+    me = threading.get_ident()
+    src = os.path.join(HERE, "src", "repro_torch")
+    while not stop.wait(period_s):
+        names = {t.ident: t.name for t in threading.enumerate()}
+        for ident, frame in sys._current_frames().items():
+            if ident == me:
+                continue
+            kind = names.get(ident, "?").rsplit("_", 1)[0]
+            where = f"other:{frame.f_code.co_name}"
+            while frame is not None:
+                code = frame.f_code
+                if code.co_filename.startswith(src):
+                    where = (f"{os.path.relpath(code.co_filename, src)}:"
+                             f"{code.co_name}:{frame.f_lineno}")
+                    break
+                frame = frame.f_back
+            out[(kind, where)] = out.get((kind, where), 0) + 1
+
+
+def split_mesh_load(eng, batch, label: str):
+    """One more load of ``eng`` (warmed up, on a mesh) traced two ways, to
+    split where its wall time goes.  torch.profiler with host and device
+    activity gives the device's busy time (the union of its kernels and
+    copies, so the lanes' overlapping streams count once) and the CUDA
+    runtime calls by thread.  A sampler that reads every thread's stack
+    each millisecond gives each kind of thread's time by the line of the
+    port it stands on (running or waiting).  The profiler's table goes
+    to ``chiprun_out/phase26_profile.txt``."""
+    import threading
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    samples: dict = {}
+    stop = threading.Event()
+    sampler = threading.Thread(target=sample_threads, name="sampler",
+                               args=(stop, 1e-3, samples))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sampler.start()
+        t0 = time.perf_counter()
+        eng.load(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        stop.set()
+        sampler.join()
+    spans, runtime = [], {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+        elif ev.name.startswith("cuda"):
+            runtime[ev.name] = runtime.get(ev.name, 0.0) + \
+                ev.self_cpu_time_total
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy /= 1e3
+    top = "; ".join(f"{k} {t / 1e3:.1f}" for k, t in sorted(
+        runtime.items(), key=lambda kv: -kv[1])[:6])
+    print(f"  profiled mesh load, {label}: wall {wall:.1f} ms; device busy "
+          f"{busy:.1f} ms ({busy / wall:.1%} of wall, {len(spans)} kernels "
+          f"and copies); CUDA runtime calls, ms over all threads: {top}")
+    kinds: dict = {}
+    for (kind, where), n in samples.items():
+        kinds.setdefault(kind, []).append((n, where))
+    for kind, rows in sorted(kinds.items(), key=lambda kv: -sum(
+            n for n, _ in kv[1])):
+        total = sum(n for n, _ in rows)
+        lines = ", ".join(f"{w} {n / total:.0%}"
+                          for n, w in sorted(rows, reverse=True)[:5])
+        print(f"    thread {kind}: {total} samples; {lines}")
+    need(busy > 0, f"{label}: the profiler saw no device time")
+    out = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "phase26_profile.txt"), "w") as f:
+        f.write(f"{label}: wall {wall:.1f} ms, device busy {busy:.1f} ms\n")
+        for (kind, where), n in sorted(samples.items(),
+                                       key=lambda kv: -kv[1]):
+            f.write(f"{kind}\t{where}\t{n}\n")
+        f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                          row_limit=60))
+
+
+def sharded_cold_starts(dev, workdir: str) -> dict:
+    """Phase 26: smollm-360m at full width from phase 4's f32 and int8
+    stores, cold-started on a logical (1, 4) mesh on this card with one
+    store channel a device, under the lock probe: the f32 store at f32
+    and with bf16 at A, the int8 store with bf16 at A, each against a
+    single-device load on one channel (:func:`mesh_vs_single`); one more
+    int8 mesh load under the profiler (:func:`split_mesh_load`); a second
+    mesh cold start through a shared WeightCache with no store open; an
+    ``InstancePool(mesh_shape=4)`` scale-out served from that cache;
+    ``launch/serve.py --mesh 4`` on a 4-invocation one-shot trace; and
+    phase 20's int8 mixtral-8x7b with bf16 at A on the mesh (its 8
+    experts two to a device) against its single-device load.  Returns
+    the launches of the mesh runs (their counts summed; the
+    single-device loads they are held against are left out)."""
+    import contextlib as ctx
+    import gc
+    import io
+    import numpy as np
+    import torch
+    from repro_torch import analysis
+    from repro_torch.analysis import lint, lockgraph
+    from repro_torch.core import ColdStartEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import InstancePool
+    from repro_torch.store.cache import WeightCache
+
+    launches = {n: 0 for n in ops.registry.names()}
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] += v
+
+    os.environ["REPRO_ANALYZE"] = "1"
+    analysis.probe.reset()
+    try:
+        mesh = make_serving_mesh(SHARD_MESH)
+        root = os.path.join(workdir, "store")
+        one, four = counting_store(root, 1), counting_store(root, 4)
+        cfg = get_config("smollm-360m")
+        model = transformer.build(cfg)
+        units = model.unit_names()
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (1, 128)))}
+        print(f"  mesh {mesh}; {len(units)} units; {card_line()}")
+        for label, name, adt in (
+                ("f32 store, f32", "smollm", None),
+                ("f32 store, bf16 at A", "smollm", torch.bfloat16),
+                ("int8 store, bf16 at A", "smollm-int8", torch.bfloat16)):
+            add(mesh_vs_single(model, name, one, four, mesh, batch,
+                               f"smollm-360m {label}", apply_dtype=adt))
+            gc.collect()
+
+        # where a mesh load's wall time goes: one profiled int8 load
+        eng = ColdStartEngine(model, "smollm-int8", four, mesh=mesh,
+                              apply_dtype=torch.bfloat16)
+        eng.warmup(batch)
+        before = ops.registry.dispatch_snapshot()
+        split_mesh_load(eng, batch, "smollm-360m int8 store, bf16 at A")
+        add(delta(before))
+        del eng
+        gc.collect()
+
+        # a second mesh cold start through a shared WeightCache
+        cache = WeightCache(0)
+        res = []
+        four.reset()
+        for i in range(2):
+            eng = ColdStartEngine(model, "smollm-int8", four, mesh=mesh,
+                                  cache=cache, apply_dtype=torch.bfloat16)
+            eng.warmup(batch)
+            before = ops.registry.dispatch_snapshot()
+            res.append(eng.load(batch))
+            add(delta(before))
+            need(four.shard_opens == len(units) * SHARD_MESH[1],
+                 f"cache load {i}: {four.shard_opens} shard opens, not "
+                 f"{len(units) * SHARD_MESH[1]}")
+        st = cache.stats()
+        need(torch.equal(res[0].logits, res[1].logits),
+             "the cache-served mesh load's logits differ")
+        need(all(e.meta.get("cached") for e in res[1].trace.events
+                 if e.stage == "R") and st.pinned == 0,
+             f"cache-served load: R events not all cached or pins left "
+             f"({st.pinned})")
+        print(f"  second mesh cold start through a shared WeightCache: "
+              f"{four.shard_opens} store opens in both loads, cache hits "
+              f"{st.hits} misses {st.misses}; loads "
+              f"{res[0].trace.total_time() * 1e3:.1f} / "
+              f"{res[1].trace.total_time() * 1e3:.1f} ms; logits bit-equal")
+        del res, eng
+
+        # InstancePool(mesh_shape=4): a scale-out served from the cache
+        pool = InstancePool("smollm-int8", lambda: (model, batch), four,
+                            max_instances=2, cache=cache, mesh_shape=4)
+        insts = [pool.acquire(), pool.acquire()]
+        before = ops.registry.dispatch_snapshot()
+        outs = [inst.invoke(batch) for inst in insts]
+        add(delta(before))
+        for inst in insts:
+            pool.release(inst, logical_now=0.0, cold=True)
+        need(all(info["cold"] for _, info in outs) and
+             four.shard_opens == len(units) * SHARD_MESH[1],
+             f"pool scale-out: cold {[i['cold'] for _, i in outs]}, "
+             f"{four.shard_opens} store opens")
+        need(torch.equal(outs[0][0], outs[1][0]),
+             "pool scale-out: the instances answer differently")
+        ref = ColdStartEngine(model, "smollm-int8", one).load(batch)
+        need(torch.equal(outs[0][0], ref.logits),
+             "pool scale-out: logits differ from a single-device load's")
+        print(f"  InstancePool(mesh_shape=4): two cold instances served "
+              f"from the cache (no store open), loads "
+              f"{[round(i['load_s'] * 1e3, 1) for _, i in outs]} ms, "
+              f"logits bit-equal to a single-device load's")
+        del pool, insts, outs, ref
+        cache.clear()
+        gc.collect()
+
+        # the launcher, --mesh 4, over phase 4's f32 store
+        lroot = os.path.join(workdir, "shard-launch")
+        os.makedirs(lroot, exist_ok=True)
+        link = os.path.join(lroot, "smollm-360m")
+        if not os.path.exists(link):
+            os.symlink(os.path.join(root, "smollm"), link)
+        buf = io.StringIO()
+        before = ops.registry.dispatch_snapshot()
+        with ctx.redirect_stdout(buf):
+            got = tserve.main(["--models", "smollm-360m", "--full",
+                               "--mesh", "4", "--invocations", "4",
+                               "--duration", "60", "--keep-alive", "20",
+                               "--workload", "oneshot", "--bandwidth-mbps",
+                               f"{SHARD_MBPS:.0f}", "--store", lroot])
+        add(delta(before))
+        out = buf.getvalue()
+        print("\n".join("    " + line for line in out.splitlines()))
+        rs = got["cicada"]
+        need("mesh: (1, 4) = 4 logical devices on one physical device" in
+             out, "launcher: no mesh line")
+        need(len(rs) == 4 and 1 <= sum(r.cold for r in rs),
+             f"launcher: {len(rs)} responses, {sum(r.cold for r in rs)} "
+             f"cold")
+        del got, rs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # mixtral-8x7b at MIXTRAL_LAYERS, phase 20's int8 store, bf16 at A
+        mcfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                                   n_layers=MIXTRAL_LAYERS)
+        mmodel = transformer.build(mcfg)
+        mroot = os.path.join(workdir, "mixtral-int8")
+        mbatch = {"tokens": torch.as_tensor(np.random.default_rng(0)
+                                            .integers(0, mcfg.vocab_size,
+                                                      (1, 128)))}
+        m1, m4 = counting_store(mroot, 1), counting_store(mroot, 4)
+        add(mesh_vs_single(mmodel, "mixtral-int8", m1, m4, mesh, mbatch,
+                           f"mixtral-8x7b at {MIXTRAL_LAYERS} layers, int8 "
+                           f"store, bf16 at A", apply_dtype=torch.bfloat16))
+        eng = ColdStartEngine(mmodel, "mixtral-int8", m4, mesh=mesh,
+                              apply_dtype=torch.bfloat16)
+        wg = [p for s in eng._plan("block_000").pieces for p in s
+              if p.leaf == "moe/experts/wg"]
+        per = mcfg.n_experts // SHARD_MESH[1]
+        need(len(wg) == SHARD_MESH[1] and
+             all(p.index[0].stop - p.index[0].start == per for p in wg),
+             f"mixtral expert wg pieces {[p.index for p in wg]}, not "
+             f"{per} experts a device")
+        del mmodel, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the lock probe over the phase
+        observed = analysis.probe.report()
+        for line in lock_hotspots(observed):
+            print(line)
+        need(observed["cycles"] == [],
+             f"observed lock-order cycles {observed['cycles']}")
+        need(observed["hazards"] == [],
+             f"locks held across I/O {observed['hazards']}")
+        static, _ = lint.build_static_lockgraph(lint.load_models(
+            os.path.join(HERE, "src", "repro_torch")))
+        merged = lockgraph.merge(static, observed)
+        need(merged["cycles"] == [],
+             f"static + observed lock graph cycles {merged['cycles']}")
+        print(f"  probe: {len(observed['locks'])} instrumented locks, no "
+              f"cycle, no lock held across a store read")
+    finally:
+        os.environ.pop("REPRO_ANALYZE", None)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # phases 20-24: the MoE family (mixtral-8x7b, arctic-480b) and the audio
 # (hubert-xlarge) and VLM (internvl2-76b) stub families
 # ---------------------------------------------------------------------------
@@ -4041,6 +4551,16 @@ def main() -> int:
             clus["launches"],
             ("flash_attention", "decode_attention", "weight_transform",
              "rmsnorm"))
+        torch.cuda.empty_cache()
+        phase(f"[26] shard-granular cold starts on a logical {SHARD_MESH} "
+              f"mesh, a store channel a device: smollm-360m f32 and int8 "
+              f"against one device, a cache-served reload, a pool "
+              f"scale-out, launch/serve.py --mesh 4, mixtral-8x7b int8, "
+              f"under the lock probe")
+        shard = sharded_cold_starts(dev, wd)
+        paths["sharded cold start"] = (
+            shard["launches"],
+            ("weight_transform", "flash_attention", "rmsnorm"))
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

@@ -137,7 +137,10 @@ class ClusterPlatform:
         start reads the origin.  The per-node cache budget defaults to
         unbounded (0).  ``device``: where every node loads and serves
         (default: the GPU; raises without one unless ``device="cpu"``).
-        Remaining kwargs reach every node's ServerlessPlatform."""
+        Remaining kwargs reach every node's ServerlessPlatform — e.g.
+        ``mesh_shape=(1, 4)``, which makes every node's cold starts
+        shard-granular (the peer tier then exchanges shard payloads under
+        their ``(mesh_tag, shard)`` keys)."""
         self.store = store
         self.device = resolve_device(device)
         self.placement = PlacementTable()

@@ -32,9 +32,18 @@ With ``source=`` (a :class:`~repro_torch.core.decoupler.ShardSource`,
 e.g. a cluster node's peer-exchange tier) the decoupled streams that
 miss the cache read their bytes through it instead of the origin store.
 
-Single device: the reference's mesh (shard-granular) cold starts come
-with a later slice (ROADMAP queue 1 item 13); passing ``mesh=`` or
-``rules=`` raises.
+**Shard-granular cold starts** (``mesh=`` + ``rules=``): the unit of
+pipelined retrieval becomes a *(layer-unit, shard)* pair — one stream per
+mesh device, each reading only the byte ranges its device owns, its
+pieces transformed and committed on a placement lane the moment they land
+(see :mod:`repro_torch.core.shards`).  The port's mesh is logical: every
+device of it lies on the engine's one physical device, so the one
+allocation a leaf's shards commit into is the leaf that E and the
+steady-state params use, and the load's logits and params are bit-equal
+to the single-device load's.  ``LoadResult.shardings`` says how each
+steady-state leaf is laid out over the mesh.  The fused strategies
+(``pisel``, ``mini``, ``traditional``) keep unit-granular reads.  A mesh
+of one device is exactly the seed path.
 """
 from __future__ import annotations
 
@@ -50,11 +59,14 @@ from repro_torch.core import miniloader
 from repro_torch.core.decoupler import ShardSource, WeightDecoupler
 from repro_torch.core.pipeline import PipelineTrace
 from repro_torch.core.scheduler import PriorityAwareScheduler
+from repro_torch.core.shards import ShardedUnitData, UnitShardPlan, plan_unit
 from repro_torch.core.strategies import Strategy, get_strategy
 from repro_torch.core.units import (APPLIED, OUTPUT, PipelineContext,
                                     PipelineRuntime, PipelineState,
                                     standard_units)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.distributed.sharding import (ShardingRules, param_specs,
+                                              serve_rules)
 from repro_torch.kernels import ops
 from repro_torch.models.api import Family
 from repro_torch.models.transformer import unit_seed
@@ -71,6 +83,9 @@ class LoadResult:
     params: PyTree               # assembled steady-state parameters
     trace: PipelineTrace
     strategy: str
+    # each steady-state leaf's NamedSharding over the engine's mesh
+    # (None without one)
+    shardings: Optional[PyTree] = None
 
 
 class ColdStartEngine:
@@ -108,16 +123,29 @@ class ColdStartEngine:
         tier.  Used only by strategies that decouple, and only with a
         cache.
 
-        mesh / rules: shard-granular cold starts of the reference; not
-        ported yet (ROADMAP queue 1 item 13), so anything but None
-        raises.
+        mesh / rules: shard-granular cold start — retrieval fans out
+        into one stream per mesh device (a ``Mesh`` of logical devices on
+        ``device``, :func:`repro_torch.launch.mesh.make_serving_mesh`);
+        rules defaults to ``serve_rules()``; a 1-device mesh is the seed
+        path.
 
         device: where the model is loaded and run (default: the GPU;
         raises without one unless ``device="cpu"``)."""
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "shard-granular cold starts (mesh=, rules=) are not ported "
-                "yet — ROADMAP queue 1 item 13")
+        if rules is not None and not isinstance(rules, ShardingRules):
+            raise TypeError(f"rules must be a ShardingRules, got "
+                            f"{type(rules).__name__}")
+        if mesh is not None and mesh.size <= 1:
+            mesh = None                    # degenerate: exact seed path
+        if compute_quant and mesh is not None:
+            raise ValueError(
+                "compute_quant serves int8 leaves in place on a single "
+                "device; mesh-sharded quantized residency is not "
+                "supported (shard plans describe the dequantized layout)")
+        self.mesh = mesh
+        self.rules = (rules if rules is not None else serve_rules()) \
+            if mesh is not None else None
+        self._shard_plans: Dict[str, UnitShardPlan] = {}
+        self._param_specs: Optional[PyTree] = None
         self.model = model
         self.model_name = model_name
         self.store = store
@@ -142,6 +170,9 @@ class ColdStartEngine:
         if model.device != self.device:
             raise ValueError(f"model is built for {model.device}, engine "
                              f"runs on {self.device}")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh lies on {mesh.device}, engine runs on "
+                             f"{self.device}")
 
     # -------------------------------------------------------------- helpers
     def _apply_fn(self, unit: str) -> Callable:
@@ -166,6 +197,15 @@ class ColdStartEngine:
             p = self.model.init_unit(name, gen)
             state = self._apply_fn(name)(p, state)
         synchronize(self.device)
+
+    def _plan(self, unit: str) -> UnitShardPlan:
+        """Static per-unit shard plan (kept across loads)."""
+        if unit not in self._shard_plans:
+            self._shard_plans[unit] = plan_unit(
+                self.store, self.model_name, unit,
+                self.model.abstract_unit(unit), self.mesh, self.rules,
+                apply_dtype=self.apply_dtype)
+        return self._shard_plans[unit]
 
     def _apply_leaves(self, unit: str, abstract: PyTree,
                       leaves: Leaves) -> PyTree:
@@ -195,6 +235,24 @@ class ColdStartEngine:
                 flat[name] = d
         return unflatten_unit(abstract, flat)
 
+    def _apply_unit(self, unit: str, abstract: PyTree, leaves) -> PyTree:
+        """A_i.  After a sharded retrieval the placement lanes have
+        already copied (and, for dequant/cast leaves, transformed) every
+        leaf into its one allocation on the device, where every logical
+        device of the mesh lies: this stream waits for their work and
+        takes those leaves as they are."""
+        if isinstance(leaves, ShardedUnitData):
+            leaves.wait()           # this stream after every shard's work
+            return unflatten_unit(abstract, leaves.compute_bufs)
+        return self._apply_leaves(unit, abstract, leaves)
+
+    def _shardings(self, params: PyTree) -> Optional[PyTree]:
+        """The steady-state leaves' NamedShardings (from their shapes,
+        which every load shares)."""
+        if self.mesh is not None and self._param_specs is None:
+            self._param_specs = param_specs(params, self.mesh, self.rules)
+        return self._param_specs
+
     # ----------------------------------------------------------------- load
     def load(self, batch: Dict[str, Any], *, seed: int = 0,
              on_logits: Optional[Callable[[torch.Tensor], None]] = None
@@ -213,12 +271,14 @@ class ColdStartEngine:
         trace = PipelineTrace()
         scheduler = PriorityAwareScheduler(enabled=strat.scheduler)
         state = PipelineState()
+        sharded = self.mesh is not None and strat.decouple
         dec = WeightDecoupler(self.store, self.model_name, scheduler, trace,
                               state, io_workers=self.io_workers,
                               chunk_bytes=self.chunk_bytes,
                               cache=self.cache if strat.decouple else None,
                               source=self.source if strat.decouple
-                              and self.cache is not None else None)
+                              and self.cache is not None else None,
+                              plan_fn=self._plan if sharded else None)
         trace.start()
         try:
             if not strat.pipelined:
@@ -284,7 +344,7 @@ class ColdStartEngine:
         params = self.model.assemble(applied)
         synchronize(self.device)
         return LoadResult(state["logits"], params, trace,
-                          self.strategy.name)
+                          self.strategy.name, self._shardings(params))
 
     # ------------------------------------------------------- pipelined path
     def _load_pipelined(self, batch, units, seeds, trace, dec, scheduler,
@@ -297,7 +357,7 @@ class ColdStartEngine:
             model=self.model, units=list(units), seeds=list(seeds),
             batch=batch, strategy=strat, trace=trace, decoupler=dec,
             scheduler=scheduler, state=state,
-            apply_leaves=self._apply_leaves, apply_fn=self._apply_fn,
+            apply_leaves=self._apply_unit, apply_fn=self._apply_fn,
             device=self.device, on_output=on_logits,
             weight_stream=torch.cuda.Stream(self.device) if cuda else None,
             compute_stream=torch.cuda.Stream(self.device) if cuda else None)
@@ -305,8 +365,9 @@ class ColdStartEngine:
         with torch.no_grad():
             params = self.model.assemble(state.peek(APPLIED))
         synchronize(self.device)
+        dec.trace_transforms()          # device-timed, so after the sync
         return LoadResult(state.get(OUTPUT, "logits"), params, trace,
-                          strat.name)
+                          strat.name, self._shardings(params))
 
 
 def _named(abstract: PyTree):

@@ -26,21 +26,37 @@ origin store, or with ``source=`` a cluster's peer-exchange tier
 (:class:`~repro_torch.cluster.peer.ClusterShardSource`), which serves the
 payload from a peer node's cache over the intra-cluster link and falls
 back to the origin read only when this node is the cluster-wide leader
-for the unit.  Retrieval here is unit-granular (shard key 0); the
-reference's shard-granular plans are ROADMAP queue 1 item 13.
+for the key.
+
+With a shard plan (``plan_fn=``, given by an engine with a mesh),
+retrieval is **shard-granular**: every unit fans out into one stream per
+mesh device (a :class:`~repro_torch.core.shards.UnitShardPlan`), each
+reading only the byte ranges of the leaf slices its device owns, on its
+own simulated-device channel, and cached under ``(model, unit,
+(mesh_tag, shard))``.  Streams complete out of order across shards, not
+just units: a landed shard goes at once to a placement lane (one of
+``min(4, shards)`` threads, each with its own CUDA stream), which copies
+its pieces to the device, runs ``weight_transform`` on the transformed
+ones and commits them (:meth:`ShardedUnitData.add_shard`), and
+``ready[unit]`` publishes when the unit's **last** shard has been placed.
+Without a plan the unit-granular path (shard key 0) is unchanged.
 
 In the PISeL baseline the two phases are fused and strictly ordered;
 :meth:`WeightDecoupler.fetch_sync` provides that path.
 """
 from __future__ import annotations
 
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
+import torch
+
 from repro_torch import analysis
 from repro_torch.core.pipeline import PipelineTrace
 from repro_torch.core.scheduler import PriorityAwareScheduler
+from repro_torch.core.shards import ShardedUnitData, UnitShardPlan
 from repro_torch.core.units import PipelineState
 from repro_torch.store.cache import LOAD, WeightCache
 from repro_torch.store.store import Leaves, WeightStore
@@ -82,7 +98,8 @@ class WeightDecoupler:
                  state: PipelineState, *, io_workers: int = 4,
                  chunk_bytes: int = 1 << 20,
                  cache: Optional[WeightCache] = None,
-                 source: Optional[ShardSource] = None):
+                 source: Optional[ShardSource] = None,
+                 plan_fn: Optional[Callable[[str], UnitShardPlan]] = None):
         """``state``: the run's PipelineState.  The decoupler shares its
         condition variable, so stream completions directly wake pipeline
         units blocked on that state, and puts stream errors there.
@@ -94,7 +111,11 @@ class WeightDecoupler:
         ``source``: where a local-cache miss reads its bytes (see
         :class:`ShardSource`).  Requires a cache: the source's publish
         step is what makes this node's resident copy visible to peers,
-        and peers are served from that cache."""
+        and peers are served from that cache.
+
+        ``plan_fn``: unit -> UnitShardPlan — enables shard-granular
+        retrieval (the engine supplies plans resolved from its mesh and
+        sharding rules).  None keeps unit-granular streams."""
         if source is not None and cache is None:
             raise ValueError("a ShardSource requires a WeightCache "
                              "(peers are served from this node's cache)")
@@ -106,13 +127,27 @@ class WeightDecoupler:
         self.io_workers = io_workers
         self.cache = cache
         self.source = source
+        self.plan_fn = plan_fn
+        self._plans: Dict[str, UnitShardPlan] = {}
+        self._mesh_tag: Optional[str] = None
+        # Created at prefetch, sized to the stream count: a suspended
+        # stream parks INSIDE its worker (gate.wait mid-read), so a pool
+        # smaller than the stream fan-out can wedge.
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._committer: Optional[ThreadPoolExecutor] = None
+        self._lanes = threading.local()    # each lane thread's CUDA stream
+        # unit -> its shard streams, submitted when the unit is admitted
+        self._waiting: Dict[str, List[Tuple]] = {}    # guarded-by: cv
         self.state = state
         # the run's condition variable, borrowed; the factory call names
         # it a lock for the concurrency lint (as the reference's does)
         self.cv = state.cv if state is not None \
             else analysis.make_condition("WeightDecoupler.cv")
-        self.ready: Dict[str, Leaves] = {}            # guarded-by: cv
+        self._unadmitted: List[str] = []              # guarded-by: cv
+        self._reads_left: Dict[str, int] = {}         # guarded-by: cv
+        # unit -> Leaves (unit-granular) | ShardedUnitData (complete)
+        self.ready: Dict[str, Any] = {}               # guarded-by: cv
+        # (unit, shard key) cache pins
         self._pinned: set = set()                     # guarded-by: cv
         self._load_registered = False
         self._closed = False                          # guarded-by: cv
@@ -120,38 +155,91 @@ class WeightDecoupler:
     # ------------------------------------------------------ async retrieval
     def prefetch(self, units: List[str]):
         """Issue every retrieval stream now (at request arrival) — this is
-        what lets retrieval overlap layer construction."""
+        what lets retrieval overlap layer construction.  With a shard
+        plan, that is ``n_units x n_shards`` independent streams."""
         if self.cache is not None and not self._load_registered:
             self.cache.register_load(self.model_name)
             self._load_registered = True
-        self._pool = ThreadPoolExecutor(max_workers=self.io_workers,
-                                        thread_name_prefix="cicada-io")
+        if self.plan_fn is None:
+            self._pool = ThreadPoolExecutor(max_workers=self.io_workers,
+                                            thread_name_prefix="cicada-io")
+            for u in units:
+                nbytes = self.store.unit_nbytes(self.model_name, u)
+                st = self.scheduler.register(u, nbytes)
+                self._pool.submit(self._fetch, u, st)
+            return
+        # Unit admission window: only ``io_workers`` units' shard streams
+        # read concurrently, admitted in pipeline order and advanced as
+        # units finish.  With every stream admitted at once they would
+        # fair-share the channels and ALL units would land near the end
+        # of the load — no early unit for the pipeline to apply and
+        # execute against.  A unit's streams are submitted when it is
+        # admitted, so the pool holds every admitted stream at once (a
+        # suspended stream parks inside its worker) and no idle waiter.
+        width = min(self.io_workers, len(units))
+        # pre-thread initialization: the stream workers that share cv
+        # are submitted only at the end of this method
+        self._unadmitted = list(units)      # analysis: ignore[R1]
+        self._reads_left = {}               # analysis: ignore[R1]
+        self._waiting = {}                  # analysis: ignore[R1]
         for u in units:
-            nbytes = self.store.unit_nbytes(self.model_name, u)
-            st = self.scheduler.register(u, nbytes)
-            self._pool.submit(self._fetch, u, st)
+            plan = self.plan_fn(u)
+            self._plans[u] = plan
+            data = ShardedUnitData(plan, trace=self.trace)
+            if self._mesh_tag is None:
+                self._mesh_tag = plan.tag
+            self._reads_left[u] = plan.n_shards     # analysis: ignore[R1]
+            self._waiting[u] = [                    # analysis: ignore[R1]
+                (u, s, self.scheduler.register(u, plan.shard_nbytes(s),
+                                               shard=s), data)
+                for s in range(plan.n_shards)]
+        shards = max(p.n_shards for p in self._plans.values())
+        self._pool = ThreadPoolExecutor(
+            max_workers=max(self.io_workers, width * shards),
+            thread_name_prefix="cicada-io")
+        # placement lanes — the modeled per-device DMA queues: host
+        # merges, copies, transforms and commits run here instead of on
+        # the read threads, and still start the moment each shard lands
+        self._committer = ThreadPoolExecutor(
+            max_workers=min(4, shards), thread_name_prefix="cicada-commit")
+        with self.cv:
+            for _ in range(width):
+                self._admit_next_locked()
+
+    def _admit_next_locked(self):
+        """Admit the next unit in pipeline order: submit its shard
+        streams (cv held, so that shutdown sees either the submission or
+        no admission at all)."""
+        if self._closed or not self._unadmitted:
+            return
+        unit = self._unadmitted.pop(0)
+        for stream in self._waiting.pop(unit):
+            self._pool.submit(self._fetch_shard, *stream)
 
     @staticmethod
-    def _src_meta(src: str) -> Optional[Dict[str, Any]]:
+    def _src_meta(src: str, meta: Optional[Dict[str, Any]] = None
+                  ) -> Optional[Dict[str, Any]]:
         """Trace annotation of a stream's byte source: origin reads are
         unmarked, cache hits carry ``cached``, peer-exchange transfers
         carry ``peer``."""
         if src == "cache":
-            return {"cached": True}
-        if src == "peer":
-            return {"peer": True}
-        return None
+            meta = dict(meta or (), cached=True)
+        elif src == "peer":
+            meta = dict(meta or (), peer=True)
+        return meta
 
-    def _progress_cb(self, unit: str, total: int) -> Callable[[int], None]:
+    def _progress_cb(self, unit: str, total: int, shard: Hashable = 0
+                     ) -> Callable[[int], None]:
         """Per-chunk progress callback of a source-driven transfer (the
         peer link): accumulates into the scheduler's stream state as
-        :meth:`_read_store` does for origin reads."""
+        :meth:`_read_store` and :meth:`_read_shard` do for origin
+        reads."""
         done = [0]
         t = max(1, int(total))
 
         def cb(n: int):
             done[0] += n
-            self.scheduler.on_progress(unit, done[0], t)
+            self.scheduler.on_progress(unit, done[0], t, shard=shard)
         return cb
 
     def _fetch(self, unit: str, st):
@@ -209,9 +297,9 @@ class WeightDecoupler:
                 raise
             if self.source is not None:
                 self.source.publish(self.model_name, unit, 0)
-            self._pin(unit)
+            self._pin(unit, 0)
             return leaves, src
-        self._pin(unit)
+        self._pin(unit, 0)
         return leaves, "cache"
 
     def _read_store(self, unit: str, st) -> Leaves:
@@ -221,25 +309,163 @@ class WeightDecoupler:
             on_progress=lambda d, t: self.scheduler.on_progress(unit, d, t))
         return self.store.deserialize(self.model_name, unit, raw)
 
+    # ------------------------------------------------- shard-granular path
+    def _shard_key(self, shard: int) -> Hashable:
+        # cache identity: the same unit planned for a different mesh
+        # shape OR different sharding rules holds different byte ranges —
+        # never serve one as the other (the tag fingerprints both; see
+        # shards.plan_tag)
+        return (self._mesh_tag, shard)
+
+    def _fetch_shard(self, unit: str, shard: int, st,
+                     data: ShardedUnitData):
+        try:
+            with self.cv:
+                if self._closed:            # the load was shut down
+                    return
+            self.scheduler.on_issue(unit, shard=shard)
+            with self.cv:
+                self.cv.notify_all()
+            t0 = time.monotonic()
+            payload, src = self._retrieve_shard(unit, shard, st, data)
+            self.trace.add_event("R", unit, t0, time.monotonic(),
+                                 meta=self._src_meta(src, {"shard": shard}))
+            self.scheduler.on_complete(unit, observed=(src == "origin"),
+                                       shard=shard)
+            with self.cv:                   # unit fully read: admit next
+                self._reads_left[unit] -= 1
+                if self._reads_left[unit] == 0:
+                    self._admit_next_locked()
+            # placement runs on a lane the moment the shard lands — out
+            # of order across shards, no sibling barrier
+            self._committer.submit(self._commit_shard, unit, shard, data,
+                                   payload, self.cache is None)
+        except BaseException as e:
+            self.scheduler.on_error(unit, shard=shard)
+            self.state.fail(e)
+
+    def _lane_stream(self, device: torch.device):
+        """This placement lane's own CUDA stream (made on first use)."""
+        stream = getattr(self._lanes, "stream", None)
+        if stream is None:
+            stream = self._lanes.stream = torch.cuda.Stream(device)
+        return stream
+
+    def _commit_shard(self, unit: str, shard: int, data: ShardedUnitData,
+                      payload, merged: bool):
+        try:
+            # host merge (cache path only), the per-shard weight_transform
+            # of dequant/cast pieces and the commit, on the lane's
+            # stream; exactly one lane — the unit-completing one, after
+            # the unit's ready event is recorded — gets last=True
+            dev = data.device
+            if dev.type == "cuda":
+                with torch.cuda.stream(self._lane_stream(dev)):
+                    last = data.add_shard(shard, payload, merged=merged)
+            else:
+                last = data.add_shard(shard, payload, merged=merged)
+            with self.cv:
+                if last:
+                    self.ready[unit] = data
+                self.cv.notify_all()
+        except BaseException as e:
+            self.state.fail(e)
+
+    def _retrieve_shard(self, unit: str, shard: int, st,
+                        data: ShardedUnitData):
+        skey = self._shard_key(shard)
+        if self.cache is None:
+            # no cache: late leaves gather straight into their full host
+            # tensors (the cache path keeps standalone slices — its
+            # payloads outlive this load)
+            return self._read_shard(unit, shard, st, data), "origin"
+        self.scheduler.mark_external(unit, shard=shard)
+        status, payload = self.cache.begin(self.model_name, unit, skey)
+        if status == LOAD:
+            def read_origin():
+                self.scheduler.mark_external(unit, False, shard=shard)
+                return self._read_shard(unit, shard, st)
+            src = "origin"
+            try:
+                if self.source is None:
+                    payload = read_origin()
+                else:
+                    payload, src = self.source.fetch(
+                        self.model_name, unit, skey, st.nbytes,
+                        read_origin, gate=st.gate,
+                        on_chunk=self._progress_cb(unit, st.nbytes, shard))
+                self.cache.complete(self.model_name, unit, payload,
+                                    st.nbytes, skey)
+            except BaseException:
+                self.cache.abort(self.model_name, unit, skey)
+                if self.source is not None:
+                    self.source.abort(self.model_name, unit, skey)
+                raise
+            if self.source is not None:
+                self.source.publish(self.model_name, unit, skey)
+            self._pin(unit, skey)
+            return payload, src
+        self._pin(unit, skey)
+        return payload, "cache"
+
+    def _read_shard(self, unit: str, shard: int, st,
+                    data: Optional[ShardedUnitData] = None):
+        """One shard stream: byte-range reads of every leaf slice this
+        shard owns, over the shard's own simulated-device channel.
+
+        With ``data`` a late leaf's slice is gathered straight into the
+        leaf's full host tensor (:meth:`ShardedUnitData.host_dest`);
+        every other slice, and every slice on the cache path, into a
+        contiguous tensor of its own."""
+        plan = self._plans[unit]
+        total = max(1, plan.shard_nbytes(shard))
+        done = [0]
+
+        def on_chunk(n: int):
+            done[0] += n
+            self.scheduler.on_progress(unit, done[0], total, shard=shard)
+
+        payload = []
+        with self.store.open_unit(self.model_name, unit) as fh:
+            for piece in plan.pieces[shard]:
+                out = None
+                if data is not None and piece.index is not None:
+                    out = data.host_dest(piece.leaf, piece.index)
+                arr, scale = self.store.read_leaf_slice(
+                    self.model_name, unit, piece.leaf, piece.index,
+                    fh=fh, chunk_bytes=self.chunk_bytes, gate=st.gate,
+                    on_chunk=on_chunk, channel=shard, out=out)
+                payload.append((piece.leaf, arr, scale, piece.index))
+        return payload
+
+    def trace_transforms(self):
+        """Put the placement lanes' ``T`` events, timed on the card, on
+        the trace; call once the load has synchronized the device."""
+        with self.cv:
+            done = [d for d in self.ready.values()
+                    if isinstance(d, ShardedUnitData)]
+        for data in done:
+            data.trace_transforms()
+
     # ------------------------------------------------------ cache bookkeeping
-    def _pin(self, unit: str):
+    def _pin(self, unit: str, skey: Hashable):
         with self.cv:
             if not self._closed:
-                self._pinned.add(unit)
+                self._pinned.add((unit, skey))
                 return
         # shutdown already swept pins: release straight away
-        self.cache.release(self.model_name, unit)
+        self.cache.release(self.model_name, unit, skey)
 
     def checkin(self, unit: str):
-        """Weight application of ``unit`` is done: drop its cache pin
-        (no-op without a cache)."""
+        """Weight application of ``unit`` is done: drop the cache pins of
+        all its shards (no-op without a cache)."""
         if self.cache is None:
             return
         with self.cv:
-            if unit not in self._pinned:
-                return
-            self._pinned.discard(unit)
-        self.cache.release(self.model_name, unit)
+            mine = [(u, k) for (u, k) in self._pinned if u == unit]
+            self._pinned.difference_update(mine)
+        for u, k in mine:
+            self.cache.release(self.model_name, u, k)
 
     # ------------------------------------------------------ sync (PISeL)
     def fetch_sync(self, unit: str) -> Leaves:
@@ -260,9 +486,11 @@ class WeightDecoupler:
             self.cv.notify_all()
         if self._pool is not None:
             self._pool.shutdown(wait=False)
+        if self._committer is not None:
+            self._committer.shutdown(wait=False)
         if self.cache is not None:
-            for u in pinned:                 # pins left by an aborted load
-                self.cache.release(self.model_name, u)
+            for u, k in pinned:              # pins left by an aborted load
+                self.cache.release(self.model_name, u, k)
             if self._load_registered:
                 self._load_registered = False
                 self.cache.unregister_load(self.model_name)

@@ -12,9 +12,15 @@ The paper's metrics (Sec. IV-C) all derive from per-stage timestamps:
 
 Stages: L = layer construction, R = weight file retrieval (its own row
 only under the WeightDecoupler), A = weight application, E = inference
-execution.  (The reference's per-shard transform stage T comes with the
-shard slice, ROADMAP queue 1 item 13.)  Thread-safe; timestamps are
-``time.monotonic()``.
+execution, T = per-shard weight transform (dequant/cast on the shard
+committer's placement lane under a mesh, before A).  Thread-safe;
+timestamps are ``time.monotonic()``.
+
+T events carry ``meta={"shard": <device index>}`` and live on their own
+Gantt row; they are *excluded* from the default busy/utilization stage
+set, as R is: transform work rides the retrieval lanes, so counting it
+would double-book intervals the utilization metric treats as
+overlap-eligible I/O time.
 """
 from __future__ import annotations
 
@@ -24,18 +30,20 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 from repro_torch import analysis
 
-STAGE_ROW = {"L": "Layer", "R": "Retrieve", "A": "Weight", "E": "Compute"}
+STAGE_ROW = {"L": "Layer", "R": "Retrieve", "T": "Transform",
+             "A": "Weight", "E": "Compute"}
 PRED = {"A": "L", "E": "A"}       # waiting-time predecessor (paper Sec IV-C)
 
 
 @dataclasses.dataclass
 class StageEvent:
-    stage: str                    # "L" | "R" | "A" | "E"
+    stage: str                    # "L" | "R" | "T" | "A" | "E"
     layer: str                    # unit name, e.g. "block_003"
     t_start: float
     t_end: float
-    meta: Optional[dict] = None   # R events served by the WeightCache:
-                                  # {"cached": True}
+    meta: Optional[dict] = None   # R events: {"cached": True} served by
+                                  # the WeightCache, {"shard": i} a shard
+                                  # stream; T events: {"shard": i}
 
     @property
     def duration(self) -> float:
@@ -211,6 +219,7 @@ class PipelineTrace:
             "utilization": self.utilization(),
             "work_L": work.get("L", 0.0),
             "work_R": work.get("R", 0.0),
+            "work_T": work.get("T", 0.0),
             "work_A": work.get("A", 0.0),
             "work_E": work.get("E", 0.0),
             "wait_A": wait.get("A", 0.0),

@@ -35,9 +35,14 @@ at most one origin read per unit, cluster-wide.  The report then prints
 each node's served / cold / warm counts and origin and peer reads, and
 the placement table; ``--metrics-out`` writes the cluster snapshot.
 
-The reference's ``--mesh`` is ROADMAP queue 1 item 13: it raises here.
-The port has no forced kernel mode: ``--pallas`` takes ``auto`` only,
-since a tensor's device alone picks its kernel.
+``--mesh N`` streams weights shard-granularly onto a ``(1, N)`` mesh of
+logical devices (one byte-range retrieval stream per device, each on its
+own simulated store channel: the store's device gets N channels) and
+serves warm requests from the params the shards committed.  The port's
+mesh is logical: its N devices lie on the one serving device, and the
+launcher says so.  ``--compute-quant`` is refused with it, as in the
+reference.  The port has no forced kernel mode: ``--pallas`` takes
+``auto`` only, since a tensor's device alone picks its kernel.
 """
 from __future__ import annotations
 
@@ -145,7 +150,9 @@ def _parser() -> argparse.ArgumentParser:
                          "this byte budget (0 = unbounded; default: no "
                          "cache)")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="model-parallel mesh width (not ported: only 1)")
+                    help="model-parallel mesh width: stream weights "
+                         "shard-granularly onto (1, N) logical devices on "
+                         "the serving device (1 = seed path)")
     ap.add_argument("--pallas", default="auto", choices=["auto"],
                     help="kernel dispatch: the port picks each kernel by "
                          "its tensors' device (auto only)")
@@ -163,7 +170,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="--nodes N: intra-cluster link bandwidth, one "
                          "channel per node (0 = unthrottled)")
     ap.add_argument("--bandwidth-mbps", type=float, default=400.0,
-                    help="simulated store bandwidth")
+                    help="simulated store bandwidth per channel; with "
+                         "--mesh N the store exposes N channels (one "
+                         "independent link per device)")
     ap.add_argument("--store", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
@@ -261,15 +270,12 @@ def _report_cluster(cluster, responses):
 
 def _refuse(args):
     """The options the launcher refuses, before anything is deployed."""
-    if args.mesh > 1:
-        raise NotImplementedError("--mesh: shard-granular serving is not "
-                                  "ported yet — ROADMAP queue 1 item 13")
+    # the reference's refusals, with its messages
+    if args.compute_quant and (args.mesh > 1 or args.nodes > 1):
+        raise SystemExit("--compute-quant serves int8 leaves in place on "
+                         "a single device; not supported with --mesh/"
+                         "--nodes")
     if args.nodes > 1:
-        # the reference's refusals, with its messages
-        if args.compute_quant:
-            raise SystemExit("--compute-quant serves int8 leaves in place "
-                             "on a single device; not supported with "
-                             "--mesh/--nodes")
         if args.autoscale:
             raise SystemExit("--autoscale is a per-node policy; not "
                              "supported with --nodes > 1")
@@ -285,7 +291,15 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     store_dir = args.store or tempfile.mkdtemp(prefix="cicada-store-")
-    store = WeightStore(store_dir, BandwidthModel(args.bandwidth_mbps, 0.2))
+    store = WeightStore(store_dir,
+                        BandwidthModel(args.bandwidth_mbps, 0.2,
+                                       channels=max(1, args.mesh)))
+    mesh_shape = (1, args.mesh) if args.mesh > 1 else None
+    if mesh_shape is not None:
+        card = torch.cuda.get_device_name(device) \
+            if device.type == "cuda" else "cpu"
+        print(f"mesh: {mesh_shape} = {args.mesh} logical devices on one "
+              f"physical device ({device}, {card}), one store channel each")
     builders = {}
     for name in args.models:
         cfg = get_config(name, smoke=args.smoke)
@@ -320,7 +334,8 @@ def main(argv=None):
                 else cache_budget,
                 strategy=strategy, keep_alive_s=args.keep_alive,
                 max_instances=args.max_instances, gen_slots=args.gen_slots,
-                gen_cache_len=args.gen_cache_len, device=device)
+                gen_cache_len=args.gen_cache_len, mesh_shape=mesh_shape,
+                device=device)
         else:
             platform = ServerlessPlatform(
                 store, builders, strategy=strategy,
@@ -331,6 +346,7 @@ def main(argv=None):
                 kv_page_tokens=args.kv_page_tokens,
                 kv_budget_bytes=None if args.kv_budget_mb is None
                 else int(args.kv_budget_mb * 1e6),
+                mesh_shape=mesh_shape,
                 compute_quant=args.compute_quant, device=device,
                 autoscale=dict(rps_per_instance=args.rps_per_instance)
                 if args.autoscale else None)

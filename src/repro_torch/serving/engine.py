@@ -18,9 +18,9 @@ paper's Fig. 2.
 ``autoscale=`` attaches the SLO :class:`~repro_torch.serving.autoscale.
 Autoscaler` to the platform's pools and routers.  ``source=`` wires a
 cluster node's peer-exchange tier into every pool's cold starts (see
-:mod:`repro_torch.cluster`).  Single device: the reference's mesh options
-(``mesh_shape``, ``rules``) are ROADMAP queue 1 item 13; passing them
-raises.
+:mod:`repro_torch.cluster`).  ``mesh_shape=`` makes every instance's cold
+start shard-granular over a mesh of logical devices on the platform's
+device (:mod:`repro_torch.core.shards`).
 """
 from __future__ import annotations
 
@@ -102,13 +102,15 @@ class ServerlessPlatform:
         streams — a cluster Node passes its peer-exchange tier here (see
         :mod:`repro_torch.cluster`); requires a cache.
 
-        mesh_shape / rules: not ported yet (ROADMAP queue 1 item 13);
-        anything but None raises.
+        mesh_shape / rules: shard-granular cold starts — every
+        instance's pipeline streams weights onto a ``(data, model)`` mesh
+        of this shape (logical devices on ``device``; one byte-range
+        retrieval stream per device; with the shared cache, keyed per
+        shard) and serves warm requests from the params the shards
+        committed.  ``4`` == ``(1, 4)``; rules defaults to the serving
+        TP rules.
+        ``compute_quant`` is single-device only.
         """
-        if mesh_shape is not None or rules is not None:
-            raise NotImplementedError(
-                "shard-granular serving (mesh_shape=, rules=) is not ported "
-                "yet — ROADMAP queue 1 item 13")
         self.store = store
         self.strategy = strategy
         self.device = resolve_device(device)
@@ -120,6 +122,7 @@ class ServerlessPlatform:
             cache = WeightCache(cache_budget_bytes, metrics=self.metrics)
         self.cache = cache
         self.source = source
+        self.mesh_shape = mesh_shape
         self.pools: Dict[str, InstancePool] = {
             name: InstancePool(name, builder, store, strategy=strategy,
                                policy=self.policy,
@@ -131,6 +134,7 @@ class ServerlessPlatform:
                                gen_cache_len=gen_cache_len,
                                kv_page_tokens=kv_page_tokens,
                                kv_budget_bytes=kv_budget_bytes,
+                               mesh_shape=mesh_shape, rules=rules,
                                compute_quant=compute_quant,
                                metrics=self.metrics, source=source,
                                device=self.device)

@@ -47,6 +47,7 @@ import torch
 from repro_torch import analysis, metrics as metrics_mod
 from repro_torch.core.coldstart import ColdStartEngine, LoadResult
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.serving.api import GenerateSpec, PoolStats
 from repro_torch.serving.decode import (DecodeScheduler, GenResult,
                                         _as_prompt, paged_page_count,
@@ -57,14 +58,6 @@ from repro_torch.store.cache import WeightCache
 from repro_torch.store.store import WeightStore
 
 PyTree = Any
-
-
-def _unported(mesh_shape, rules):
-    """The reference's mesh options, not ported yet."""
-    if mesh_shape is not None or rules is not None:
-        raise NotImplementedError(
-            "shard-granular cold starts (mesh_shape=, rules=) are not "
-            "ported yet — ROADMAP queue 1 item 13")
 
 
 class FunctionInstance:
@@ -105,18 +98,29 @@ class FunctionInstance:
         retrieval streams (a cluster node's peer-exchange tier; default:
         the origin store).
 
-        mesh_shape / rules: not ported yet; anything but None raises."""
-        _unported(mesh_shape, rules)
+        mesh_shape / rules: shard-granular cold starts — weights stream
+        onto a ``(data, model)`` mesh of this shape (``(1, 4)``, or just
+        ``4`` for 4-way model parallelism) of logical devices on
+        ``device``, one retrieval stream per device; the instance serves
+        warm requests from the params the shards committed.  rules defaults to
+        ``serve_rules()``."""
         self.model = model
         self.model_name = model_name
         self.example_batch = example_batch
+        mesh = None
+        if mesh_shape is not None:
+            if isinstance(mesh_shape, int):
+                mesh_shape = (1, mesh_shape)
+            mesh = make_serving_mesh(mesh_shape, device=device)
+        self.mesh = mesh
         self.engine = ColdStartEngine(model, model_name, store,
                                       strategy=strategy,
                                       io_workers=io_workers,
                                       chunk_bytes=chunk_bytes,
                                       compute_quant=compute_quant,
-                                      cache=cache, metrics=metrics,
-                                      source=source, device=device)
+                                      cache=cache, mesh=mesh, rules=rules,
+                                      metrics=metrics, source=source,
+                                      device=device)
         self.device = self.engine.device
         self.metrics = metrics_mod.resolve(metrics)
         self.params: Optional[PyTree] = None
@@ -302,8 +306,8 @@ class InstancePool:
         ``source``: ShardSource for cache-missing retrieval streams
         (the cluster peer-exchange tier; default: the origin store).
         ``device``: where the default instances load and serve.
-        ``mesh_shape``/``rules``: not ported yet (raise)."""
-        _unported(mesh_shape, rules)
+        ``mesh_shape``/``rules``: shard-granular cold starts (see
+        FunctionInstance)."""
         self.model_name = model_name
         self.policy = policy if policy is not None else NeverEvict()
         self.max_instances = max(1, int(max_instances))
@@ -313,6 +317,8 @@ class InstancePool:
         self.gen_cache_len = int(gen_cache_len)
         self.kv_page_tokens = kv_page_tokens
         self.kv_budget_bytes = kv_budget_bytes
+        self.mesh_shape = mesh_shape
+        self.rules = rules
         self.compute_quant = compute_quant
         # resolved now, so a pool of real instances raises without a GPU
         # before any request; stand-in factories bring their own
@@ -365,6 +371,8 @@ class InstancePool:
                                 gen_cache_len=self.gen_cache_len,
                                 kv_page_tokens=self.kv_page_tokens,
                                 kv_budget_bytes=self.kv_budget_bytes,
+                                mesh_shape=self.mesh_shape,
+                                rules=self.rules,
                                 compute_quant=self.compute_quant,
                                 metrics=self.metrics,
                                 source=self.source,

@@ -6,7 +6,8 @@ weight extents from the store — the dominant cold-start cost paid N
 times on one node.  This cache is the reuse point:
 
   * **keyed by (model, unit, shard)** — the store's retrieval
-    granularity (the port's streams are unit-granular: ``shard=0``);
+    granularity: ``shard=0`` for a unit-granular stream, ``(mesh_tag,
+    shard)`` for a shard stream of a mesh cold start;
   * **single-flight** — the first loader of a unit reads from the
     store, every concurrent loader blocks on the shared condition
     variable and receives the leader's leaves: one physical read per
@@ -27,11 +28,13 @@ Entries hold the leaf dict exactly as ``WeightStore.deserialize``
 returns it: host tensors that are views into the unit's read buffer —
 pinned memory on a GPU host — with int8 leaves still quantized, so
 dequantization stays the per-load weight-application phase and a cache
-hit skips the read, crc and deserialize only.  An entry's ``nbytes`` is
-the unit's store bytes.  A pin is released once the load's application
-of the unit has completed on the card (the weight unit waits for its
-CUDA event before it checks in), so an evicted buffer is never the
-source of a copy still in flight.
+hit skips the read, crc and deserialize only; a shard entry holds the
+shard stream's pieces (host slices, int8 with their scale slices).  An
+entry's ``nbytes`` is the stream's store bytes.  A pin is released once
+the load's application of the unit has completed on the card (the weight
+unit waits for its CUDA event, which follows every shard lane's copies,
+before it checks in), so an evicted buffer is never the source of a copy
+still in flight.
 """
 from __future__ import annotations
 

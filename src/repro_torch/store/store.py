@@ -16,6 +16,12 @@ straight into one host ``uint8`` tensor — pinned when CUDA is present, so
 the application phase's host-to-device copy can run asynchronously — and
 :meth:`WeightStore.deserialize` returns views into it.
 
+Shard-granular cold starts read byte ranges instead of whole units:
+:func:`slice_byte_runs` plans the runs of a leaf slice,
+:meth:`WeightStore.read_leaf_slice` reads one slice (an int8 leaf with the
+f32 scales of its columns) on the stream's own simulated channel, and
+:meth:`WeightStore.open_unit` opens a unit once for a stream's reads.
+
 A :class:`BandwidthModel` optionally simulates the storage device (the
 page cache would otherwise hide the I/O phase the paper measures); the
 bytes are still read.
@@ -23,6 +29,7 @@ bytes are still read.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import threading
@@ -60,8 +67,10 @@ class BandwidthModel:
     split it, so the WeightDecoupler's parallel prefetch gets no free
     bandwidth over serial PISeL retrieval.  ``channels`` models
     independent links: the cluster's intra-cluster link has one per node
-    NIC (:mod:`repro_torch.cluster`).  The default (1) is one shared
-    device, and every store read goes to channel 0.
+    NIC (:mod:`repro_torch.cluster`), and a store serving shard-granular
+    cold starts one per mesh device (each shard stream reads on its own
+    channel).  The default (1) is one shared device; whole-unit reads go
+    to channel 0.
     """
     bandwidth_mbps: float = 0.0          # 0 -> unthrottled (per channel)
     latency_ms: float = 0.0
@@ -99,6 +108,16 @@ class BandwidthModel:
         event, waited between chunks as a store read waits on it;
         ``on_chunk``: called with each chunk's size."""
         self.on_open()
+        self.charge(nbytes, channel=channel, chunk_bytes=chunk_bytes,
+                    gate=gate, on_chunk=on_chunk)
+
+    def charge(self, nbytes: int, *, channel: int = 0,
+               chunk_bytes: int = 1 << 20,
+               gate: Optional[threading.Event] = None,
+               on_chunk: Optional[Callable[[int], None]] = None):
+        """The wire cost of ``nbytes`` on one channel, in suspendable
+        chunks, with no request latency: :meth:`transfer` after its
+        ``on_open``, and a store's slice read after its gather."""
         done = 0
         total = max(0, int(nbytes))
         while done < total:
@@ -146,6 +165,49 @@ def unflatten_unit(abstract: PyTree, leaves: Dict[str, Any]) -> PyTree:
             raise ValueError(f"{name}: shape {tuple(leaves[name].shape)} != "
                              f"{tuple(ab.shape)}")
     return tree_util.unflatten(abstract, leaves)
+
+
+def slice_byte_runs(shape: Tuple[int, ...], itemsize: int,
+                    index: Tuple[Any, ...]) -> List[Tuple[int, int]]:
+    """Contiguous (offset, nbytes) runs of ``arr[index]`` within the
+    row-major payload of an array of ``shape`` — the byte-range plan a
+    shard stream reads instead of the whole leaf.
+
+    ``index`` is a per-dim sequence of slices (step 1), as
+    ``NamedSharding.devices_indices_map`` gives them; runs are maximal:
+    all dims inner to the outermost partial dim fold into one range.
+    """
+    if not shape:
+        return [(0, itemsize)]
+    norm = []
+    for s, dim in zip(index, shape):
+        start = 0 if s.start is None else int(s.start)
+        stop = dim if s.stop is None else int(s.stop)
+        norm.append((start, stop))
+    # outermost-from-the-right dim whose slice is partial: runs span it
+    # plus every (full) dim inside it
+    k = 0
+    for j in range(len(shape) - 1, -1, -1):
+        if norm[j] != (0, shape[j]):
+            k = j
+            break
+    inner = 1
+    for d in shape[k + 1:]:
+        inner *= d
+    run_elems = (norm[k][1] - norm[k][0]) * inner
+    if run_elems <= 0:
+        return []
+    strides = [0] * len(shape)           # element strides
+    acc = 1
+    for j in range(len(shape) - 1, -1, -1):
+        strides[j] = acc
+        acc *= shape[j]
+    runs: List[Tuple[int, int]] = []
+    for coords in itertools.product(*(range(a, b) for a, b in norm[:k])):
+        off = sum(c * strides[j] for j, c in enumerate(coords))
+        off += norm[k][0] * inner
+        runs.append((off * itemsize, run_elems * itemsize))
+    return runs
 
 
 def quantize_int8(leaf: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -273,6 +335,138 @@ class WeightStore:
                 if on_progress is not None:
                     on_progress(done, total)
         return buf
+
+    def _leaf_rec(self, model_name: str, unit: str, leaf: str) -> dict:
+        for rec in self.manifest(model_name)["units"][unit]["extents"]:
+            if rec["path"] == leaf:
+                return rec
+        raise KeyError(f"{model_name}/{unit}/{leaf}")
+
+    def leaf_slice_nbytes(self, model_name: str, unit: str, leaf: str,
+                          index: Optional[Tuple[Any, ...]]) -> int:
+        """Bytes a shard stream reads for ``leaf[index]`` (the whole
+        payload when index is None — replicated leaves).  An int8 leaf
+        charges its value slice (1 byte an element) plus the f32 scales
+        of the columns the slice covers."""
+        rec = self._leaf_rec(model_name, unit, leaf)
+        if index is None:
+            return rec["nbytes"]
+        shape = tuple(rec["shape"])
+        if rec.get("quant") == "int8":
+            vals = sum(n for _, n in slice_byte_runs(shape, 1, index))
+            lo = 0 if index[-1].start is None else int(index[-1].start)
+            hi = shape[-1] if index[-1].stop is None else int(index[-1].stop)
+            return vals + (hi - lo) * 4                  # f32 scales
+        return sum(n for _, n in slice_byte_runs(
+            shape, np.dtype(rec["dtype"]).itemsize, index))
+
+    def open_unit(self, model_name: str, unit: str):
+        """Open a unit extent for a sequence of :meth:`read_leaf_slice`
+        calls (one simulated-device ``on_open`` for a whole shard
+        stream)."""
+        self.device.on_open()
+        return open(self._unit_path(model_name, unit), "rb")
+
+    def read_leaf_slice(self, model_name: str, unit: str, leaf: str,
+                        index: Optional[Tuple[Any, ...]], *,
+                        fh=None, chunk_bytes: int = 4 << 20,
+                        gate: Optional[threading.Event] = None,
+                        on_chunk: Optional[Callable[[int], None]] = None,
+                        channel: int = 0,
+                        out: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Byte-range read of one leaf's shard, ``leaf[index]`` only —
+        the unit of retrieval under shard-granular cold starts.
+
+        index None reads the whole payload (crc-checked) and returns it
+        as :meth:`deserialize` returns a leaf.  Otherwise only the runs
+        covering the slice are read (through a mapping of the extent, one
+        gather, no crc: a shard never sees the whole payload); an int8
+        leaf gives the int8 values of ``leaf[index]`` at the leaf's
+        logical shape plus the f32 scales of the slice's columns, the
+        per-shard inputs of ``weight_transform``.  Returns ``(tensor,
+        scale_or_None)`` on the host.
+
+        Every read is charged to the simulated device in chunks on
+        ``channel`` (the stream's own link), waiting on ``gate`` between
+        chunks and reporting each chunk to ``on_chunk``.
+
+        ``fh``: an open unit file (:meth:`open_unit`), one ``on_open`` a
+        stream instead of one a leaf.  ``out``: a host tensor of the
+        slice's shape (a view into the caller's full leaf) the gather
+        writes straight into; without it the slice is gathered into a
+        contiguous host tensor (pinned when CUDA is present).
+        """
+        rec = self._leaf_rec(model_name, unit, leaf)
+        analysis.note_io("read_leaf_slice")   # lock-held-across-I/O probe
+        close = False
+        if fh is None:
+            self.device.on_open()
+            fh = open(self._unit_path(model_name, unit), "rb")
+            close = True
+        try:
+            if index is None:
+                return self._read_whole(model_name, unit, rec, fh,
+                                        chunk_bytes, gate, on_chunk,
+                                        channel)
+            shape = tuple(rec["shape"])
+            quant = rec.get("quant") == "int8"
+            dt = np.dtype(np.int8) if quant else np.dtype(rec["dtype"])
+            sn = rec.get("scale_nbytes", 0) if quant else 0
+            mm = np.memmap(fh, dtype=np.uint8, mode="r")
+            end = rec["offset"] + rec["nbytes"]
+            arr = mm[rec["offset"]:end - sn].view(dt).reshape(shape)[
+                tuple(index)]
+            scale = None
+            if quant:             # f32 scales of the slice's columns
+                lo = 0 if index[-1].start is None else int(index[-1].start)
+                hi = shape[-1] if index[-1].stop is None \
+                    else int(index[-1].stop)
+                scale = torch.from_numpy(np.array(
+                    mm[end - sn:end].view(np.float32)[lo:hi]))
+            got = out if out is not None else torch.empty(
+                arr.shape, dtype=_DTYPES[dt.name], pin_memory=self.pin_memory)
+            np.copyto(got.numpy(), arr)
+            del arr, mm
+            total = got.numel() * got.element_size() + \
+                (scale.numel() * 4 if scale is not None else 0)
+            self.device.charge(total, channel=channel,
+                               chunk_bytes=chunk_bytes, gate=gate,
+                               on_chunk=on_chunk)
+            return got, scale
+        finally:
+            if close:
+                fh.close()
+
+    def _read_whole(self, model_name: str, unit: str, rec: dict, fh,
+                    chunk_bytes: int, gate: Optional[threading.Event],
+                    on_chunk: Optional[Callable[[int], None]],
+                    channel: int
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One leaf's whole payload, read in suspendable chunks into a
+        host tensor (pinned when CUDA is present) and crc-checked."""
+        total = rec["nbytes"]
+        buf = torch.empty(total, dtype=torch.uint8,
+                          pin_memory=self.pin_memory)
+        view = memoryview(buf.numpy())
+        fh.seek(rec["offset"])
+        done = 0
+        while done < total:
+            if gate is not None:
+                gate.wait()
+            n = fh.readinto(view[done:done + min(chunk_bytes,
+                                                 total - done)])
+            if not n:
+                raise IOError(f"short read of {model_name}/{unit}/"
+                              f"{rec['path']}")
+            self.device.on_chunk(n, channel)
+            done += n
+            if on_chunk is not None:
+                on_chunk(n)
+        if zlib.crc32(view) & 0xFFFFFFFF != rec["crc32"]:
+            raise IOError(f"crc mismatch for {model_name}/{unit}/"
+                          f"{rec['path']}")
+        return self._decode_leaf(rec, buf)
 
     @staticmethod
     def _decode_leaf(rec: dict, payload: torch.Tensor

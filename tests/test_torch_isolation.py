@@ -13,6 +13,7 @@ import torch
 from repro_torch.core import ColdStartEngine
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_lib, ops
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import transformer, vision
 from repro_torch.models.api import get_config
 from repro_torch.serving import (DecodeScheduler, GenerateSpec,
@@ -23,7 +24,7 @@ from torch_testlib import (PORT, ROOT, assert_imports_no_jax_and_no_reference,
                            path_id, port_files)
 
 torch.set_num_threads(2)
-HERE = ("", "analysis", "configs", "launch", "store")
+HERE = ("", "analysis", "configs", "distributed", "launch", "store")
 # the subpackages test_torch_isolation_{core,serving,kernels}.py check
 ELSEWHERE = ("core", "serving", "cluster", "kernels", "models")
 
@@ -84,6 +85,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         ServerlessPlatform(store, {"m": lambda: (m, None)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InstancePool("m", lambda: (m, None), store)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_serving_mesh((1, 4))
     # the same calls on device="cpu" run
     ColdStartEngine(m, "m", store, device="cpu")
     assert len(reference_generate(m, params, [1, 2, 3], n_new=2,

@@ -130,8 +130,11 @@ def test_launcher_pages_the_recurrent_families_int8_resident(tmp_path,
 
 def test_launcher_refuses_unported_options_and_needs_a_device(tmp_path,
                                                                monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--mesh", "2", "--store", str(tmp_path)])
+    # --mesh is ported; int8-resident serving on a mesh stays refused
+    with pytest.raises(SystemExit, match="single device; not supported "
+                       "with --mesh/--nodes"):
+        tserve.main(["--mesh", "2", "--compute-quant", "--store",
+                     str(tmp_path)])
     # the reference's refusals with --nodes (the cluster is ported): the
     # autoscaler is a per-node policy, and neither int8-resident serving
     # nor paged KV is plumbed through the cluster

@@ -20,6 +20,8 @@ from repro.serving.pool import InstancePool as JPool
 from repro.serving.trace import Invocation as JInvocation
 from repro_torch.core import ColdStartEngine
 from repro_torch.core.decoupler import ShardSource
+from repro_torch.distributed.sharding import serve_rules
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.metrics import MetricsRegistry
 from repro_torch.models import transformer
 from repro_torch.models.api import get_config
@@ -376,11 +378,15 @@ def test_run_trace_lifecycle_matches_reference(ka, ts, concurrency):
 
 def test_unported_options_raise(tmp_path):
     store = WeightStore(str(tmp_path))
-    for kw in (dict(mesh_shape=4), dict(rules={})):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ServerlessPlatform(store, {}, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        InstancePool("m", None, store, mesh_shape=(1, 4))
+    # the mesh options are ported: the platform hands them to its pools,
+    # which hand them to every instance they provision
+    rules = serve_rules()
+    plat = ServerlessPlatform(store, {"m": None}, device="cpu",
+                              mesh_shape=4, rules=rules)
+    assert plat.mesh_shape == 4
+    assert plat.pools["m"].mesh_shape == 4 and plat.pools["m"].rules is rules
+    assert InstancePool("m", None, store, mesh_shape=(1, 4),
+                        device="cpu").mesh_shape == (1, 4)
     # the cluster's source= is ported: the platform hands it to its pools
     src = ShardSource()
     plat = ServerlessPlatform(store, {"m": None}, device="cpu",
@@ -408,8 +414,21 @@ def test_unported_options_raise(tmp_path):
     asc.stop()
     m = transformer.build(get_config("smollm-360m", smoke=True),
                           device="cpu")
-    for kw in (dict(mesh=object()), dict(rules={})):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ColdStartEngine(m, "m", store, device="cpu", **kw)
+    # a mesh of one device is the seed path; a wider one plans shards
+    assert ColdStartEngine(m, "m", store, device="cpu",
+                           mesh=make_serving_mesh((1, 1), device="cpu")
+                           ).mesh is None
+    eng = ColdStartEngine(m, "m", store, device="cpu",
+                          mesh=make_serving_mesh((1, 4), device="cpu"))
+    assert eng.mesh.shape == {"data": 1, "model": 4}
+    assert eng.rules == serve_rules()
+    # the refusals left: the reference's own for int8 residency on a
+    # mesh, and rules that are not ShardingRules
+    with pytest.raises(ValueError, match="compute_quant serves int8 leaves "
+                       "in place on a single device"):
+        ColdStartEngine(m, "m", store, device="cpu", compute_quant=True,
+                        mesh=make_serving_mesh((1, 4), device="cpu"))
+    with pytest.raises(TypeError, match="ShardingRules"):
+        ColdStartEngine(m, "m", store, device="cpu", rules={})
     assert ColdStartEngine(m, "m", store, device="cpu",
                            source=src).source is src
