@@ -75,8 +75,16 @@ single-device load, one shard stream a (unit, device) and one
 load with no store open, an ``InstancePool(mesh_shape=4)`` scale-out,
 ``launch/serve.py --mesh 4``, and mixtral-8x7b's int8 store with its
 experts two to a device.
-It builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
-seven TPU kernels' counterparts and ``rmsnorm``), holds each against its
+Last, training on the card: the backward kernels of attention and
+rmsnorm (``flash_attention_bwd``, ``rmsnorm_bwd``) against the autograd
+of their plain versions, the card's loss and gradients against the CPU's
+at 4 layers, then full-width smollm-360m trained for 30 steps through
+``launch/train.py`` (int8 error-feedback compression, a checkpoint) with
+exact launches a step, a falling loss, a bit-equal repeated step and a
+resume equal to the straight run.
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
+seven TPU kernels' counterparts, ``rmsnorm`` and the two backward
+kernels), holds each against its
 plain PyTorch version on the card, the attention kernels also at head dims
 20, 80 and 120 (padded instances), and the kernels to their invariants:
 ``quant_matmul`` and ``rmsnorm`` rows bit-equal at any M, a
@@ -110,6 +118,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -201,6 +210,19 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def union_ms(spans) -> float:
+    """Milliseconds covered by (start_us, end_us) spans, overlaps once."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -3530,15 +3552,7 @@ def split_mesh_load(eng, batch, label: str):
         elif ev.name.startswith("cuda"):
             runtime[ev.name] = runtime.get(ev.name, 0.0) + \
                 ev.self_cpu_time_total
-    busy, end = 0.0, None
-    for a, b in sorted(spans):
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    busy /= 1e3
+    busy = union_ms(spans)
     top = "; ".join(f"{k} {t / 1e3:.1f}" for k, t in sorted(
         runtime.items(), key=lambda kv: -kv[1])[:6])
     print(f"  profiled mesh load, {label}: wall {wall:.1f} ms; device busy "
@@ -4406,6 +4420,356 @@ def internvl_family(dev, workdir: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 27: training on the card
+# ---------------------------------------------------------------------------
+
+# (B, S, H, K, dh, causal, window, dtypes): smollm-360m's training shape,
+# h2o-danube-3-4b's heads and window past S, and the padded head dims
+BWD_CASES = (
+    (8, 512, 15, 5, 64, True, 0, ("bfloat16",)),
+    (1, 4352, 32, 8, 120, True, 4096, ("bfloat16",)),
+    (2, 128, 15, 5, 64, True, 0, ("float32",)),
+    (2, 100, 6, 2, 20, True, 0, ("bfloat16", "float32")),
+    (1, 96, 16, 16, 80, False, 0, ("bfloat16", "float32")),
+    (1, 77, 4, 2, 80, False, 16, ("bfloat16", "float32")),
+    (2, 200, 8, 2, 64, True, 48, ("bfloat16", "float32")),
+    (1, 128, 10, 1, 256, True, 0, ("bfloat16", "float32")))
+# rmsnorm_bwd: smollm's training rows, a ragged row count, the widest d
+NORM_BWD_CASES = ((8, 512, 960), (3, 7, 3072), (2, 3, 20), (5, 8192))
+TRAIN_STEPS = 30            # the full-width run through launch/train.py
+
+
+def check_backward_kernels(dev, report: dict):
+    """The training kernels against the autograd of their plain versions
+    on the card: ``flash_attention_bwd`` (fed the card forward's output
+    and log-sum-exp) at :data:`BWD_CASES`, ``rmsnorm_bwd`` at
+    :data:`NORM_BWD_CASES`, each gradient within 1e-4 (f32) or 2e-2
+    (bf16) of its max |g|, and bit-equal across two calls; the forward
+    with the log-sum-exp bit-equal to the serving forward.  Then both
+    timed at smollm-360m's training shapes for the JSON line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import flash_attention_bwd as bmod
+    from repro_torch.kernels import rmsnorm as nmod
+    g = torch.Generator(device=dev).manual_seed(27)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    fl_err = {"bfloat16": 0.0, "float32": 0.0}
+    for (B, S, H, K, dh, causal, win, dts) in BWD_CASES:
+        for dname in dts:
+            dt = getattr(torch, dname)
+            tol = BF16_ATOL if dt == torch.bfloat16 else F32_ATOL
+            q, do = randn(B, S, H, dh, dtype=dt), randn(B, S, H, dh, dtype=dt)
+            k, v = randn(B, S, K, dh, dtype=dt), randn(B, S, K, dh, dtype=dt)
+            o, lse = fmod.flash_attention(q, k, v, causal=causal,
+                                          window=win, return_lse=True)
+            same = torch.equal(o, fmod.flash_attention(
+                q, k, v, causal=causal, window=win))
+            got = bmod.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=win)
+            again = bmod.flash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=causal, window=win)
+            qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+            want = torch.autograd.grad(
+                fmod.plain(qa, ka, va, causal=causal, window=win),
+                (qa, ka, va), do)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            det = all(torch.equal(a, b) for a, b in zip(got, again))
+            fl_err[dname] = max(fl_err[dname], *errs)
+            print(f"  flash_attention_bwd B={B} S={S} H={H} K={K} dh={dh} "
+                  f"causal={causal} window={win} {dname}: dq/dk/dv err "
+                  f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} of max |g| "
+                  f"(tol {tol}); two calls "
+                  f"{'bit-equal' if det else 'DIFFER'}; LSE forward "
+                  f"{'bit-equal' if same else 'DIFFERS'} to serving")
+            need(all(math.isfinite(e) and e <= tol for e in errs),
+                 f"flash_attention_bwd {B, S, H, K, dh, causal, win} "
+                 f"{dname}: errors {errs}")
+            need(det, f"flash_attention_bwd {dname} not deterministic")
+            need(same, f"flash_attention with LSE differs from serving at "
+                       f"{B, S, H, K, dh} {dname}")
+            del q, k, v, do, o, lse, got, again, want, qa, ka, va
+    nm_err = {"bfloat16": 0.0, "float32": 0.0}
+    for shape in NORM_BWD_CASES:
+        for dt, tol in ((torch.bfloat16, BF16_ATOL),
+                        (torch.float32, F32_ATOL)):
+            for sdt in (torch.float32, torch.bfloat16):
+                x = randn(*shape, dtype=dt) * 3
+                sc = (randn(shape[-1]) * 0.1).to(sdt)
+                gy = randn(*shape, dtype=dt)
+                got = nmod.rmsnorm_bwd(x, sc, gy)
+                again = nmod.rmsnorm_bwd(x, sc, gy)
+                xa, sa = x.detach().requires_grad_(), \
+                    sc.detach().requires_grad_()
+                want = torch.autograd.grad(nmod.plain(xa, sa), (xa, sa), gy)
+                torch.cuda.synchronize()
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                key = str(dt).replace("torch.", "")
+                nm_err[key] = max(nm_err[key], *errs)
+                need(all(math.isfinite(e) and e <= tol for e in errs) and
+                     got[0].dtype == dt and got[1].dtype == sdt,
+                     f"rmsnorm_bwd {shape} {dt} scale {sdt}: errors {errs}")
+                need(all(torch.equal(a, b) for a, b in zip(got, again)),
+                     f"rmsnorm_bwd {shape} {dt} not deterministic")
+    print(f"  rmsnorm_bwd {' '.join(str(s).replace(' ', '') for s in NORM_BWD_CASES)}"
+          f", bf16 and f32, f32 and bf16 scales: dx/dscale err bf16 "
+          f"{nm_err['bfloat16']:.2e}, f32 {nm_err['float32']:.2e} of max "
+          f"|g| (tol {BF16_ATOL} / {F32_ATOL}); two calls bit-equal")
+
+    # timing at smollm-360m's training shapes (batch 8, seq 512)
+    B, S, H, K, dh = 8, 512, 15, 5, 64
+    bf = torch.bfloat16
+    q, do = randn(B, S, H, dh, dtype=bf), randn(B, S, H, dh, dtype=bf)
+    k, v = randn(B, S, K, dh, dtype=bf), randn(B, S, K, dh, dtype=bf)
+    o, lse = fmod.flash_attention(q, k, v, causal=True, return_lse=True)
+    fwd_flops = 4 * dh * (S * (S + 1) // 2) * H * B
+    nbytes = 2 * (4 * B * S * H * dh + 4 * B * S * K * dh) + 4 * B * H * S
+    b_ms, b_by = bound(nbytes, 2.5 * fwd_flops, bf)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    report["flash_attention_bwd"] = dict(
+        max_abs_err=max(fl_err.values()),
+        ms=device_ms(lambda: bmod.flash_attention_bwd(q, k, v, o, lse, do)),
+        call_ms=call_ms(lambda: bmod.flash_attention_bwd(q, k, v, o, lse,
+                                                         do)),
+        plain_ms=device_ms(lambda: bmod.plain(q, k, v, o, lse, do)),
+        library_ms=call_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True)),
+        library="SDPA's backward (is_causal, enable_gqa), eager, timed by "
+                "CUDA events",
+        bound_ms=b_ms, bound_by=b_by,
+        shape="bf16 q/o/dO (8,512,15,64), k/v (8,512,5,64), causal")
+    del qt, kt, vt, lib_out
+    x = randn(B, S, 960, dtype=bf) * 3
+    sc = randn(960) * 0.1
+    gy = randn(B, S, 960, dtype=bf)
+    n, d = B * S, 960
+    b_ms, b_by = bound(2 * n * d * 3 + 4 * d * 2, 10 * n * d, torch.float32)
+    xl = x.detach().requires_grad_()
+    wl = (1.0 + sc).detach().requires_grad_()
+    lib_out = F.rms_norm(xl, (d,), wl.to(bf), 1e-6)
+    report["rmsnorm_bwd"] = dict(
+        max_abs_err=max(nm_err.values()),
+        ms=device_ms(lambda: nmod.rmsnorm_bwd(x, sc, gy)),
+        call_ms=call_ms(lambda: nmod.rmsnorm_bwd(x, sc, gy)),
+        plain_ms=device_ms(lambda: nmod.plain_bwd(x, sc, gy)),
+        library_ms=call_ms(lambda: torch.autograd.grad(
+            lib_out, (xl, wl), gy, retain_graph=True)),
+        library="autograd of F.rms_norm (weight 1 + scale), eager, timed "
+                "by CUDA events",
+        bound_ms=b_ms, bound_by=b_by,
+        shape="bf16 x/g (8,512,960), f32 scale (960,)")
+    for name in ("flash_attention_bwd", "rmsnorm_bwd"):
+        r = report[name]
+        print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms on the "
+              f"device ({r['call_ms']:.4f} ms per eager call), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+              f"(eager), bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+
+def train_counts(cfg) -> dict:
+    """Launches of one training step with remat: every unit's forward runs
+    twice (once more in the backward), so 2 ``flash_attention`` and 4
+    ``rmsnorm`` a layer and the final norm once; one backward of each a
+    call it differentiates.  Every other kernel 0."""
+    from repro_torch.kernels import ops
+    L = cfg.n_layers
+    want = {n: 0 for n in ops.registry.names()}
+    want.update(flash_attention=2 * L, flash_attention_bwd=L,
+                rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1)
+    return want
+
+
+def device_busy(fn) -> tuple:
+    """(wall ms, device busy ms) of one call of ``fn`` under
+    torch.profiler: the union of its kernels and copies on the device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = [(ev.time_range.start, ev.time_range.end)
+             for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    return wall, union_ms(spans)
+
+
+def train_batch(data, step: int, dev, batch: int = 8, seq: int = 512):
+    import torch
+    return {k: torch.as_tensor(v).to(dev)
+            for k, v in data.batch(batch, seq, step).items()}
+
+
+def train_card_vs_cpu(dev):
+    """Loss and every gradient leaf of f32-compute smollm-360m at 4 layers
+    of full width, on the card and on the CPU from the same params and
+    batch: loss within 2e-3 relative, each leaf within 2e-3 of its max
+    |g|."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.training.data import MarkovLM
+    from repro_torch.training.train import value_and_grad
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=4,
+                              compute_dtype=torch.float32)
+    cpu = transformer.build(cfg, device="cpu")
+    card = transformer.build(cfg, device=dev)
+    p_cpu = cpu.init(0)
+    p_card = tree_util.tree_map(lambda t: t.to(dev), p_cpu)
+    data = MarkovLM(cfg.vocab_size, seed=0)
+    (l_card, _), g_card = value_and_grad(card, p_card,
+                                         train_batch(data, 0, dev, 2, 128))
+    (l_cpu, _), g_cpu = value_and_grad(
+        cpu, p_cpu, train_batch(data, 0, torch.device("cpu"), 2, 128))
+    torch.cuda.synchronize()
+    worst, where = 0.0, ""
+    for (path, a), b in zip(tree_util.leaves_with_path(g_card),
+                            tree_util.leaves(g_cpu)):
+        e = rel_err(a.cpu(), b)
+        if not e <= worst:
+            worst, where = e, "/".join(path)
+    le = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    print(f"  card against CPU, smollm-360m f32 at 4 layers, (2, 128) "
+          f"tokens: loss {float(l_card):.6f} / {float(l_cpu):.6f} (rel "
+          f"{le:.2e}); worst gradient leaf {where} at {worst:.2e} of its "
+          f"max |g| (tol 2e-3)")
+    need(le <= 2e-3 and worst <= 2e-3,
+         f"training card vs CPU: loss rel {le}, leaf {where} {worst}")
+
+
+def training(dev, workdir: str, report: dict) -> dict:
+    """Phase 27: the backward kernels against plain
+    (:func:`check_backward_kernels`), the card against the CPU at 4
+    layers (:func:`train_card_vs_cpu`), then full-width smollm-360m
+    through ``launch/train.py``'s ``main`` with its defaults (batch 8,
+    seq 512, lr 3e-3, warmup_cosine) and ``--compress-grads`` for
+    :data:`TRAIN_STEPS` steps with a checkpoint at the end: every loss
+    finite, the last 5 below the first, exact launches a step; then from
+    that checkpoint the same 3 steps twice (bit-equal params) and 6
+    straight against 3, save, restore, 3 (within 1e-6, as the
+    reference's test); ms a step, tokens/s, peak memory and one step's
+    device busy share.  Returns the run's launches."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.distributed.checkpoint import Checkpointer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.training.data import MarkovLM
+    from repro_torch.training.optim import AdamW, AdamWState, warmup_cosine
+    from repro_torch.training.train import make_train_step
+    t0 = time.perf_counter()
+    check_backward_kernels(dev, report)
+    train_card_vs_cpu(dev)
+    t1 = time.perf_counter()
+
+    cfg = get_config("smollm-360m")
+    ck_dir = os.path.join(workdir, "train-ckpt")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.registry.reset_counts()
+    t_run = time.perf_counter()
+    hist = launch_train.main(
+        ["--arch", "smollm-360m", "--steps", str(TRAIN_STEPS),
+         "--compress-grads", "--ckpt-dir", ck_dir,
+         "--ckpt-every", str(TRAIN_STEPS)], log_every=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    counts = ops.registry.dispatch_snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = hist["loss"]
+    per_step = train_counts(cfg)
+    print(f"    launches in {TRAIN_STEPS} steps: {nonzero(counts)}; a step: "
+          f"{nonzero(per_step)}")
+    need(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+         f"training losses not all finite: {losses}")
+    last5 = sum(losses[-5:]) / 5
+    need(last5 < losses[0], f"training loss did not fall: first "
+                            f"{losses[0]}, mean of the last 5 {last5}")
+    need_counts(counts, {k: v * TRAIN_STEPS for k, v in per_step.items()},
+                "training run")
+    tokens = 8 * 512
+    step_ms = sorted(tokens / t * 1e3 for t in hist["tps"][1:])
+    med = step_ms[len(step_ms) // 2]
+    print(f"  full-width smollm-360m, {TRAIN_STEPS} steps of (8, 512) "
+          f"tokens, --compress-grads: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (last 5 mean {last5:.4f}); step ms (steps "
+          f"2-{TRAIN_STEPS}) median {med:.1f}, min {step_ms[0]:.1f}, max "
+          f"{step_ms[-1]:.1f}; {tokens / med * 1e3:,.0f} tokens/s; peak "
+          f"memory {peak / 2**30:.2f} GiB; run {run_s:.1f} s with the "
+          f"checkpoint")
+
+    model = transformer.build(cfg, device=dev)
+    ab = model.abstract()
+    step_at, p30, s30 = Checkpointer(ck_dir).restore(
+        ab, AdamWState(None, ab, ab), device=dev)
+    need(step_at == TRAIN_STEPS, f"checkpoint at {step_at}")
+    opt = AdamW(lr=warmup_cosine(3e-3, TRAIN_STEPS // 10, TRAIN_STEPS),
+                weight_decay=0.01)
+    step = make_train_step(model, opt)
+    data = MarkovLM(cfg.vocab_size, seed=0)
+
+    def run(p, s, lo, hi):
+        for i in range(lo, hi):
+            p, s, _ = step(p, s, train_batch(data, i, dev))
+        return p, s
+
+    a0 = TRAIN_STEPS
+    pa, sa = run(p30, s30, a0, a0 + 3)
+    pb, _ = run(p30, s30, a0, a0 + 3)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(tree_util.leaves(pa),
+                                                 tree_util.leaves(pb)))
+    print(f"  the same 3 steps from the step-{a0} checkpoint twice: params "
+          f"{'bit-equal' if same else 'DIFFER'}")
+    need(same, "the training step is not deterministic")
+    del pb
+    p_straight, _ = run(pa, sa, a0 + 3, a0 + 6)
+    ck2 = Checkpointer(os.path.join(workdir, "train-ckpt-resume"))
+    ck2.save(a0 + 3, pa, sa)
+    del pa, sa
+    _, pr, sr = ck2.restore(ab, AdamWState(None, ab, ab), device=dev)
+    p_resumed, _ = run(pr, sr, a0 + 3, a0 + 6)
+    pairs = list(zip(tree_util.leaves(p_resumed),
+                     tree_util.leaves(p_straight)))
+    bit = all(torch.equal(x, y) for x, y in pairs)
+    close = all(torch.allclose(x.float(), y.float(), atol=1e-6, rtol=1e-6)
+                for x, y in pairs)
+    err = max((x.float() - y.float()).abs().max().item() for x, y in pairs)
+    print(f"  6 straight against 3, save, restore, 3: "
+          f"{'bit-equal' if bit else f'max abs difference {err:.3e}'} "
+          f"(tol 1e-6 + 1e-6 |x|)")
+    need(close, "resume differs from the straight run")
+    del p_resumed, p_straight
+
+    wall, busy = device_busy(lambda: run(pr, sr, a0 + 3, a0 + 4))
+    print(f"  one step under the profiler: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms ({busy / wall:.1%})")
+    need(busy > 0, "training step: the profiler saw no device time")
+    print(f"  phase 27: kernel checks and card vs CPU {t1 - t0:.1f} s, all "
+          f"{time.perf_counter() - t0:.1f} s")
+    del pr, sr, p30, s30
+    torch.cuda.empty_cache()
+    for d in (ck_dir, ck2.dir):             # about 5 GB each on disk
+        shutil.rmtree(d, ignore_errors=True)
+    return {"launches": counts, "step_ms": med, "tokens_per_s":
+            tokens / med * 1e3, "peak_bytes": peak, "busy": busy / wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4561,6 +4925,16 @@ def main() -> int:
         paths["sharded cold start"] = (
             shard["launches"],
             ("weight_transform", "flash_attention", "rmsnorm"))
+        torch.cuda.empty_cache()
+        phase(f"[27] training on the card: the backward kernels against "
+              f"plain, card against CPU at 4 layers, full-width "
+              f"smollm-360m through launch/train.py ({TRAIN_STEPS} steps, "
+              f"--compress-grads, a checkpoint), determinism and resume")
+        train = training(dev, wd, report)
+        paths["training"] = (
+            train["launches"],
+            ("flash_attention", "flash_attention_bwd", "rmsnorm",
+             "rmsnorm_bwd"))
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

@@ -20,11 +20,18 @@ shares that physical device (:func:`repro_torch.launch.mesh.
 make_serving_mesh`).  Buffers and cache keys are keyed by ``id``, never
 by ``torch.device``, which all of them share.
 
-``use_rules``, ``constrain``, ``cache_specs`` and ``batch_specs`` serve
-training and the dry run and come with them (ROADMAP queue 1 item 15).
+The training half: :func:`use_rules` makes a (mesh, rules) pair the
+active context (:func:`active_context`); :func:`constrain` resolves an
+activation's logical names against it, as the reference's does, and
+returns the tensor unchanged, since a mesh of the port lies on one device
+and there is nothing to constrain; :func:`cache_specs` and
+:func:`batch_specs` give the reference's specs for decode caches and
+input batches.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
@@ -36,6 +43,9 @@ from repro_torch.store.store import leaf_path_name
 
 PyTree = Any
 Axes = Union[None, str, Tuple[str, ...]]
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_sharding_ctx", default=None)
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +242,35 @@ def _guarded_spec(mesh: Mesh, rules: ShardingRules, shape: Sequence[int],
 
 
 # ---------------------------------------------------------------------------
+# context
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def use_rules(mesh: Mesh, rules: ShardingRules):
+    token = _ACTIVE.set((mesh, rules))
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active_context() -> Optional[Tuple[Mesh, ShardingRules]]:
+    return _ACTIVE.get()
+
+
+def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """Annotate an activation with logical axis names: the spec is resolved
+    under an active context (so a bad name fails as in the reference),
+    and ``x`` comes back as it is."""
+    ctx = _ACTIVE.get()
+    if ctx is None or len(logical) != x.dim():
+        return x
+    mesh, rules = ctx
+    NamedSharding(mesh, _guarded_spec(mesh, rules, tuple(x.shape), logical))
+    return x
+
+
+# ---------------------------------------------------------------------------
 # parameter classification
 # ---------------------------------------------------------------------------
 
@@ -329,6 +368,44 @@ def leaf_specs(abstract_unit: PyTree, mesh: Mesh, rules: ShardingRules
     resolution the shard-granular cold start plans its byte-range
     retrieval streams from."""
     return _named_specs(abstract_unit, mesh, rules)
+
+
+def cache_specs(abstract_cache: PyTree, mesh: Mesh,
+                rules: ShardingRules) -> PyTree:
+    """KV/recurrent-state cache sharding: (L, B, K, S, dh) — batch over DP,
+    cache sequence over `kv_seq` (split-K decode); state tensors
+    batch-only.  Leaves are anything with a ``shape``; ``None`` leaves
+    (a paged group's K/V) stay ``None``."""
+    def f(leaf):
+        if leaf is None:
+            return None
+        shape = tuple(leaf.shape)
+        if len(shape) == 5:      # (L, B, K, S, dh) attn cache (kv-major)
+            logical = (None, "batch", "kv_heads", "kv_seq", None)
+        elif len(shape) == 4:    # (L, B, nh, ...) ssd state / conv state
+            logical = (None, "batch", "tensor", None)
+        elif len(shape) == 3:    # (L, B, width) rg-lru state
+            logical = (None, "batch", "tensor")
+        elif len(shape) == 2:    # (B,) aux / (L,B)
+            logical = (None, "batch")
+        elif len(shape) == 1:
+            logical = ("batch",)
+        else:
+            logical = (None,) * len(shape)
+        return NamedSharding(mesh, _guarded_spec(mesh, rules, shape,
+                                                 logical))
+    return tree_util.tree_map(f, abstract_cache)
+
+
+def batch_specs(abstract_batch: PyTree, mesh: Mesh,
+                rules: ShardingRules) -> PyTree:
+    """Input batches: leading dim is global batch -> DP axes."""
+    def f(leaf):
+        shape = tuple(leaf.shape)
+        logical = ("batch",) + (None,) * (len(shape) - 1)
+        return NamedSharding(mesh, _guarded_spec(mesh, rules, shape,
+                                                 logical))
+    return tree_util.tree_map(f, abstract_batch)
 
 
 def replicated(mesh: Mesh) -> NamedSharding:

@@ -10,6 +10,10 @@ PyTorch version and a launch counter:
                     (compute_quant) projections and head
   ssd_scan          the Mamba-2 SSD chunked scan (initial and final state)
   rglru_scan        the RG-LRU linear recurrence (initial and final state)
+  rmsnorm           the reference's rmsnorm, rows independent of the batch
+  flash_attention_bwd, rmsnorm_bwd
+                    the training backwards of attention and rmsnorm, each
+                    behind a torch.autograd.Function
 
 Model code calls them through :mod:`repro_torch.kernels.ops`.
 """

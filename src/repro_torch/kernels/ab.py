@@ -242,7 +242,8 @@ def sweep() -> None:
             def call():
                 cuda_lib.check(lib.repro_flash_attention(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    B, H, K, S, S, dh, 1, *q.stride()[:3], *k.stride()[:3],
+                    None, B, H, K, S, S, dh, 1, *q.stride()[:3],
+                    *k.stride()[:3],
                     *v.stride()[:3], 1, 0, 1.0 / math.sqrt(dh), warps,
                     fmod.KEY_TILE[fmod.padded_dim(dh)], cuda_lib.stream_ptr(dev)),
                     "flash_attention")

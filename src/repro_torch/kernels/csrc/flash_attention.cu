@@ -10,7 +10,8 @@
 // flash_attention.py:60-69 from absolute positions; tiles wholly above the
 // diagonal or outside the window are never visited, ragged S and T are
 // masked in the kernel (the TPU kernel asserts S % bq == 0), and a row with
-// no key left after masking gives 0.  q is read as (B, S, H, dh) and k/v as
+// no key left after masking gives 0 (and, where the caller asks for the
+// rows' log-sum-exp for the backward, -inf).  q is read as (B, S, H, dh) and k/v as
 // (B, T, K, dh) through strides, so no transpose is materialised
 // (transformer.py passes transposed views of the kv-major cache).
 //
@@ -103,8 +104,8 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, int causal,
 template <int DH>
 __global__ void __launch_bounds__(Tile<DH>::THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int H, int K,
-             int S,
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int H, int K, int S,
              int T_len, long long qsb, long long qss, long long qsh,
              long long ksb, long long kss, long long ksh, long long vsb,
              long long vss, long long vsh, int causal, int window,
@@ -210,19 +211,24 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
       if (i * TPR + sub < dh) orow[i * TPR + sub] = l > 0.f ? acc[i] / l : 0.f;
+    // the row's log-sum-exp for the backward (natural log of the scaled
+    // scores), -inf for a row with no key
+    if (lse != nullptr && sub == 0)
+      lse[((long long)b * H + h) * S + qi] = l > 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
 template <int DH>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int S, int T_len, int dh, const long long* st,
-               int causal, int window, float scale, cudaStream_t s) {
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int K, int S, int T_len, int dh,
+               const long long* st, int causal, int window, float scale,
+               cudaStream_t s) {
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<DH><<<grid, Tile<DH>::THREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, K, S, T_len,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      window, scale, dh);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, K, S,
+      T_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      causal, window, scale, dh);
   return (int)cudaGetLastError();
 }
 
@@ -291,7 +297,8 @@ __global__ void __launch_bounds__(32 * FA_MAX_WARPS)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int H, int K, int S, int T_len,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+                int K, int S, int T_len,
                 long long qsb, long long qss, long long qsh, long long ksb,
                 long long kss, long long ksh, long long vsb, long long vss,
                 long long vsh, int causal, int window, float scale_log2,
@@ -539,6 +546,17 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     store_row<DT, EXACT>(o + (((long long)b * S + rb / rep) * H + kvh * rep +
                               rb % rep) * dhr,
                          acc, 2, inv_b, t, dh);
+  // the rows' log-sum-exp for the backward: (max + log2 sum) back from the
+  // log2 domain, -inf for a row with no key
+  if (lse != nullptr && t == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    if (ok_a)
+      lse[((long long)b * H + kvh * rep + ra % rep) * S + ra / rep] =
+          l_a > 0.f ? (m_a + log2f(l_a)) * LN2 : -INFINITY;
+    if (ok_b)
+      lse[((long long)b * H + kvh * rep + rb % rep) * S + rb / rep] =
+          l_b > 0.f ? (m_b + log2f(l_b)) * LN2 : -INFINITY;
+  }
 }
 
 // above 48 KB of dynamic shared memory a kernel must opt in, once per
@@ -555,8 +573,9 @@ cudaError_t opt_in() {
 }
 
 template <int DH>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int K, int S, int T_len, int dh, const long long* st,
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int H, int K, int S, int T_len, int dh,
+              const long long* st,
               int causal, int window, float scale, int warps, int key_tile,
               cudaStream_t s) {
   if (key_tile != Fa<DH>::BKV || warps < 1 || warps > FA_MAX_WARPS ||
@@ -581,8 +600,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   kernel<<<grid, 32 * warps, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
-      K, S, T_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      H, K, S, T_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], causal, window, scale * 1.4426950408889634f, qvb, kvvb, dh);
   return (int)cudaGetLastError();
 }
@@ -591,12 +610,17 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 
 // q (B, S, H, dh), k/v (B, T, K, dh) addressed through the element strides
 // of their batch, sequence and head dims (the last dim is contiguous);
-// o (B, S, H, dh) contiguous, dh in [1, 256].  dtype: 0 = float32 (FMA
+// o (B, S, H, dh) contiguous, dh in [1, 256]; lse, when not null, (B, H, S)
+// f32 contiguous: each row's log-sum-exp of its scaled scores (-inf for a
+// row with no key), which the backward (flash_attention_bwd.cu) reads.
+// A null lse changes nothing else: the serving path keeps its bits.
+// dtype: 0 = float32 (FMA
 // design), 1 = bfloat16 (tensor cores, with the plan of
 // flash_attention.py::plan: warps per block and the key tile, which must be
 // the padded head dim's).  Returns cudaGetLastError().
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int K,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int K,
     int S, int T_len, int dh, int dtype, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, int causal, int window, float scale,
@@ -605,15 +629,16 @@ extern "C" int repro_flash_attention(
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   // the padded head dim of the instance (flash_attention.py::padded_dim)
   const int dp = dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
   if (dh < 1 || dh > 256) return (int)cudaErrorInvalidValue;
 #define REPRO_FA(DP)                                                        \
   if (dp == DP)                                                             \
-    return dtype == 0 ? launch_fma<DP>(q, k, v, o, B, H, K, S, T_len, dh,   \
-                                       st, causal, window, scale, s)        \
-                      : launch_tc<DP>(q, k, v, o, B, H, K, S, T_len, dh, st, \
-                                      causal, window, scale, warps,         \
+    return dtype == 0 ? launch_fma<DP>(q, k, v, o, lf, B, H, K, S, T_len,  \
+                                       dh, st, causal, window, scale, s)    \
+                      : launch_tc<DP>(q, k, v, o, lf, B, H, K, S, T_len, dh, \
+                                      st, causal, window, scale, warps,     \
                                       key_tile, s)
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   REPRO_FA(32);

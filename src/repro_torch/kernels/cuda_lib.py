@@ -43,7 +43,7 @@ F = ctypes.c_float
 SIGNATURES = {
     "repro_wt_dequant": [P, P, P, LL, I, I, I, I, I, P],
     "repro_wt_cast": [P, P, LL, I, I, I, I, P],
-    "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I,
+    "repro_flash_attention": [P, P, P, P, P, I, I, I, I, I, I, I,
                               LL, LL, LL, LL, LL, LL, LL, LL, LL,
                               I, I, F, I, I, P],
     "repro_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I,
@@ -54,6 +54,9 @@ SIGNATURES = {
     "repro_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "repro_rglru_scan": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     "repro_rmsnorm": [P, P, P, LL, I, F, I, I, P],
+    "repro_flash_attention_bwd": [P, P, P, P, P, P, P, P, P, P,
+                                  I, I, I, I, I, I, I, I, F, P],
+    "repro_rmsnorm_bwd": [P, P, P, P, P, P, LL, I, F, I, I, P],
 }
 
 

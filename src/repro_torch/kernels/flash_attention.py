@@ -4,7 +4,14 @@ queries at the last S of T positions, causal and/or sliding window.
 
 Kernel: ``csrc/flash_attention.cu`` (see its note on what bounds it).
 On CUDA tensors :func:`flash_attention` launches that kernel or raises;
-on CPU tensors it computes :func:`plain`.
+on CPU tensors it computes :func:`plain`.  Asked for it, either also
+returns each row's log-sum-exp, which the backward reads.
+
+Training goes through :class:`FlashAttention`, the autograd function whose
+backward is :mod:`repro_torch.kernels.flash_attention_bwd` (a kernel on
+CUDA tensors, the plain formulas on CPU tensors); :func:`attention` picks
+it only where a gradient is wanted, so serving calls launch exactly the
+kernel they always did.
 """
 from __future__ import annotations
 
@@ -57,20 +64,12 @@ def plan(B: int, S: int, H: int, K: int, dh: int) -> Plan:
     return Plan(WARPS, KEY_TILE[padded_dim(dh)], tiles * K * B)
 
 
-def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-          causal: bool = True, window: int = 0) -> torch.Tensor:
-    """The kernel's function in PyTorch, materialising the scores in f32.
-    Masks use absolute positions (query i sits at T - S + i); a row with
-    no key left after masking gives 0."""
-    B, S, H, dh = q.shape
-    T, K = k.shape[1], k.shape[2]
-    rep = H // K
-    qf = q.float().transpose(1, 2)                             # B,H,S,dh
-    kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)
-    vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
-    s = (qf @ kf.transpose(-1, -2)) / math.sqrt(dh)            # B,H,S,T
-    qpos = (T - S) + torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(T, device=q.device)[None, :]
+def visible(S: int, T: int, causal: bool, window: int,
+            device) -> torch.Tensor:
+    """(S, T) bool: the keys each query sees, from absolute positions
+    (query i sits at T - S + i)."""
+    qpos = (T - S) + torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
     if causal:
         mask = kpos <= qpos
         if window > 0:
@@ -78,22 +77,48 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif window > 0:
         mask = (kpos - qpos).abs() < window
     else:
-        mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    s = s.masked_fill(~mask, float("-inf"))
+        mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    return mask
+
+
+def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool = True, window: int = 0, return_lse: bool = False):
+    """The kernel's function in PyTorch, materialising the scores in f32.
+    Masks use absolute positions (query i sits at T - S + i); a row with
+    no key left after masking gives 0.  ``return_lse``: also each row's
+    log-sum-exp of its scaled scores, (B, H, S) f32, -inf for a row with
+    no key."""
+    B, S, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    rep = H // K
+    qf = q.float().transpose(1, 2)                             # B,H,S,dh
+    kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    s = (qf @ kf.transpose(-1, -2)) / math.sqrt(dh)            # B,H,S,T
+    s = s.masked_fill(~visible(S, T, causal, window, q.device),
+                      float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = (p @ vf) / torch.where(l == 0, torch.ones_like(l), l)
-    return o.transpose(1, 2).to(q.dtype)
+    o = o.transpose(1, 2).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l > 0, m + torch.log(l),
+                      torch.full_like(l, float("-inf")))
+    return o, lse[..., 0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """q: (B, S, H, dh); k, v: (B, T, K, dh).  Returns (B, S, H, dh)
-    contiguous, in q's dtype."""
+    contiguous, in q's dtype; with ``return_lse`` also the rows'
+    log-sum-exp (B, H, S) f32."""
     if q.device.type == "cpu":
-        return plain(q, k, v, causal=causal, window=window)
+        return plain(q, k, v, causal=causal, window=window,
+                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -117,19 +142,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"with a contiguous last dim, got {t.device} "
                              f"strides {t.stride()}")
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
-    if B == 0 or S == 0:
-        return out
-    if T == 0:
-        return out.zero_()
+    lse = torch.empty((B, H, S), dtype=torch.float32,
+                      device=q.device) if return_lse else None
+    if B == 0 or S == 0 or T == 0:
+        if T == 0:                    # no key: zero rows, -inf log-sum-exp
+            out.zero_()
+            if lse is not None:
+                lse.fill_(float("-inf"))
+        return (out, lse) if return_lse else out
     p = plan(B, S, H, K, dh)
     lib = cuda_lib.library()
     with torch.cuda.device(q.device):
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, H, K, S, T, dh, _DTYPE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), int(max(window, 0)), 1.0 / math.sqrt(dh),
             p.warps, p.key_tile, cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "flash_attention")
     launches.add()
-    return out
+    return (out, lse) if return_lse else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward keeps q, k, v,
+    the output and the rows' log-sum-exp; the backward hands them to
+    ``flash_attention_bwd`` (the kernel on CUDA tensors, which raises
+    where the kernel does not take the call; the plain formulas on CPU
+    tensors).  dO is made contiguous here, not in the kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels import flash_attention_bwd
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd.flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The model's entry: :class:`FlashAttention` where autograd records
+    and an input wants a gradient, else :func:`flash_attention` as it
+    always ran (no log-sum-exp: the serving path's bits and launches)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention(q, k, v, causal=causal, window=window)

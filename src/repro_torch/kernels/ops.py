@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import rmsnorm as _rms
@@ -31,8 +32,9 @@ from repro_torch.kernels import weight_transform as _wt
 class KernelSpec:
     """One registered kernel: its CUDA source, what it replaces in the
     reference (``file:line`` of a TPU kernel; for ``rmsnorm``, of the jnp
-    function XLA compiles), its launch counter and its plain PyTorch
-    version."""
+    function XLA compiles; for the backward kernels, of the jnp function
+    whose gradient ``jax.grad`` derives), its launch counter and its
+    plain PyTorch version."""
     name: str
     source: str
     replaces: str
@@ -95,13 +97,18 @@ registry.register(_spec("quant_matmul", _qm))
 registry.register(_spec("ssd_scan", _ssd))
 registry.register(_spec("rglru_scan", _rglru))
 registry.register(_spec("rmsnorm", _rms))
+registry.register(_spec("flash_attention_bwd", _flash_bwd))
+registry.register(_spec("rmsnorm_bwd", _rms, counter=_rms.bwd_launches,
+                        plain=_rms.plain_bwd))
 
-flash_attention = _flash.flash_attention
+# the model's entries: a gradient where autograd asks for one (backward
+# kernels), else the forward kernels as serving has always called them
+flash_attention = _flash.attention
 decode_attention = _decode.decode_attention
 decode_attention_paged = _decode.decode_attention_paged
 weight_transform = _wt.weight_transform
 quant_matmul = _qm.quant_matmul
-rmsnorm = _rms.rmsnorm
+rmsnorm = _rms.norm
 
 
 # chunk lengths the reference's TPU profile pads S to (its

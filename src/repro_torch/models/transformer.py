@@ -30,6 +30,13 @@ the tokens, so positions count the image rows first.  A token-only VLM
 batch (the schedulers' prompts, and every decode step, where the
 reference passes a zero-length image) has no image rows.
 
+Training (:meth:`LM.loss`) differentiates the same block functions:
+attention and rmsnorm go through autograd functions whose backwards are
+the hand-written kernels ``flash_attention_bwd`` and ``rmsnorm_bwd``, each
+unit body rematerialised under ``torch.utils.checkpoint`` as the
+reference's ``jax.checkpoint``.  The families whose kernels have no
+backward yet (``ssd``, ``rglru``, ``moe``, audio, VLM) refuse.
+
 The paged side (``decode_step_paged``, ``gather_pages`` /
 ``pack_pages`` / ``copy_page``, and ``prefill_continue`` for prefix
 reuse) follows the reference's ``transformer.py:615-844``: it runs over
@@ -48,6 +55,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import quant
 from repro_torch import tree as tree_util
@@ -58,6 +66,11 @@ from repro_torch.models.api import ArchConfig, Family
 from repro_torch.quant import QuantLeaf
 
 PyTree = Any
+
+AUX_LOSS_WEIGHT = 0.01
+# block kinds whose kernels all have a backward (flash_attention_bwd,
+# rmsnorm_bwd); the rest wait for ROADMAP queue 1 item [17]
+TRAIN_KINDS = ("attn", "local_attn")
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +538,87 @@ class LM:
             if a is not None:
                 aux = aux + a
         return _head(cfg, params, x), aux
+
+    # -------------------------------------------------------------- training
+    def check_trainable(self):
+        """Raise ``NotImplementedError`` for a family whose kernels have
+        no backward yet (no silent fall back to plain versions)."""
+        cfg = self.cfg
+        kinds = set(self.pattern) | set(self.tail_kinds)
+        if cfg.family in (Family.AUDIO, Family.VLM) or \
+                not kinds <= set(TRAIN_KINDS):
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family.value} family "
+                f"({sorted(kinds)} blocks) needs backward kernels the port "
+                f"does not have yet (ssd_scan, rglru_scan, the MoE FFN, the "
+                f"audio and VLM frontends): ROADMAP queue 1 item [17]; only "
+                f"{TRAIN_KINDS} blocks train")
+
+    def forward_train(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                      *, remat: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The forward that carries gradients (the reference's ``forward``
+        under ``jax.value_and_grad``).  ``remat``: each unit body runs
+        under ``torch.utils.checkpoint`` (non-reentrant) and runs again in
+        the backward, as the reference's ``jax.checkpoint(body)``.  The
+        stacked leaves are unbound once, so the backward stacks the
+        units' gradients in one op.  Returns (logits, aux_loss)."""
+        self.check_trainable()
+        cfg, pat = self.cfg, self.pattern
+        x = self.embed(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        slots = []
+        for slot in range(len(pat)):
+            group = params["blocks"][f"s{slot}"]
+            slots.append((group, [("/".join(p), leaf.unbind(0)) for p, leaf
+                                  in tree_util.leaves_with_path(group)]))
+
+        def body(x, aux, unit):
+            for kind, p in zip(pat, unit):
+                x, a = block_apply(cfg, kind, p, x, positions)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+
+        for i in range(self.n_units):
+            unit = [tree_util.unflatten(group, {n: u[i] for n, u in parts})
+                    for group, parts in slots]
+            if remat:
+                x, aux = checkpoint(body, x, aux, unit, use_reentrant=False)
+            else:
+                x, aux = body(x, aux, unit)
+        for t, kind in enumerate(self.tail_kinds):
+            x, a = block_apply(cfg, kind, params["blocks"][f"t{t}"], x,
+                               positions)
+            if a is not None:
+                aux = aux + a
+        return _head(cfg, params, x), aux
+
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor], *,
+             remat: bool = True, unroll: bool = False
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy from f32 logits (``logsumexp`` minus the
+        gold logit, ``labels < 0`` masked) plus ``AUX_LOSS_WEIGHT`` times
+        the aux loss.  Returns (total, {"ce", "aux", "accuracy"}), with
+        gradients to every parameter that asks for one.  ``unroll`` is
+        accepted for the reference's signature: the port's units already
+        run in a Python loop."""
+        del unroll
+        logits, aux = self.forward_train(params, batch, remat=remat)
+        labels = batch["labels"].to(logits.device)
+        lg = logits.float()
+        valid = labels >= 0
+        lbl = torch.where(valid, labels, torch.zeros_like(labels)).long()
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, lbl[..., None])[..., 0]
+        nll = torch.where(valid, logz - gold, torch.zeros_like(logz))
+        denom = valid.sum().clamp(min=1)
+        ce = nll.sum() / denom
+        total = ce + AUX_LOSS_WEIGHT * aux
+        with torch.no_grad():
+            acc = ((lg.argmax(dim=-1) == lbl) & valid).sum() / denom
+        return total, {"ce": ce, "aux": aux, "accuracy": acc}
 
     # ------------------------------------------------------- decode + cache
     def init_cache(self, batch: int, cache_len: int) -> PyTree:

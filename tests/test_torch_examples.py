@@ -2,7 +2,8 @@
 at smoke size through their ``main`` with ``--device cpu``, and say what
 their JAX twins say: the cold start's logits equal a warm forward's; the
 pool scales out and keep-alive reclaims it; a second cluster node's cold
-start reads nothing from the origin; each strategy replays the trace."""
+start reads nothing from the origin; each strategy replays the trace;
+training lowers the loss and resumes from its checkpoint."""
 import importlib.util
 
 import pytest
@@ -59,8 +60,17 @@ def test_serve_trace(capsys):
     assert "mean-latency speedup cicada vs pisel" in text
 
 
+def test_train_smollm(capsys):
+    out = _example("train_smollm").main(["--device", "cpu", "--steps", "4",
+                                         "--resume-steps", "2"])
+    text = capsys.readouterr().out
+    assert out["train"]["step"] == [1] and out["resumed"]["step"] == [5]
+    assert "resumed from step 4" in text and "trained 4 steps" in text
+
+
 def test_examples_need_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("quickstart", "router_serving", "serve_trace"):
+    for name in ("quickstart", "router_serving", "serve_trace",
+                 "train_smollm"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _example(name).main([])

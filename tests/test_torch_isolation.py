@@ -1,6 +1,8 @@
 """Boundaries of the port: it imports neither JAX nor the JAX package (here
 for its top-level modules, ``chip_smoke.py`` and the subpackages not
-checked by ``test_torch_isolation_{core,serving,kernels}.py``); its
+checked by ``test_torch_isolation_{core,serving,kernels}.py``, and the
+training modules imported in a process where ``jax`` and ``repro``
+cannot be imported); its
 entry points run on the GPU unless told ``device="cpu"`` and raise when
 there is none; CPU tensors take the plain versions and count no kernel
 launch."""
@@ -24,7 +26,8 @@ from torch_testlib import (PORT, ROOT, assert_imports_no_jax_and_no_reference,
                            path_id, port_files)
 
 torch.set_num_threads(2)
-HERE = ("", "analysis", "configs", "distributed", "launch", "store")
+HERE = ("", "analysis", "configs", "distributed", "launch", "store",
+        "training")
 # the subpackages test_torch_isolation_{core,serving,kernels}.py check
 ELSEWHERE = ("core", "serving", "cluster", "kernels", "models")
 
@@ -44,20 +47,60 @@ def test_import_checks_cover_every_port_file():
 def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in cuda_lib.CSRC.glob("*.cu"))
     assert srcs == ["decode_attention.cu", "flash_attention.cu",
-                    "quant_matmul.cu", "rglru_scan.cu", "rmsnorm.cu",
-                    "ssd_scan.cu", "weight_transform.cu"]
+                    "flash_attention_bwd.cu", "quant_matmul.cu",
+                    "rglru_scan.cu", "rmsnorm.cu", "ssd_scan.cu",
+                    "weight_transform.cu"]
     assert ops.registry.names() == [
         "decode_attention", "decode_attention_paged", "flash_attention",
-        "quant_matmul", "rglru_scan", "rmsnorm", "ssd_scan",
-        "weight_transform"]
+        "flash_attention_bwd", "quant_matmul", "rglru_scan", "rmsnorm",
+        "rmsnorm_bwd", "ssd_scan", "weight_transform"]
     for name in ops.registry.names():
         spec = ops.registry.spec(name)
         assert (ROOT / spec.source).exists()
         path, line = spec.replaces.split(":")
-        # the TPU kernels; rmsnorm stands for the reference's jnp rmsnorm
+        # the TPU kernels; rmsnorm (and its backward) stands for the
+        # reference's jnp rmsnorm, flash_attention_bwd for the jnp flash
+        # attention jax.grad differentiates
         assert path.startswith("src/repro/kernels/") or (
-            name == "rmsnorm" and path == "src/repro/models/layers.py")
+            name in ("rmsnorm", "rmsnorm_bwd")
+            and path == "src/repro/models/layers.py")
         assert "def " in (ROOT / path).read_text().splitlines()[int(line) - 1]
+
+
+BLOCKED = r"""
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "flax"):
+            raise ImportError(f"blocked: {name}")
+sys.meta_path.insert(0, Block())
+for mod in sys.argv[1:]:
+    __import__(mod)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax"))
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_training_modules_import_with_jax_and_reference_blocked():
+    """The training path imports in a process where importing ``jax`` or
+    ``repro`` raises."""
+    import os
+    import subprocess
+    import sys
+    mods = ["repro_torch.training", "repro_torch.training.data",
+            "repro_torch.training.optim", "repro_torch.training.train",
+            "repro_torch.distributed.checkpoint",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.resilience",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.train"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", BLOCKED, *mods], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "OK", \
+        out.stderr[-2000:]
 
 
 @pytest.fixture
@@ -184,8 +227,9 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):
         GenerateSpec(prompt=[1, 2, 3], n_new=3))
     assert ops.registry.dispatch_snapshot() == {
         "decode_attention": 0, "decode_attention_paged": 0,
-        "flash_attention": 0, "quant_matmul": 0, "rglru_scan": 0,
-        "rmsnorm": 0, "ssd_scan": 0, "weight_transform": 0}
+        "flash_attention": 0, "flash_attention_bwd": 0, "quant_matmul": 0,
+        "rglru_scan": 0, "rmsnorm": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
+        "weight_transform": 0}
     assert ops.registry.describe()["library"]["built"] is False
 
 

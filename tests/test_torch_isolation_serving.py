@@ -24,6 +24,6 @@ def test_port_examples_import_no_jax_and_no_reference(path):
 def test_every_example_has_its_port():
     assert [p.name for p in EXAMPLES] == [
         "torch_quickstart.py", "torch_router_serving.py",
-        "torch_serve_trace.py"]
+        "torch_serve_trace.py", "torch_train_smollm.py"]
     for p in EXAMPLES:
         assert (ROOT / "examples" / p.name[len("torch_"):]).exists()

@@ -10,7 +10,7 @@ run must be equal, exactly: (1, 2), (1, 4) and (2, 2) meshes, f32 and
 int8 stores, ``apply_dtype`` None and bfloat16, smollm-360m (3 heads
 replicate on 4 devices), mixtral-8x7b (the expert axis) and
 recurrentgemma-2b at smoke size, plus the reference's wide int8 and
-all-indivisible configs.  Last, a two-node cluster whose nodes serve
+all-indivisible configs; and the training half's cache and batch specs.  Last, a two-node cluster whose nodes serve
 shard-granular cold starts.
 """
 import dataclasses
@@ -27,9 +27,11 @@ import torch_shard_oracle as oracle
 from repro.store.store import WeightStore as JStore
 from repro_torch.cluster import ClusterPlatform
 from repro_torch.core.shards import plan_tag, plan_unit
-from repro_torch.distributed.sharding import (NamedSharding, P, leaf_specs,
-                                              param_specs, replicated,
-                                              serve_rules, train_rules)
+from repro_torch.distributed.sharding import (NamedSharding, P,
+                                              batch_specs, cache_specs,
+                                              leaf_specs, param_specs,
+                                              replicated, serve_rules,
+                                              train_rules)
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import transformer
 from repro_torch.models.api import get_config
@@ -152,6 +154,27 @@ def test_stacked_param_specs_match_reference(ref):
             got = {leaf_path_name(p): oracle.enc_spec(s.spec)
                    for p, s in tree_util.leaves_with_path(specs)}
             assert got == ref["stacked"][f"{case}/{mk}"], (case, mk)
+
+
+def test_cache_and_batch_specs_match_reference(ref):
+    """The training half: ``cache_specs`` of each case's decode cache and
+    ``batch_specs`` of a batch with divisible, half-divisible and odd
+    leading dims, under both rule sets, on every mesh."""
+    rules = {"serve": serve_rules(), "train": train_rules()}
+    for case in ("smollm", "mixtral", "rgemma"):
+        cache = _model(case).init_cache(*oracle.CACHE_SHAPE)
+        for mk, mesh in _meshes().items():
+            for rn, rl in rules.items():
+                got = oracle.enc_tree(cache_specs(cache, mesh, rl))
+                assert got == ref["cache"][f"{case}/{mk}/{rn}"], (case, mk)
+    batch = {k: torch.empty(v, dtype=torch.int32, device="meta")
+             for k, v in oracle.BATCHES.items()}
+    for mk, mesh in _meshes().items():
+        for rn, rl in rules.items():
+            assert oracle.enc_tree(batch_specs(batch, mesh, rl)) == \
+                ref["batch"][f"{mk}/{rn}"], (mk, rn)
+    assert ref["batch"]["2x2/train"]["tokens"] == ["data"]
+    assert ref["batch"]["1x4/train"]["tokens"] == []
 
 
 def test_plan_tags_match_reference(ref):

@@ -13,8 +13,10 @@ drawn with numpy from a seed: a plan reads only the manifest).  For each
 case, mesh shape and ``apply_dtype``, it writes each unit's leaf specs,
 index maps, shard plan (pieces per shard with their byte runs, commit,
 transformed, out dtype) and tag; per case and mesh, the specs of the
-stacked parameter tree; per mesh, the tags of both rule sets; and the
-byte runs of random slices.  The encoders below take the port's objects
+stacked parameter tree; per mesh, the tags of both rule sets; the
+training half's ``cache_specs`` (each case's decode cache) and
+``batch_specs`` (:data:`BATCHES`) under both rule sets; and the byte
+runs of random slices.  The encoders below take the port's objects
 as well as the reference's, so the test encodes the port's the same way.
 """
 from __future__ import annotations
@@ -42,6 +44,10 @@ CASES = {
             None),
 }
 MESHES = ((1, 2), (1, 4), (2, 2))
+# batch leaf shapes for batch_specs: divisible by 2 and 4, by 2 only, odd
+BATCHES = {"tokens": (8, 16), "labels": (6, 16), "img": (3, 8, 32),
+           "pos": (4,)}
+CACHE_SHAPE = (4, 32)           # (batch, cache_len) of the decode caches
 APPLY = (None, "bfloat16")
 N_RUN_CASES = 64
 
@@ -77,6 +83,15 @@ def dtype_name(dt):
 
 def enc_spec(spec):
     return [list(a) if isinstance(a, tuple) else a for a in spec]
+
+
+def enc_tree(specs):
+    """{leaf path: encoded spec} of a tree of NamedShardings, the
+    reference's or the port's (JAX walks both; ``None`` leaves drop)."""
+    import jax
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): enc_spec(s.spec)
+            for path, s in jax.tree_util.tree_flatten_with_path(specs)[0]}
 
 
 def enc_index(idx):
@@ -116,7 +131,8 @@ def main(store_dir: str, out_path: str):
     import jax.numpy as jnp
 
     from repro.core.shards import plan_tag, plan_unit
-    from repro.distributed.sharding import (param_specs, serve_rules,
+    from repro.distributed.sharding import (batch_specs, cache_specs,
+                                            param_specs, serve_rules,
                                             train_rules)
     from repro.launch.mesh import make_serving_mesh
     from repro.models import transformer
@@ -127,7 +143,9 @@ def main(store_dir: str, out_path: str):
     store = WeightStore(store_dir)
     rules = serve_rules()
     meshes = {"x".join(map(str, s)): make_serving_mesh(s) for s in MESHES}
-    out = {"plans": {}, "stacked": {}, "tags": {}, "runs": []}
+    out = {"plans": {}, "stacked": {}, "tags": {}, "runs": [],
+           "cache": {}, "batch": {}}
+    all_rules = {"serve": serve_rules(), "train": train_rules()}
     rng = np.random.default_rng(7)
     for case, (arch, over, quant) in CASES.items():
         cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
@@ -139,6 +157,9 @@ def main(store_dir: str, out_path: str):
                 model.abstract_unit(u))
         store.deploy(case, units, quant=quant)
         for mk, mesh in meshes.items():
+            for rn, rl in all_rules.items():
+                out["cache"][f"{case}/{mk}/{rn}"] = enc_tree(cache_specs(
+                    model.abstract_cache(*CACHE_SHAPE), mesh, rl))
             out["stacked"][f"{case}/{mk}"] = {
                 "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
                          for p in path): enc_spec(s.spec)
@@ -155,6 +176,10 @@ def main(store_dir: str, out_path: str):
     for mk, mesh in meshes.items():
         out["tags"][mk] = {"serve": plan_tag(mesh, serve_rules()),
                            "train": plan_tag(mesh, train_rules())}
+        for rn, rl in all_rules.items():
+            out["batch"][f"{mk}/{rn}"] = enc_tree(batch_specs(
+                {k: jax.ShapeDtypeStruct(v, jnp.int32)
+                 for k, v in BATCHES.items()}, mesh, rl))
     for shape, item, index in run_cases():
         out["runs"].append([list(r) for r in slice_byte_runs(
             tuple(shape), item, as_index(index))])
