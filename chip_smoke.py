@@ -212,6 +212,29 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def kernel_ms(fn, n: int = 10) -> dict:
+    """Device ms of one call of ``fn`` by kernel name: the self device time
+    of each kernel under torch.profiler over ``n`` calls (after 3 to warm
+    up), divided by ``n``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0)
+        if t:
+            out[ev.key] = out.get(ev.key, 0.0) + t / n / 1e3
+    return out
+
+
 def union_ms(spans) -> float:
     """Milliseconds covered by (start_us, end_us) spans, overlaps once."""
     busy, end = 0.0, None
@@ -4440,14 +4463,36 @@ NORM_BWD_CASES = ((8, 512, 960), (3, 7, 3072), (2, 3, 20), (5, 8192))
 TRAIN_STEPS = 30            # the full-width run through launch/train.py
 
 
+def sdpa_grads(q, k, v, do, causal: bool, window: int):
+    """(dq, dk, dv) of PyTorch's SDPA on the same inputs, (B, S, H, dh)
+    like the kernel's: the yardstick of bf16 rounding beside the kernel's
+    errors (a boolean mask where there is a window)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fmod
+    S = q.shape[1]
+    mask = fmod.visible(S, S, causal, window, q.device) if window else None
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+        enable_gqa=True)
+    return [g.transpose(1, 2) for g in torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2))]
+
+
 def check_backward_kernels(dev, report: dict):
     """The training kernels against the autograd of their plain versions
     on the card: ``flash_attention_bwd`` (fed the card forward's output
     and log-sum-exp) at :data:`BWD_CASES`, ``rmsnorm_bwd`` at
     :data:`NORM_BWD_CASES`, each gradient within 1e-4 (f32) or 2e-2
-    (bf16) of its max |g|, and bit-equal across two calls; the forward
-    with the log-sum-exp bit-equal to the serving forward.  Then both
-    timed at smollm-360m's training shapes for the JSON line."""
+    (bf16) of its max |g|, and bit-equal across two calls, each bf16
+    case's errors printed beside SDPA's backward's against the same
+    reference; the forward with the log-sum-exp bit-equal to the serving
+    forward.  Then both timed at smollm-360m's training shapes for the
+    JSON line (each with its ratio to the library call and the bound's
+    share of its time), and rmsnorm's forward at the training rows for
+    rmsnorm's ``more``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fmod
@@ -4481,10 +4526,17 @@ def check_backward_kernels(dev, report: dict):
             errs = [rel_err(a, b) for a, b in zip(got, want)]
             det = all(torch.equal(a, b) for a, b in zip(got, again))
             fl_err[dname] = max(fl_err[dname], *errs)
+            yard = ""
+            if dt == torch.bfloat16:
+                sd = sdpa_grads(q, k, v, do, causal, win)
+                se = [rel_err(a, b) for a, b in zip(sd, want)]
+                yard = (f"; SDPA's backward {se[0]:.2e}/{se[1]:.2e}/"
+                        f"{se[2]:.2e}")
+                del sd
             print(f"  flash_attention_bwd B={B} S={S} H={H} K={K} dh={dh} "
                   f"causal={causal} window={win} {dname}: dq/dk/dv err "
                   f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} of max |g| "
-                  f"(tol {tol}); two calls "
+                  f"(tol {tol}){yard}; two calls "
                   f"{'bit-equal' if det else 'DIFFER'}; LSE forward "
                   f"{'bit-equal' if same else 'DIFFERS'} to serving")
             need(all(math.isfinite(e) and e <= tol for e in errs),
@@ -4547,6 +4599,10 @@ def check_backward_kernels(dev, report: dict):
                 "CUDA events",
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 q/o/dO (8,512,15,64), k/v (8,512,5,64), causal")
+    sdpa_dev = sum(kernel_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True)).values())
+    print(f"  SDPA's backward at that shape: its kernels {sdpa_dev:.4f} ms "
+          f"of device time a call (torch.profiler)")
     del qt, kt, vt, lib_out
     x = randn(B, S, 960, dtype=bf) * 3
     sc = randn(960) * 0.1
@@ -4572,7 +4628,18 @@ def check_backward_kernels(dev, report: dict):
         print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms on the "
               f"device ({r['call_ms']:.4f} ms per eager call), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-              f"(eager), bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+              f"(eager), bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+              f"kernel / library {r['ms'] / r['library_ms']:.3f}, bound / "
+              f"kernel {r['bound_ms'] / r['ms']:.1%}")
+    # rmsnorm's forward where training runs it (4 L + 1 launches a step)
+    w = (1.0 + sc).to(bf)                  # outside the timed region
+    n, d = B * S, 960
+    extra_line("rmsnorm", "bf16 x (8,512,960), f32 scale (960,)",
+               lambda: nmod.rmsnorm(x, sc), lambda: nmod.plain(x, sc),
+               lambda: F.rms_norm(x, (d,), w, 1e-6),
+               bound(2 * n * d * 2 + 4 * d, 4 * n * d, torch.float32),
+               library="F.rms_norm with weight 1 + scale made outside the "
+                       "timed region")
 
 
 def train_counts(cfg) -> dict:

@@ -4,19 +4,24 @@ launch choices of this tree's plans, and the rows probe.
     python3 src/repro_torch/kernels/ab.py --turns parent=DIR change=.
 
 builds ``quant_matmul.cu``, ``flash_attention.cu``, ``decode_attention.cu``,
-``ssd_scan.cu``, ``rglru_scan.cu`` and ``weight_transform.cu`` (with the
-headers beside them) of each named tree into that tree's own ``build/``,
-then times the kernels at the main path's shapes (the decode kernels also
-at a 2048-row cache, ``weight_transform`` at its large leaves and at four
-launch-bound small ones) in
+``ssd_scan.cu``, ``rglru_scan.cu``, ``weight_transform.cu`` and
+``flash_attention_bwd.cu`` (with the headers beside them) of each named
+tree into that tree's own ``build/``, then times the kernels at the main
+path's shapes (the decode kernels also at a 2048-row cache,
+``weight_transform`` at its large leaves and at four launch-bound small
+ones, ``flash_attention_bwd`` at smollm-360m's training shape and at
+h2o-danube-3-4b's heads with its window) in
 turns, each tree in a process of its own, in the order A, B, B, A, so that
 a drift of the card over the run shows up as a difference between the two
 runs of one tree.  The decode kernels and the scans are also timed as
 eager calls (``chip_smoke.call_ms``, host dispatch included: their extra
 key ends in ``eager``).  The parent tree is made with ``git archive HEAD
 src/repro_torch | tar -x -C DIR``.  Each tree is timed through its own
-wrappers, so trees whose C entry points differ compare fine.  Prints one
-JSON line per turn and a table of the means.
+wrappers, so trees whose C entry points differ compare fine.  Each turn
+also hashes ``flash_attention_bwd``'s f32 results at phase 27's f32 cases
+(inputs from one seed): they must be the same bits in every turn of both
+trees, else the run fails.  Prints one JSON line per turn and a table of
+the means.
 
     python3 src/repro_torch/kernels/ab.py --sweep
 
@@ -26,11 +31,13 @@ the C entry points: ``flash_attention`` with 1, 2 and 4 warps a block,
 decode kernels at split lengths 16 to 256 (at smollm-360m's, yi-9b's,
 h2o-danube-3-4b's and recurrentgemma-2b's heads), ``ssd_scan`` at each
 (chunk length L, dp columns a block) it is built for and ``rglru_scan`` at
-(slices, slice length T) pairs.  The plan's own choice is checked
-bit-equal to the wrapper, the others against the plain version within
-phase 3's tolerances; ``weight_transform``'s dequant at its large leaves
-over the grid (steps a thread), each launch bit-equal to the plain
-version.
+(slices, slice length T) pairs, ``flash_attention_bwd`` at each (kv
+rows, q keys) pair of tiles its padded dim is built at (``plan_bwd``'s
+and ``ALT_TILES``).  The plan's own choice is checked bit-equal to the
+wrapper, the others against the plain version within phase 3's (phase
+27's for the backward) tolerances; ``weight_transform``'s dequant at its
+large leaves over the grid (steps a thread), each launch bit-equal to the
+plain version.
 
     python3 src/repro_torch/kernels/ab.py --probe DIR
 
@@ -44,6 +51,8 @@ calls, replayed 5 times, timed with CUDA events).  Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import itertools
 import json
 import math
 import os
@@ -54,11 +63,12 @@ import time
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
                                     ".."))
 KEEP = ("quant_matmul.cu", "flash_attention.cu", "decode_attention.cu",
-        "ssd_scan.cu", "rglru_scan.cu", "weight_transform.cu")
+        "ssd_scan.cu", "rglru_scan.cu", "weight_transform.cu",
+        "flash_attention_bwd.cu")
 ENTRIES = ("repro_quant_matmul", "repro_flash_attention",
            "repro_decode_attention", "repro_decode_attention_paged",
            "repro_ssd_scan", "repro_rglru_scan", "repro_wt_dequant",
-           "repro_wt_cast")
+           "repro_wt_cast", "repro_flash_attention_bwd")
 
 # (name, M, K, N): the distinct smollm-360m projections at a 4-slot decode
 # step and a 128-token prefill, and the head at the decode step
@@ -70,6 +80,14 @@ FLASH = [("flash dh64 S128", 1, 128, 15, 5, 64),
          ("flash dh256 S128", 1, 128, 10, 1, 256),
          ("flash dh64 S1000", 1, 1000, 15, 5, 64),
          ("flash dh128 S70 B2", 2, 70, 8, 2, 128)]
+# (name, B, S, H, K, dh, window), causal bf16: smollm-360m's training shape
+# and h2o-danube-3-4b's heads at S 4352 with its 4096 window
+BWD = [("bwd (8,512,15/5,64)", 8, 512, 15, 5, 64, 0),
+       ("bwd (1,4352,32/8,120) w4096", 1, 4352, 32, 8, 120, 4096)]
+# phase 27's f32 cases (B, S, H, K, dh, causal, window), hashed every turn
+BWD_F32 = [(2, 128, 15, 5, 64, True, 0), (2, 100, 6, 2, 20, True, 0),
+           (1, 96, 16, 16, 80, False, 0), (1, 77, 4, 2, 80, False, 16),
+           (2, 200, 8, 2, 64, True, 48), (1, 128, 10, 1, 256, True, 0)]
 # (name, H, K, dh, S_max, pos, page tokens or 0 for the slotted kernel): the
 # smollm and recurrentgemma decode steps of phase 3, the paged 4-slot step,
 # and both kernels at smollm heads over a 2048-row cache
@@ -152,13 +170,15 @@ def decode_inputs(chip_smoke, dev, g, H, K, dh, S_max, pos, pt):
 def use_tree(tree: str):
     """Import ``tree``'s port, its build restricted to the kept kernels;
     returns (cuda_lib, flash_attention, quant_matmul, decode_attention,
-    ssd_scan, rglru_scan, weight_transform, chip_smoke)."""
+    ssd_scan, rglru_scan, weight_transform, chip_smoke,
+    flash_attention_bwd)."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import flash_attention_bwd as bmod
     from repro_torch.kernels import quant_matmul as qmod
     from repro_torch.kernels import rglru_scan as rmod
     from repro_torch.kernels import ssd_scan as smod
@@ -171,13 +191,28 @@ def use_tree(tree: str):
                            if k in ENTRIES}
     sys.path.append(ROOT)
     import chip_smoke                 # after the tree's repro_torch
-    return cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke
+    return cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod
+
+
+def bwd_inputs(dev, g, B, S, H, K, dh, causal, window, dtype):
+    """(q, k, v, o, lse, dO) of one backward shape, o and lse from the
+    tree's own forward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fmod
+    q, do = (torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, K, dh, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    o, lse = fmod.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    return q, k, v, o, lse, do
 
 
 def one_tree(tree: str) -> dict:
     """Build and time one tree's kernels (in this process)."""
     import torch
-    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke = use_tree(tree)
+    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod = \
+        use_tree(tree)
     t0 = time.perf_counter()
     cuda_lib.library()
     build_s = time.perf_counter() - t0
@@ -216,18 +251,35 @@ def one_tree(tree: str) -> dict:
         out[name] = chip_smoke.device_ms(
             lambda: wmod.weight_transform(w, s, out_dtype=dt))
         del w, s
-    return {"build_s": build_s, "ms": out}
+    for name, B, S, H, K, dh, win in BWD:
+        q, k, v, o, lse, do = bwd_inputs(dev, g, B, S, H, K, dh, True, win,
+                                         torch.bfloat16)
+        out[name] = chip_smoke.device_ms(lambda: bmod.flash_attention_bwd(
+            q, k, v, o, lse, do, window=win))
+        del q, k, v, o, lse, do
+    gh = torch.Generator(device=dev).manual_seed(26)
+    f32 = {}
+    for B, S, H, K, dh, causal, win in BWD_F32:
+        args = bwd_inputs(dev, gh, B, S, H, K, dh, causal, win,
+                          torch.float32)
+        h = hashlib.sha256()
+        for t in (*args[3:5], *bmod.flash_attention_bwd(
+                *args, causal=causal, window=win)):
+            h.update(t.cpu().numpy().tobytes())
+        f32[f"{B, S, H, K, dh, causal, win}"] = h.hexdigest()[:16]
+    return {"build_s": build_s, "ms": out, "f32": f32}
 
 
 def sweep() -> None:
     """The launch choices of this tree's plans, timed at the path shapes
     (the results of each choice are checked bit-equal to the wrapper's)."""
     import torch
-    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke = \
+    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod = \
         use_tree(ROOT)
     lib = cuda_lib.library()
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
+    sweep_bwd(cuda_lib, bmod, chip_smoke, lib, dev, g)
     sweep_transform(wmod, chip_smoke, lib, dev, g)
     sweep_scans(cuda_lib, smod, rmod, chip_smoke, lib, dev, g)
     sweep_decode(cuda_lib, dmod, chip_smoke, lib, dev, g)
@@ -281,6 +333,71 @@ def sweep() -> None:
                        f"{chip_smoke.device_ms(call):.5f} ms")
         print(f"{name} ({p.n_slices} slices of {p.slice_k}): "
               + ", ".join(row), flush=True)
+
+
+def sweep_bwd(cuda_lib, bmod, chip_smoke, lib, dev, g) -> None:
+    """flash_attention_bwd at each (kv rows, q keys) pair of tiles its
+    padded dim is built at, at the BWD shapes: the plan's (starred)
+    bit-equal to the wrapper, every pair within phase 27's bf16 tolerance
+    of each gradient's max |g| against the plain version; each pair's
+    device ms and its three kernels' (torch.profiler), then SDPA's
+    backward on the same inputs, eager and its kernels' device time."""
+    import torch
+    for name, B, S, H, K, dh, win in BWD:
+        q, k, v, o, lse, do = bwd_inputs(dev, g, B, S, H, K, dh, True, win,
+                                         torch.bfloat16)
+        want = bmod.flash_attention_bwd(q, k, v, o, lse, do, window=win)
+        ref = bmod.plain(q, k, v, o, lse, do, window=win)
+        dp = bmod.padded_dim(dh)
+        best = bmod.plan_bwd(B, S, H, K, dh)
+        rows = sorted({bmod.TILES[dp][1], bmod.ALT_TILES[dp][0]})
+        keys = sorted({bmod.TILES[dp][2], bmod.ALT_TILES[dp][1]})
+        row = []
+        for kv_rows, q_keys in itertools.product(rows, keys):
+            got = [torch.empty_like(t) for t in (q, k, v)]
+            D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+
+            def call():
+                cuda_lib.check(lib.repro_flash_attention_bwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), *(t.data_ptr()
+                                                     for t in got),
+                    D.data_ptr(), B, H, K, S, dh, 1, 1, win,
+                    1.0 / math.sqrt(dh), kv_rows, q_keys,
+                    cuda_lib.stream_ptr(dev)), name)
+            call()
+            torch.cuda.synchronize()
+            mine = (kv_rows, q_keys) == (best.kv_rows, best.q_key_tile)
+            if mine:
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    (name, kv_rows, q_keys)
+            errs = [chip_smoke.rel_err(a, b) for a, b in zip(got, ref)]
+            assert max(errs) <= chip_smoke.BF16_ATOL, (name, kv_rows,
+                                                       q_keys, errs)
+            split = chip_smoke.kernel_ms(call)
+            parts = " / ".join(
+                f"{sum(t for n, t in split.items() if part in n):.4f}"
+                for part in ("dot_rows", "bwd_kv_tc", "bwd_q_tc"))
+            row.append(f"kv rows {kv_rows} q keys {q_keys}"
+                       f"{'*' if mine else ''} "
+                       f"{chip_smoke.device_ms(call):.5f} ms (D / kv / q "
+                       f"{parts})")
+        print(f"{name}: " + ", ".join(row), flush=True)
+        mask = bmod.visible(S, S, True, win, dev) if win else None
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=not win, enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        print(f"{name}: SDPA's backward {chip_smoke.call_ms(sdpa):.5f} ms "
+              f"eager, its kernels "
+              f"{sum(chip_smoke.kernel_ms(sdpa).values()):.5f} ms of device "
+              f"time", flush=True)
+        del q, k, v, o, lse, do, want, ref, got, qt, kt, vt, out
+        torch.cuda.empty_cache()
 
 
 def sweep_transform(wmod, chip_smoke, lib, dev, g) -> None:
@@ -679,6 +796,7 @@ def main() -> int:
         return 0
     trees = [t.split("=", 1) for t in a.turns]
     runs = {name: [] for name, _ in trees}
+    hashes = []
     for name, tree in (trees[0], trees[1], trees[1], trees[0]):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--tree", tree], capture_output=True, text=True)
@@ -688,6 +806,11 @@ def main() -> int:
         res = json.loads(r.stdout.strip().splitlines()[-1])
         print(name, json.dumps(res), flush=True)
         runs[name].append(res["ms"])
+        hashes.append((name, res["f32"]))
+    same = all(h == hashes[0][1] for _, h in hashes)
+    print(f"flash_attention_bwd f32 results, {len(BWD_F32)} cases: "
+          f"{'bit-equal in every turn' if same else 'DIFFER'}"
+          + ("" if same else f" {hashes}"), flush=True)
     (na, ra), (nb, rb) = runs.items()
     print(f"{'shape':30s} {na + ' ms':>20s} {nb + ' ms':>20s} {'ratio':>7s}")
     for key in ra[0]:
@@ -696,7 +819,7 @@ def main() -> int:
         ratio = (sum(b_ms) / len(b_ms)) / (sum(a_ms) / len(a_ms))
         print(f"{key:30s} {a_ms[0]:9.5f},{a_ms[1]:9.5f} "
               f"{b_ms[0]:9.5f},{b_ms[1]:9.5f} {ratio:7.3f}")
-    return 0
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

@@ -55,7 +55,7 @@ SIGNATURES = {
     "repro_rglru_scan": [P, P, P, P, P, I, I, I, I, I, I, I, P],
     "repro_rmsnorm": [P, P, P, LL, I, F, I, I, P],
     "repro_flash_attention_bwd": [P, P, P, P, P, P, P, P, P, P,
-                                  I, I, I, I, I, I, I, I, F, P],
+                                  I, I, I, I, I, I, I, I, F, I, I, P],
     "repro_rmsnorm_bwd": [P, P, P, P, P, P, LL, I, F, I, I, P],
 }
 

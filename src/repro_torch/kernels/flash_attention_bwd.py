@@ -7,22 +7,81 @@ Kernel: ``csrc/flash_attention_bwd.cu`` (see its note).  On CUDA tensors
 :func:`flash_attention_bwd` launches it or raises (S != T, a head dim
 above 256, other dtypes); on CPU tensors it computes :func:`plain`.  The
 JAX package has no backward kernel: ``jax.grad`` differentiates its
-pure-jnp flash attention, which :data:`REPLACES` names.
+pure-jnp flash attention, which :data:`REPLACES` names.  :func:`plan_bwd`
+gives the bf16 kernel's tiles and blocks.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.flash_attention import HEAD_DIMS, visible
+from repro_torch.kernels.flash_attention import HEAD_DIMS, padded_dim, visible
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/kernels/ops.py:215"      # XLA's gradient of _xla_flash
 launches = cuda_lib.LaunchCounter()
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+KV_KEYS = 64            # keys a kv-pass block: 4 warps of 16 (8 at DP 256)
+Q_ROWS = 64             # (position, head) rows a q-pass block: 4 warps of 16
+# per padded dim, the bf16 kernel's Bk<DP>: (warps sharing 16 keys in the kv
+# pass, rows a Q/dO tile of the kv pass, keys a K/V tile of the q pass)
+TILES = {32: (1, 64, 64), 64: (1, 64, 32), 128: (1, 64, 64),
+         256: (2, 32, 32)}
+# the (kv rows, q keys) each padded dim is also built at, for ab.py --sweep
+ALT_TILES = {32: (64, 64), 64: (32, 64), 128: (32, 32), 256: (32, 32)}
+# blocks an SM the q pass at the plan's key tile is compiled for
+Q_MIN_BLOCKS = {32: 1, 64: 4, 128: 1, 256: 1}
+SMEM_LIMIT = 232448     # bytes of shared memory a block may opt in to
+SM_SMEM = 233472        # bytes of shared memory an SM holds for its blocks
+
+
+class PlanBwd(NamedTuple):
+    """Launch of the bf16 kernel: the kv pass in ``kv_blocks`` blocks of
+    ``kv_warps`` warps, each over ``kv_keys`` keys, walking Q/dO tiles of
+    ``kv_rows`` (position, head) rows in ``kv_smem`` bytes of shared
+    memory; the q pass in ``q_blocks`` blocks of 4 warps, each over
+    ``q_rows`` rows, walking K/V tiles of ``q_key_tile`` keys in
+    ``q_smem`` bytes."""
+    kv_warps: int
+    kv_keys: int
+    kv_rows: int
+    kv_blocks: int
+    kv_smem: int
+    q_rows: int
+    q_key_tile: int
+    q_blocks: int
+    q_smem: int
+
+
+def kv_smem_bytes(dp: int, rows: int) -> int:
+    """csrc kv_smem_bytes: K and V tiles, two buffers each of Q and dO
+    rows (8 bf16 of padding a row) and of the rows' lse, D and position."""
+    return (2 * KV_KEYS + 4 * rows) * (dp + 8) * 2 + 2 * rows * 12
+
+
+def q_smem_bytes(dp: int, keys: int) -> int:
+    """csrc q_smem_bytes: Q and dO rows, two buffers each of K and V."""
+    return (2 * Q_ROWS + 4 * keys) * (dp + 8) * 2
+
+
+def plan_bwd(B: int, S: int, H: int, K: int, dh: int) -> PlanBwd:
+    """The bf16 kernel's launch: its tiles are fixed by the padded head dim
+    alone; blocks cover every key once in the kv pass and every (position,
+    head) row once in the q pass."""
+    dp = padded_dim(dh)
+    split, kv_rows, q_keys = TILES[dp]
+    rep = H // K
+    return PlanBwd(
+        kv_warps=4 * split, kv_keys=KV_KEYS, kv_rows=kv_rows,
+        kv_blocks=B * K * -(-S // KV_KEYS),
+        kv_smem=kv_smem_bytes(dp, kv_rows), q_rows=Q_ROWS,
+        q_key_tile=q_keys, q_blocks=B * K * -(-S * rep // Q_ROWS),
+        q_smem=q_smem_bytes(dp, q_keys))
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,6 +165,7 @@ def _launch(q, k, v, o, do, lse, dq, dk, dv, D, *, causal: bool,
     it launched."""
     B, S, H, dh = q.shape
     K = k.shape[2]
+    p = plan_bwd(B, S, H, K, dh)
     lib = cuda_lib.library()
     with torch.cuda.device(q.device):
         rc = lib.repro_flash_attention_bwd(
@@ -113,6 +173,6 @@ def _launch(q, k, v, o, do, lse, dq, dk, dv, D, *, causal: bool,
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), D.data_ptr(), B, H, K, S, dh, _DTYPE[q.dtype],
             int(causal), int(max(window, 0)), 1.0 / math.sqrt(dh),
-            cuda_lib.stream_ptr(q.device))
+            p.kv_rows, p.q_key_tile, cuda_lib.stream_ptr(q.device))
     cuda_lib.check(rc, "flash_attention_bwd")
     launches.add()
