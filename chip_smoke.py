@@ -212,10 +212,11 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_ms(fn, n: int = 10) -> dict:
+def kernel_ms(fn, n: int = 10, per_launch: bool = False) -> dict:
     """Device ms of one call of ``fn`` by kernel name: the self device time
     of each kernel under torch.profiler over ``n`` calls (after 3 to warm
-    up), divided by ``n``."""
+    up), divided by ``n`` (``per_launch``: by the launches the profiler
+    saw, the mean of one launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -231,7 +232,8 @@ def kernel_ms(fn, n: int = 10) -> dict:
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0)
         if t:
-            out[ev.key] = out.get(ev.key, 0.0) + t / n / 1e3
+            div = ev.count if per_launch else n
+            out[ev.key] = out.get(ev.key, 0.0) + t / div / 1e3
     return out
 
 
@@ -1282,15 +1284,17 @@ def check_scan_rows(dev, randn, g):
 
 def check_rmsnorm(dev, report: dict, randn):
     """rmsnorm against its plain version (bf16 and f32, scales in either;
-    up to mixtral's d 4096 and internvl2's 8192), rows bit-equal at M in
-    {1, 4, 16} to one-row calls, and timed at a recurrentgemma-2b decode
-    step's norm (B = 4, d 2560, bf16)."""
+    at the configs' widths up to mixtral's d 4096, arctic's 7168 and
+    internvl2's 8192, and training's (8,512,960)), rows bit-equal at M in
+    {1, 4, 16} to one-row calls at d 960, 2560 and 8192, and timed at a
+    recurrentgemma-2b decode step's norm (B = 4, d 2560, bf16)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as nmod
     err = 0.0
     shapes = ((4, 1, 2560), (1, 128, 2560), (3, 7, 3072), (5, 960),
-              (2, 3, 20), (4, 1, 4096), (4, 1, 8192))
+              (2, 3, 20), (4, 1, 4096), (4, 1, 8192), (8, 512, 960),
+              (3, 1536), (2, 5, 3840), (3, 7168))
     for shape in shapes:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
@@ -1308,14 +1312,16 @@ def check_rmsnorm(dev, report: dict, randn):
     print(f"  rmsnorm {' '.join(str(s).replace(' ', '') for s in shapes)}, "
           f"bf16 and f32, f32 and bf16 scales: max abs err {err:.3e} "
           f"(tol {BF16_ATOL} / {F32_ATOL} of max |out|)")
-    x = randn(16, 1, 2560, dtype=torch.bfloat16) * 3
-    sc = (randn(2560) * 0.1).to(torch.bfloat16)
-    rows = torch.cat([nmod.rmsnorm(x[i:i + 1], sc) for i in range(16)])
-    for m in (1, 4, 16):
-        same = torch.equal(nmod.rmsnorm(x[:m], sc), rows[:m])
-        print(f"  rmsnorm row independence (d 2560, bf16) M={m}: "
-              f"{'bit-equal' if same else 'DIFFERS'} to M=1")
-        need(same, f"rmsnorm rows depend on M at M={m}")
+    for d, sdt in ((960, torch.float32), (8192, torch.bfloat16),
+                   (2560, torch.bfloat16)):
+        x = randn(16, 1, d, dtype=torch.bfloat16) * 3
+        sc = (randn(d) * 0.1).to(sdt)
+        rows = torch.cat([nmod.rmsnorm(x[i:i + 1], sc) for i in range(16)])
+        for m in (1, 4, 16):
+            same = torch.equal(nmod.rmsnorm(x[:m], sc), rows[:m])
+            print(f"  rmsnorm row independence (d {d}, bf16) M={m}: "
+                  f"{'bit-equal' if same else 'DIFFERS'} to M=1")
+            need(same, f"rmsnorm rows depend on M at M={m}, d {d}")
     x = x[:4]
     w = (1.0 + sc.float()).to(torch.bfloat16)      # outside the timed region
     n, d = 4, 2560
@@ -4572,6 +4578,19 @@ def check_backward_kernels(dev, report: dict):
           f", bf16 and f32, f32 and bf16 scales: dx/dscale err bf16 "
           f"{nm_err['bfloat16']:.2e}, f32 {nm_err['float32']:.2e} of max "
           f"|g| (tol {BF16_ATOL} / {F32_ATOL}); two calls bit-equal")
+    # a row's dx does not depend on the other rows of the call
+    for d, dt in ((960, torch.bfloat16), (8192, torch.float32)):
+        x = randn(16, d, dtype=dt) * 3
+        sc = randn(d) * 0.1
+        gy = randn(16, d, dtype=dt)
+        many = nmod.rmsnorm_bwd(x, sc, gy)[0]
+        one = torch.cat([nmod.rmsnorm_bwd(x[i:i + 1], sc, gy[i:i + 1])[0]
+                         for i in range(16)])
+        same = torch.equal(many, one)
+        print(f"  rmsnorm_bwd dx row independence (d {d}, "
+              f"{str(dt).replace('torch.', '')}) M=16: "
+              f"{'bit-equal' if same else 'DIFFERS'} to M=1")
+        need(same, f"rmsnorm_bwd dx rows depend on M at d {d}")
 
     # timing at smollm-360m's training shapes (batch 8, seq 512)
     B, S, H, K, dh = 8, 512, 15, 5, 64
@@ -4623,6 +4642,17 @@ def check_backward_kernels(dev, report: dict):
                 "by CUDA events",
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 x/g (8,512,960), f32 scale (960,)")
+    split = kernel_ms(lambda: nmod.rmsnorm_bwd(x, sc, gy), per_launch=True)
+    lib_dev = kernel_ms(lambda: torch.autograd.grad(
+        lib_out, (xl, wl), gy, retain_graph=True))
+    report["rmsnorm_bwd"]["library_device_ms"] = sum(lib_dev.values())
+    print(f"  rmsnorm_bwd's two launches (torch.profiler, the mean of a "
+          f"launch): pass 1 "
+          f"{sum(t for n, t in split.items() if 'reduce' not in n):.4f} "
+          f"ms, pass 2 "
+          f"{sum(t for n, t in split.items() if 'reduce' in n):.4f} ms; "
+          f"autograd of F.rms_norm: its kernels "
+          f"{sum(lib_dev.values()):.4f} ms of device time a call")
     for name in ("flash_attention_bwd", "rmsnorm_bwd"):
         r = report[name]
         print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms on the "
@@ -5023,6 +5053,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": r.get("library"), "shape": r["shape"],
+            "library_device_ms": r.get("library_device_ms"),
             "more": EXTRA.get(name, [])})
     need(cuda_lib.status()["built"], "kernel library not loaded")
     phase("done")

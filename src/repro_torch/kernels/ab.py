@@ -4,13 +4,14 @@ launch choices of this tree's plans, and the rows probe.
     python3 src/repro_torch/kernels/ab.py --turns parent=DIR change=.
 
 builds ``quant_matmul.cu``, ``flash_attention.cu``, ``decode_attention.cu``,
-``ssd_scan.cu``, ``rglru_scan.cu``, ``weight_transform.cu`` and
-``flash_attention_bwd.cu`` (with the headers beside them) of each named
-tree into that tree's own ``build/``, then times the kernels at the main
-path's shapes (the decode kernels also at a 2048-row cache,
-``weight_transform`` at its large leaves and at four launch-bound small
-ones, ``flash_attention_bwd`` at smollm-360m's training shape and at
-h2o-danube-3-4b's heads with its window) in
+``ssd_scan.cu``, ``rglru_scan.cu``, ``weight_transform.cu``,
+``flash_attention_bwd.cu`` and ``rmsnorm.cu`` (with the headers beside
+them) of each named tree into that tree's own ``build/``, then times the
+kernels at the main path's shapes (the decode kernels also at a 2048-row
+cache, ``weight_transform`` at its large leaves and at four launch-bound
+small ones, ``flash_attention_bwd`` at smollm-360m's training shape and at
+h2o-danube-3-4b's heads with its window, ``rmsnorm`` at the training rows
+and a decode step's, ``rmsnorm_bwd`` at the training rows) in
 turns, each tree in a process of its own, in the order A, B, B, A, so that
 a drift of the card over the run shows up as a difference between the two
 runs of one tree.  The decode kernels and the scans are also timed as
@@ -20,8 +21,10 @@ src/repro_torch | tar -x -C DIR``.  Each tree is timed through its own
 wrappers, so trees whose C entry points differ compare fine.  Each turn
 also hashes ``flash_attention_bwd``'s f32 results at phase 27's f32 cases
 (inputs from one seed): they must be the same bits in every turn of both
-trees, else the run fails.  Prints one JSON line per turn and a table of
-the means.
+trees, else the run fails; and ``rmsnorm_bwd``'s f32 results at
+``NORM_F32`` (one seed), which must be the same bits in the turns of each
+tree (the trees may sum dscale in different orders).  Prints one JSON line
+per turn and a table of the means.
 
     python3 src/repro_torch/kernels/ab.py --sweep
 
@@ -33,11 +36,15 @@ h2o-danube-3-4b's and recurrentgemma-2b's heads), ``ssd_scan`` at each
 (chunk length L, dp columns a block) it is built for and ``rglru_scan`` at
 (slices, slice length T) pairs, ``flash_attention_bwd`` at each (kv
 rows, q keys) pair of tiles its padded dim is built at (``plan_bwd``'s
-and ``ALT_TILES``).  The plan's own choice is checked bit-equal to the
-wrapper, the others against the plain version within phase 3's (phase
-27's for the backward) tolerances; ``weight_transform``'s dequant at its
-large leaves over the grid (steps a thread), each launch bit-equal to the
-plain version.
+and ``ALT_TILES``), ``rmsnorm`` at each (threads a row, teams a block,
+rows a team) and ``rmsnorm_bwd`` at each (threads a row, rows a team: its
+block rule), with phase 27's f32-x / bf16-scale case replayed to show
+how each launch shape's dscale rounds (:func:`norm_rounding`).  The
+plan's own choice is checked bit-equal to the wrapper,
+the others against the plain version within phase 3's (phase 27's for
+the backwards) tolerances; ``weight_transform``'s dequant at its large
+leaves over the grid (steps a thread), each launch bit-equal to the plain
+version.
 
     python3 src/repro_torch/kernels/ab.py --probe DIR
 
@@ -64,11 +71,12 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
                                     ".."))
 KEEP = ("quant_matmul.cu", "flash_attention.cu", "decode_attention.cu",
         "ssd_scan.cu", "rglru_scan.cu", "weight_transform.cu",
-        "flash_attention_bwd.cu")
+        "flash_attention_bwd.cu", "rmsnorm.cu")
 ENTRIES = ("repro_quant_matmul", "repro_flash_attention",
            "repro_decode_attention", "repro_decode_attention_paged",
            "repro_ssd_scan", "repro_rglru_scan", "repro_wt_dequant",
-           "repro_wt_cast", "repro_flash_attention_bwd")
+           "repro_wt_cast", "repro_flash_attention_bwd", "repro_rmsnorm",
+           "repro_rmsnorm_bwd")
 
 # (name, M, K, N): the distinct smollm-360m projections at a 4-slot decode
 # step and a 128-token prefill, and the head at the decode step
@@ -116,6 +124,16 @@ WT = [("wt int8 (49152,960) f32", 49152, 960, True, "float32"),
       ("wt int8 (25088,4096) f32", 25088, 4096, True, "float32"),
       ("wt int8 (32768,14336) bf16", 32768, 14336, True, "bfloat16"),
       ("wt cast (49152,960) bf16", 49152, 960, False, "bfloat16")]
+# (name, x shape, x dtype, scale dtype): rmsnorm at smollm-360m's training
+# rows and at recurrentgemma-2b's decode step; its backward at the former
+NORM = [("rmsnorm (8,512,960) f32 scale", (8, 512, 960), "bfloat16",
+         "float32"),
+        ("rmsnorm (4,1,2560) bf16 scale", (4, 1, 2560), "bfloat16",
+         "bfloat16")]
+NORM_BWD = [("rmsnorm_bwd (8,512,960) f32 scale", (8, 512, 960), "bfloat16",
+             "float32")]
+# rmsnorm_bwd's f32 cases hashed every turn: phase 27's widths
+NORM_F32 = [(8, 512, 960), (3, 7, 3072), (2, 3, 20), (5, 8192)]
 WT_SMALL = [("wt int8 (960,960) bf16", 960, 960, True, "bfloat16"),
             ("wt int8 (14400,64) bf16", 14400, 64, True, "bfloat16"),
             ("wt int8 (4096,8) bf16", 4096, 8, True, "bfloat16"),
@@ -171,7 +189,7 @@ def use_tree(tree: str):
     """Import ``tree``'s port, its build restricted to the kept kernels;
     returns (cuda_lib, flash_attention, quant_matmul, decode_attention,
     ssd_scan, rglru_scan, weight_transform, chip_smoke,
-    flash_attention_bwd)."""
+    flash_attention_bwd, rmsnorm)."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
@@ -181,6 +199,7 @@ def use_tree(tree: str):
     from repro_torch.kernels import flash_attention_bwd as bmod
     from repro_torch.kernels import quant_matmul as qmod
     from repro_torch.kernels import rglru_scan as rmod
+    from repro_torch.kernels import rmsnorm as nmod
     from repro_torch.kernels import ssd_scan as smod
     from repro_torch.kernels import weight_transform as wmod
     assert os.path.abspath(cuda_lib.__file__).startswith(
@@ -191,7 +210,17 @@ def use_tree(tree: str):
                            if k in ENTRIES}
     sys.path.append(ROOT)
     import chip_smoke                 # after the tree's repro_torch
-    return cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod
+    return (cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod,
+            nmod)
+
+
+def norm_inputs(dev, g, shape, dtype, scale_dtype):
+    """(x, scale, g) of one rmsnorm shape, as phases 3 and 27 make them."""
+    import torch
+    x = (torch.randn(*shape, generator=g, device=dev) * 3).to(dtype)
+    sc = (torch.randn(shape[-1], generator=g, device=dev) * 0.1).to(
+        scale_dtype)
+    return x, sc, torch.randn(*shape, generator=g, device=dev).to(dtype)
 
 
 def bwd_inputs(dev, g, B, S, H, K, dh, causal, window, dtype):
@@ -211,7 +240,7 @@ def bwd_inputs(dev, g, B, S, H, K, dh, causal, window, dtype):
 def one_tree(tree: str) -> dict:
     """Build and time one tree's kernels (in this process)."""
     import torch
-    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod = \
+    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod, nmod = \
         use_tree(tree)
     t0 = time.perf_counter()
     cuda_lib.library()
@@ -267,18 +296,35 @@ def one_tree(tree: str) -> dict:
                 *args, causal=causal, window=win)):
             h.update(t.cpu().numpy().tobytes())
         f32[f"{B, S, H, K, dh, causal, win}"] = h.hexdigest()[:16]
-    return {"build_s": build_s, "ms": out, "f32": f32}
+    for name, shape, dt, sdt in NORM:
+        x, sc, _ = norm_inputs(dev, g, shape, getattr(torch, dt),
+                               getattr(torch, sdt))
+        out[name] = chip_smoke.device_ms(lambda: nmod.rmsnorm(x, sc))
+    for name, shape, dt, sdt in NORM_BWD:
+        x, sc, gy = norm_inputs(dev, g, shape, getattr(torch, dt),
+                                getattr(torch, sdt))
+        out[name] = chip_smoke.device_ms(lambda: nmod.rmsnorm_bwd(x, sc, gy))
+    gn = torch.Generator(device=dev).manual_seed(27)
+    h = hashlib.sha256()
+    for shape in NORM_F32:
+        x, sc, gy = norm_inputs(dev, gn, shape, torch.float32, torch.float32)
+        for t in nmod.rmsnorm_bwd(x, sc, gy):
+            h.update(t.cpu().numpy().tobytes())
+    return {"build_s": build_s, "ms": out, "f32": f32,
+            "norm_f32": h.hexdigest()[:16]}
 
 
 def sweep() -> None:
     """The launch choices of this tree's plans, timed at the path shapes
     (the results of each choice are checked bit-equal to the wrapper's)."""
     import torch
-    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod = \
+    cuda_lib, fmod, qmod, dmod, smod, rmod, wmod, chip_smoke, bmod, nmod = \
         use_tree(ROOT)
     lib = cuda_lib.library()
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
+    sweep_rmsnorm(cuda_lib, nmod, chip_smoke, lib, dev, g)
+    norm_rounding(cuda_lib, nmod, chip_smoke, lib, dev)
     sweep_bwd(cuda_lib, bmod, chip_smoke, lib, dev, g)
     sweep_transform(wmod, chip_smoke, lib, dev, g)
     sweep_scans(cuda_lib, smod, rmod, chip_smoke, lib, dev, g)
@@ -333,6 +379,170 @@ def sweep() -> None:
                        f"{chip_smoke.device_ms(call):.5f} ms")
         print(f"{name} ({p.n_slices} slices of {p.slice_k}): "
               + ", ".join(row), flush=True)
+
+
+def sweep_rmsnorm(cuda_lib, nmod, chip_smoke, lib, dev, g) -> None:
+    """rmsnorm at each (threads a row, teams a block, rows a team) and
+    rmsnorm_bwd at each (threads a row, rows a team: its block rule) at
+    the NORM shapes: the plan's (starred) bit-equal to the wrapper, every
+    other within phase 3's (27's) bf16 tolerance of the plain version; a
+    launch the entry refuses (shared memory, chunks) is shown as such.
+    Then the plan's backward split into its two launches, and the library
+    beside it: F.rms_norm's forward and its autograd's kernels."""
+    import torch
+    import torch.nn.functional as F
+    for name, shape, dt, sdt in NORM + NORM_BWD:
+        bwd = name.startswith("rmsnorm_bwd")
+        dt, sdt = getattr(torch, dt), getattr(torch, sdt)
+        x, sc, gy = norm_inputs(dev, g, shape, dt, sdt)
+        d = shape[-1]
+        rows = x.numel() // d
+        p = nmod.plan(d, dt, sdt)
+        bnd = (3 if bwd else 2) * x.numel() * x.element_size() / \
+            chip_smoke.HBM_BPS * 1e3
+        if bwd:
+            want = nmod.rmsnorm_bwd(x, sc, gy)
+            ref = nmod.plain_bwd(x, sc, gy)
+        else:
+            want = (nmod.rmsnorm(x, sc),)
+            ref = (nmod.plain(x, sc),)
+        row = []
+        for threads in (32, 64, 128, 256):
+            if nmod.chunks_a_thread(d, dt, threads) > nmod.MAX_CHUNKS:
+                continue
+            full = nmod.BLOCK // threads
+            for teams in sorted({full, max(1, full // 2)}, reverse=True):
+                for team_rows in ((1, 2, 4, 8) if bwd else (1, 2, 4)):
+                    per = teams * team_rows
+                    out = [torch.empty_like(x)]
+                    if bwd:
+                        part = torch.empty((-(-rows // per), d),
+                                           dtype=torch.float64, device=dev)
+                        out.append(torch.empty(d, device=dev))
+
+                        def call():
+                            return lib.repro_rmsnorm_bwd(
+                                x.data_ptr(), sc.data_ptr(), gy.data_ptr(),
+                                out[0].data_ptr(), part.data_ptr(),
+                                out[1].data_ptr(), rows, d, 1e-6, 1,
+                                int(sdt == torch.bfloat16), threads, teams,
+                                team_rows, p.vec, cuda_lib.stream_ptr(dev))
+                    else:
+                        def call():
+                            return lib.repro_rmsnorm(
+                                x.data_ptr(), sc.data_ptr(),
+                                out[0].data_ptr(), rows, d, 1e-6, 1,
+                                int(sdt == torch.bfloat16), threads, teams,
+                                team_rows, p.vec, cuda_lib.stream_ptr(dev))
+                    what = f"{threads}x{teams}x{team_rows}"
+                    if call():
+                        row.append(f"{what} refused")
+                        continue
+                    torch.cuda.synchronize()
+                    got = [out[0]] + ([out[1].to(sdt)] if bwd else [])
+                    nt = nmod.bwd_teams(p) if bwd else p.rows
+                    mine = (threads, teams, team_rows) == (
+                        p.threads, nt, p.bwd_rows // nt if bwd else 1)
+                    if mine:
+                        assert all(torch.equal(a, b) for a, b in
+                                   zip(got, want)), (name, what)
+                    errs = [chip_smoke.rel_err(a, b)
+                            for a, b in zip(got, ref)]
+                    assert max(errs) <= chip_smoke.BF16_ATOL, (name, what,
+                                                               errs)
+                    ms = chip_smoke.device_ms(
+                        lambda: cuda_lib.check(call(), name))
+                    row.append(f"{what}{'*' if mine else ''} {ms:.5f} ms "
+                               f"{bnd / ms:.0%}")
+        print(f"{name} [threads x teams x rows a team; bound {bnd:.5f} ms, "
+              f"plan {tuple(p)}]: " + ", ".join(row), flush=True)
+        if bwd:
+            split = chip_smoke.kernel_ms(
+                lambda: nmod.rmsnorm_bwd(x, sc, gy), per_launch=True)
+            xl = x.detach().requires_grad_()
+            wl = (1.0 + sc.float()).detach().requires_grad_()
+            lib_out = F.rms_norm(xl, (d,), wl.to(dt), 1e-6)
+            lib_split = chip_smoke.kernel_ms(lambda: torch.autograd.grad(
+                lib_out, (xl, wl), gy, retain_graph=True))
+            print(f"{name}: the plan's launches (torch.profiler) " + ", ".join(
+                f"{k[:60]} {v:.5f}" for k, v in split.items()) +
+                f"; autograd of F.rms_norm: its kernels "
+                f"{sum(lib_split.values()):.5f} ms of device time", flush=True)
+        else:
+            w = (1.0 + sc.float()).to(dt)
+            lib_ms = chip_smoke.device_ms(
+                lambda: F.rms_norm(x, (d,), w, 1e-6))
+            print(f"{name}: F.rms_norm {lib_ms:.5f} ms", flush=True)
+        del x, sc, gy, want, ref
+        torch.cuda.empty_cache()
+
+
+def norm_rounding(cuda_lib, nmod, chip_smoke, lib, dev) -> None:
+    """Phase 27's ``rmsnorm_bwd`` case at f32 x and a bf16 scale at its
+    first shape (the training rows), replayed from phase 27's generator:
+    for each launch shape of the backward, how far its f32 dscale is from
+    an f64 sum (a fraction of max |dscale|) and in how many elements its
+    bf16 dscale differs from autograd's, which phase 27 holds equal."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(27)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    for B, S, H, K, dh, _, _, dts in chip_smoke.BWD_CASES:
+        for _ in dts:                      # phase 27's draws before rmsnorm
+            for h in (H, H, K, K):
+                randn(B, S, h, dh)
+    shape = chip_smoke.NORM_BWD_CASES[0]
+    for dt in (torch.bfloat16, torch.float32):
+        for sdt in (torch.float32, torch.bfloat16):
+            x = randn(*shape).to(dt) * 3
+            sc = (randn(shape[-1]) * 0.1).to(sdt)
+            gy = randn(*shape).to(dt)
+            if (dt, sdt) == (torch.float32, torch.bfloat16):
+                break
+        else:
+            continue
+        break
+    d = shape[-1]
+    rows = x.numel() // d
+    xa, sa = x.detach().requires_grad_(), sc.detach().requires_grad_()
+    want = torch.autograd.grad(nmod.plain(xa, sa), (xa, sa), gy)[1]
+    sf = sc.float().detach().requires_grad_()
+    auto = torch.autograd.grad(nmod.plain(x, sf), (sf,), gy)[0]
+    xd, gd = x.double().reshape(rows, d), gy.double().reshape(rows, d)
+    exact = (gd * xd * torch.rsqrt(xd.square().mean(-1, keepdim=True)
+                                   + 1e-6)).sum(0)
+    top = exact.abs().max().item()
+
+    def off(t):
+        return (t.double() - exact).abs().max().item() / top
+    row = [f"autograd's f32 sum off by {off(auto):.2e}, its bf16 rounding "
+           f"unlike the f64 sum's in "
+           f"{int((exact.float().to(sdt) != want).sum())}"]
+    p = nmod.plan(d, dt, sdt)
+    for threads in (32, 64, 128, 256):
+        if nmod.chunks_a_thread(d, dt, threads) > nmod.MAX_CHUNKS:
+            continue
+        teams = nmod.BLOCK // threads
+        for team_rows in (1, 2, 4, 8):
+            part = torch.empty((-(-rows // (teams * team_rows)), d),
+                               dtype=torch.float64, device=dev)
+            dx, ds = torch.empty_like(x), torch.empty(d, device=dev)
+            if lib.repro_rmsnorm_bwd(
+                    x.data_ptr(), sc.data_ptr(), gy.data_ptr(), dx.data_ptr(),
+                    part.data_ptr(), ds.data_ptr(), rows, d, 1e-6, 0, 1,
+                    threads, teams, team_rows, p.vec,
+                    cuda_lib.stream_ptr(dev)):
+                continue
+            torch.cuda.synchronize()
+            mine = (threads, team_rows) == (p.threads,
+                                            p.bwd_rows // nmod.bwd_teams(p))
+            row.append(f"{threads}x{teams}x{team_rows}{'*' if mine else ''} "
+                       f"off by {off(ds):.2e}, bf16 unlike autograd's in "
+                       f"{int((ds.to(sdt) != want).sum())}")
+    print(f"rmsnorm_bwd, phase 27's f32 x / bf16 scale {shape} [threads x "
+          f"teams x rows a team; of max |dscale|; elements of {d}]: "
+          + "; ".join(row), flush=True)
 
 
 def sweep_bwd(cuda_lib, bmod, chip_smoke, lib, dev, g) -> None:
@@ -797,6 +1007,7 @@ def main() -> int:
     trees = [t.split("=", 1) for t in a.turns]
     runs = {name: [] for name, _ in trees}
     hashes = []
+    norm_hashes = {name: set() for name, _ in trees}
     for name, tree in (trees[0], trees[1], trees[1], trees[0]):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--tree", tree], capture_output=True, text=True)
@@ -807,10 +1018,16 @@ def main() -> int:
         print(name, json.dumps(res), flush=True)
         runs[name].append(res["ms"])
         hashes.append((name, res["f32"]))
+        norm_hashes[name].add(res.get("norm_f32"))
     same = all(h == hashes[0][1] for _, h in hashes)
     print(f"flash_attention_bwd f32 results, {len(BWD_F32)} cases: "
           f"{'bit-equal in every turn' if same else 'DIFFER'}"
           + ("" if same else f" {hashes}"), flush=True)
+    norm_same = all(len(h) == 1 for h in norm_hashes.values())
+    print(f"rmsnorm_bwd f32 results, {len(NORM_F32)} cases: "
+          f"{'bit-equal in the turns of each tree' if norm_same else 'DIFFER'}"
+          f" {norm_hashes}", flush=True)
+    same = same and norm_same
     (na, ra), (nb, rb) = runs.items()
     print(f"{'shape':30s} {na + ' ms':>20s} {nb + ' ms':>20s} {'ratio':>7s}")
     for key in ra[0]:

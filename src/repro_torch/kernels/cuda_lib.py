@@ -53,10 +53,10 @@ SIGNATURES = {
     "repro_quant_matmul": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     "repro_ssd_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "repro_rglru_scan": [P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "repro_rmsnorm": [P, P, P, LL, I, F, I, I, P],
+    "repro_rmsnorm": [P, P, P, LL, I, F, I, I, I, I, I, I, P],
     "repro_flash_attention_bwd": [P, P, P, P, P, P, P, P, P, P,
                                   I, I, I, I, I, I, I, I, F, I, I, P],
-    "repro_rmsnorm_bwd": [P, P, P, P, P, P, LL, I, F, I, I, P],
+    "repro_rmsnorm_bwd": [P, P, P, P, P, P, LL, I, F, I, I, I, I, I, I, P],
 }
 
 
