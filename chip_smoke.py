@@ -81,9 +81,16 @@ of their plain versions, the card's loss and gradients against the CPU's
 at 4 layers, then full-width smollm-360m trained for 30 steps through
 ``launch/train.py`` (int8 error-feedback compression, a checkpoint) with
 exact launches a step, a falling loss, a bit-equal repeated step and a
-resume equal to the straight run.
+resume equal to the straight run.  Last, training every other family:
+the scans' backward kernels (``ssd_scan_bwd``, ``rglru_scan_bwd``)
+against their plain formulas, the card's loss and gradients against the
+CPU's for mamba2-780m and recurrentgemma-2b at small depth, both trained
+at full width and depth through ``launch/train.py`` with exact launches a
+step, a falling loss and a bit-equal repeated step, then a few steps of
+mixtral-8x7b (2 layers), hubert-xlarge, internvl2-76b (1 layer) and
+arctic-480b smoke, each step repeated bit-equal.
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
-seven TPU kernels' counterparts, ``rmsnorm`` and the two backward
+seven TPU kernels' counterparts, ``rmsnorm`` and the four backward
 kernels), holds each against its
 plain PyTorch version on the card, the attention kernels also at head dims
 20, 80 and 120 (padded instances), and the kernels to their invariants:
@@ -4454,7 +4461,9 @@ def internvl_family(dev, workdir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # (B, S, H, K, dh, causal, window, dtypes): smollm-360m's training shape,
-# h2o-danube-3-4b's heads and window past S, and the padded head dims
+# h2o-danube-3-4b's heads and window past S, and the padded head dims;
+# phase 28's dh 256 with rep 10 (recurrentgemma-2b) and dh 128 (mixtral's
+# heads; internvl2's dh)
 BWD_CASES = (
     (8, 512, 15, 5, 64, True, 0, ("bfloat16",)),
     (1, 4352, 32, 8, 120, True, 4096, ("bfloat16",)),
@@ -4463,7 +4472,8 @@ BWD_CASES = (
     (1, 96, 16, 16, 80, False, 0, ("bfloat16", "float32")),
     (1, 77, 4, 2, 80, False, 16, ("bfloat16", "float32")),
     (2, 200, 8, 2, 64, True, 48, ("bfloat16", "float32")),
-    (1, 128, 10, 1, 256, True, 0, ("bfloat16", "float32")))
+    (1, 128, 10, 1, 256, True, 0, ("bfloat16", "float32")),
+    (2, 256, 32, 8, 128, True, 0, ("bfloat16", "float32")))
 # rmsnorm_bwd: smollm's training rows, a ragged row count, the widest d
 NORM_BWD_CASES = ((8, 512, 960), (3, 7, 3072), (2, 3, 20), (5, 8192))
 TRAIN_STEPS = 30            # the full-width run through launch/train.py
@@ -4672,16 +4682,196 @@ def check_backward_kernels(dev, report: dict):
                        "timed region")
 
 
-def train_counts(cfg) -> dict:
-    """Launches of one training step with remat: every unit's forward runs
-    twice (once more in the backward), so 2 ``flash_attention`` and 4
-    ``rmsnorm`` a layer and the final norm once; one backward of each a
-    call it differentiates.  Every other kernel 0."""
+# ---------------------------------------------------------------------------
+# phase 28: training every family
+# ---------------------------------------------------------------------------
+
+# rglru_scan_bwd (B, S, W, bc, h0): recurrentgemma-2b's training shape, a
+# 300-step S over chunks of 256 (through ops and autograd), a ragged width
+RGLRU_BWD_CASES = ((8, 512, 2560, 256, False), (2, 300, 2560, 256, True),
+                   (2, 37, 300, 16, True))
+# ssd_scan_bwd (b, nh, S, dp, N, bc, h0, dtypes): mamba2-780m's training
+# shape, a 300-step S over chunks of 256 (through ops and autograd), and
+# the kernel's instances of 16 and 32 rows from a non-zero state
+SSD_BWD_CASES = ((8, 48, 512, 64, 128, 256, False, ("bfloat16", "float32")),
+                 (2, 8, 300, 64, 128, 256, False, ("bfloat16", "float32")),
+                 (2, 4, 77, 16, 16, 16, True, ("bfloat16", "float32")),
+                 (1, 3, 50, 32, 20, 32, True, ("float32",)))
+
+
+def check_scan_backwards(dev, report: dict):
+    """The scans' backward kernels against their plain formulas on the
+    card: each output within 1e-4 of its max |g| (f32 outputs; dx of bf16
+    x within 2e-2), two calls bit-equal; where S is not a multiple of the
+    chunk, the gradients of ``ops.ssd_scan`` / ``ops.rglru_scan`` (padded,
+    through the autograd functions) against autograd of the plain forward.
+    Then both timed at the training shapes for the JSON line."""
+    import torch
     from repro_torch.kernels import ops
-    L = cfg.n_layers
+    from repro_torch.kernels import rglru_scan as rmod
+    from repro_torch.kernels import ssd_scan as smod
+    g = torch.Generator(device=dev).manual_seed(28)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def ssd_inputs(b, nh, S, dp, N, dt_):
+        return (randn(b, nh, S, dp, dtype=dt_),
+                randn(b, nh, S).abs() * 0.1 + 0.01, -randn(nh).abs() - 0.1,
+                randn(b, S, N) * 0.3, randn(b, S, N) * 0.3)
+
+    def rglru_inputs(Bz, S, W):
+        return (torch.rand(Bz, S, W, generator=g, device=dev) * 0.5 + 0.5,
+                randn(Bz, S, W))
+
+    def through_ops(fn, plain_fn, ins, gy, bc):
+        """Gradients of ``fn`` (ops, padded, autograd functions) and of the
+        plain forward's autograd, for the same cotangent."""
+        a = [t.detach().requires_grad_() for t in ins]
+        got = torch.autograd.grad(fn(*a, bc=bc), a, gy)
+        want = torch.autograd.grad(plain_fn(*a), a, gy)
+        return [rel_err(x, y) for x, y in zip(got, want)]
+
+    worst = 0.0
+    for (Bz, S, W, bc, with_h0) in RGLRU_BWD_CASES:
+        a, bb = rglru_inputs(Bz, S, W)
+        h0 = randn(Bz, W) if with_h0 else None
+        y = rmod.rglru_scan(a, bb, h0=h0)
+        gy = randn(Bz, S, W)
+        got = rmod.rglru_scan_bwd(a, y, gy, h0=h0, want_dh0=with_h0)
+        again = rmod.rglru_scan_bwd(a, y, gy, h0=h0, want_dh0=with_h0)
+        want = rmod.plain_bwd(a, y, gy, h0=h0)
+        torch.cuda.synchronize()
+        pairs = [(x, w) for x, w in zip(got, want) if w is not None]
+        errs = [rel_err(x, w) for x, w in pairs]
+        det = all(torch.equal(x, z) for x, z in zip(got, again)
+                  if x is not None)
+        worst = max(worst, *errs)
+        extra = ""
+        if S % bc:
+            e_ops = through_ops(ops.rglru_scan, rmod.plain, (a, bb), gy, bc)
+            extra = (f"; through ops (bc {bc}) da/db {e_ops[0]:.2e}/"
+                     f"{e_ops[1]:.2e}")
+            errs += e_ops
+        print(f"  rglru_scan_bwd B={Bz} S={S} W={W} h0={with_h0}: da/db"
+              f"{'/dh0' if with_h0 else ''} err "
+              f"{'/'.join(f'{e:.2e}' for e in errs[:len(pairs)])} of max "
+              f"|g| (tol {F32_ATOL}){extra}; two calls "
+              f"{'bit-equal' if det else 'DIFFER'}")
+        need(all(math.isfinite(e) and e <= F32_ATOL for e in errs),
+             f"rglru_scan_bwd {Bz, S, W}: errors {errs}")
+        need(det, f"rglru_scan_bwd {Bz, S, W} not deterministic")
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    s_worst = 0.0
+    for (b, nh, S, dp, N, bc, with_h0, dts) in SSD_BWD_CASES:
+        for dname in dts:
+            dt_ = getattr(torch, dname)
+            x, dt, A, B, C = ssd_inputs(b, nh, S, dp, N, dt_)
+            h0 = randn(b, nh, dp, N) * 0.5 if with_h0 else None
+            dy = randn(b, nh, S, dp, dtype=dt_)
+            got = smod.ssd_scan_bwd(x, dt, A, B, C, dy, h0=h0)
+            again = smod.ssd_scan_bwd(x, dt, A, B, C, dy, h0=h0)
+            want = smod.plain_bwd(x, dt, A, B, C, dy, h0=h0)
+            torch.cuda.synchronize()
+            errs = [rel_err(u, w) for u, w in zip(got, want)]
+            tols = [BF16_ATOL if dt_ == torch.bfloat16 else F32_ATOL] + \
+                [F32_ATOL] * 4
+            det = all(torch.equal(u, z) for u, z in zip(got, again))
+            s_worst = max(s_worst, *errs)
+            extra = ""
+            if S % bc:
+                e_ops = through_ops(ops.ssd_scan, smod.plain,
+                                    (x, dt, A, B, C), dy, bc)
+                extra = (f"; through ops (bc {bc}) "
+                         f"{'/'.join(f'{e:.2e}' for e in e_ops)}")
+                errs += e_ops
+                tols += tols
+            print(f"  ssd_scan_bwd b={b} nh={nh} S={S} dp={dp} N={N} "
+                  f"h0={with_h0} {dname}: {'/'.join(names)} err "
+                  f"{'/'.join(f'{e:.2e}' for e in errs[:5])} of max |g| "
+                  f"(tol {tols[0]} dx, {F32_ATOL} the rest){extra}; two "
+                  f"calls {'bit-equal' if det else 'DIFFER'}")
+            need(all(math.isfinite(e) and e <= t for e, t in zip(errs, tols))
+                 and got[0].dtype == dt_,
+                 f"ssd_scan_bwd {b, nh, S, dp, N} {dname}: errors {errs}")
+            need(det, f"ssd_scan_bwd {b, nh, S, dp, N} {dname} not "
+                      f"deterministic")
+            del x, dy, got, again, want
+
+    # timing at the training shapes (batch 8, seq 512)
+    Bz, S, W = 8, 512, 2560
+    a, bb = rglru_inputs(Bz, S, W)
+    y = rmod.rglru_scan(a, bb)
+    gy = randn(Bz, S, W)
+    report["rglru_scan_bwd"] = dict(
+        max_abs_err=worst,
+        ms=device_ms(lambda: rmod.rglru_scan_bwd(a, y, gy)),
+        call_ms=call_ms(lambda: rmod.rglru_scan_bwd(a, y, gy)),
+        plain_ms=device_ms(lambda: rmod.plain_bwd(a, y, gy), iters=2,
+                           replays=2),
+        library_ms=None,
+        library="none: no single PyTorch call computes a linear "
+                "recurrence's gradient",
+        shape="f32 a, h, g (8,512,2560)")
+    report["rglru_scan_bwd"].update(zip(
+        ("bound_ms", "bound_by"),
+        bound(5 * 4 * Bz * S * W, 3 * Bz * S * W, torch.float32)))
+    b, nh, S, dp, N = 8, 48, 512, 64, 128
+    x, dt, A, B, C = ssd_inputs(b, nh, S, dp, N, torch.bfloat16)
+    dy = randn(b, nh, S, dp, dtype=torch.bfloat16)
+    report["ssd_scan_bwd"] = dict(
+        max_abs_err=s_worst,
+        ms=device_ms(lambda: smod.ssd_scan_bwd(x, dt, A, B, C, dy), iters=5,
+                     replays=3),
+        call_ms=call_ms(lambda: smod.ssd_scan_bwd(x, dt, A, B, C, dy),
+                        iters=5),
+        plain_ms=device_ms(lambda: smod.plain_bwd(x, dt, A, B, C, dy),
+                           iters=1, replays=2),
+        library_ms=None,
+        library="none: no single PyTorch call computes the SSD scan's "
+                "gradient",
+        shape="bf16 x/dy (8,48,512,64), f32 dt (8,48,512), B/C (8,512,128)")
+    # bytes: x, dy, dx (bf16), dt, ddt, B, C, dB, dC (f32); operations: the
+    # kernel's 12 a state element and step
+    report["ssd_scan_bwd"].update(zip(("bound_ms", "bound_by"), bound(
+        3 * 2 * b * nh * S * dp + 4 * (2 * b * nh * S + 4 * b * S * N),
+        12 * b * nh * S * dp * N, torch.float32)))
+    for name in ("rglru_scan_bwd", "ssd_scan_bwd"):
+        r = report[name]
+        print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms on the "
+              f"device ({r['call_ms']:.4f} ms per eager call), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}); bound / kernel "
+              f"{r['bound_ms'] / r['ms']:.1%}")
+
+
+# each block kind's forward kernel (its backward is the name + "_bwd")
+KIND_KERNEL = {"attn": "flash_attention", "local_attn": "flash_attention",
+               "moe": "flash_attention", "ssd": "ssd_scan",
+               "rglru": "rglru_scan"}
+
+
+def train_counts(model) -> dict:
+    """Launches of one training step with remat: a unit's layers run their
+    forward twice (once more in the backward), the tail's once; one
+    backward a layer.  A layer's mixer kernel (:data:`KIND_KERNEL`) and
+    its two norms (norm1 and norm2, or the SSD block's gated norm) where
+    the config's norm is rmsnorm (the gated norm always is), and the
+    final norm.  Every other kernel 0."""
+    from repro_torch.kernels import ops
+    cfg = model.cfg
     want = {n: 0 for n in ops.registry.names()}
-    want.update(flash_attention=2 * L, flash_attention_bwd=L,
-                rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1)
+    rms = cfg.norm == "rmsnorm"
+    layers = [(k, 2) for _ in range(model.n_units) for k in model.pattern]
+    layers += [(k, 1) for k in model.tail_kinds]
+    for kind, runs in layers:
+        want[KIND_KERNEL[kind]] += runs
+        want[KIND_KERNEL[kind] + "_bwd"] += 1
+        norms = int(rms) + (1 if kind == "ssd" else int(rms))
+        want["rmsnorm"] += norms * runs
+        want["rmsnorm_bwd"] += norms
+    want["rmsnorm"] += int(rms)
+    want["rmsnorm_bwd"] += int(rms)
     return want
 
 
@@ -4709,28 +4899,29 @@ def train_batch(data, step: int, dev, batch: int = 8, seq: int = 512):
             for k, v in data.batch(batch, seq, step).items()}
 
 
-def train_card_vs_cpu(dev):
-    """Loss and every gradient leaf of f32-compute smollm-360m at 4 layers
-    of full width, on the card and on the CPU from the same params and
-    batch: loss within 2e-3 relative, each leaf within 2e-3 of its max
-    |g|."""
+def train_card_vs_cpu(dev, arch: str = "smollm-360m", n_layers: int = 4,
+                      batch: int = 2, seq: int = 128):
+    """Loss and every gradient leaf of ``arch`` at ``n_layers`` of full
+    width, f32 compute, on the card and on the CPU from the same params
+    (drawn on the card, copied) and the same Markov batch: loss within
+    2e-3 relative, each leaf within 2e-3 of its max |g|."""
     import torch
     from repro_torch import tree as tree_util
     from repro_torch.models import transformer
     from repro_torch.models.api import get_config
     from repro_torch.training.data import MarkovLM
     from repro_torch.training.train import value_and_grad
-    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=4,
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               compute_dtype=torch.float32)
     cpu = transformer.build(cfg, device="cpu")
     card = transformer.build(cfg, device=dev)
-    p_cpu = cpu.init(0)
-    p_card = tree_util.tree_map(lambda t: t.to(dev), p_cpu)
+    p_card = card.init(0)
+    p_cpu = tree_util.tree_map(lambda t: t.cpu(), p_card)
     data = MarkovLM(cfg.vocab_size, seed=0)
     (l_card, _), g_card = value_and_grad(card, p_card,
-                                         train_batch(data, 0, dev, 2, 128))
+                                         train_batch(data, 0, dev, batch, seq))
     (l_cpu, _), g_cpu = value_and_grad(
-        cpu, p_cpu, train_batch(data, 0, torch.device("cpu"), 2, 128))
+        cpu, p_cpu, train_batch(data, 0, torch.device("cpu"), batch, seq))
     torch.cuda.synchronize()
     worst, where = 0.0, ""
     for (path, a), b in zip(tree_util.leaves_with_path(g_card),
@@ -4739,12 +4930,12 @@ def train_card_vs_cpu(dev):
         if not e <= worst:
             worst, where = e, "/".join(path)
     le = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
-    print(f"  card against CPU, smollm-360m f32 at 4 layers, (2, 128) "
-          f"tokens: loss {float(l_card):.6f} / {float(l_cpu):.6f} (rel "
-          f"{le:.2e}); worst gradient leaf {where} at {worst:.2e} of its "
-          f"max |g| (tol 2e-3)")
+    print(f"  card against CPU, {arch} f32 at {n_layers} layers, ({batch}, "
+          f"{seq}) tokens: loss {float(l_card):.6f} / {float(l_cpu):.6f} "
+          f"(rel {le:.2e}); worst gradient leaf {where} at {worst:.2e} of "
+          f"its max |g| (tol 2e-3)")
     need(le <= 2e-3 and worst <= 2e-3,
-         f"training card vs CPU: loss rel {le}, leaf {where} {worst}")
+         f"training card vs CPU {arch}: loss rel {le}, leaf {where} {worst}")
 
 
 def training(dev, workdir: str, report: dict) -> dict:
@@ -4789,7 +4980,7 @@ def training(dev, workdir: str, report: dict) -> dict:
     counts = ops.registry.dispatch_snapshot()
     peak = torch.cuda.max_memory_allocated(dev)
     losses = hist["loss"]
-    per_step = train_counts(cfg)
+    per_step = train_counts(transformer.build(cfg, device=dev))
     print(f"    launches in {TRAIN_STEPS} steps: {nonzero(counts)}; a step: "
           f"{nonzero(per_step)}")
     need(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
@@ -4865,6 +5056,219 @@ def training(dev, workdir: str, report: dict) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     return {"launches": counts, "step_ms": med, "tokens_per_s":
             tokens / med * 1e3, "peak_bytes": peak, "busy": busy / wall}
+
+
+TRAIN28_STEPS = 20          # each full-width run through launch/train.py
+TRAIN28_LR = "1e-3"         # its --lr
+# the full-width runs: (arch, depth; the config's); the card against the
+# CPU at f32: (arch, layers, batch, seq)
+TRAIN28_ARCHS = ("mamba2-780m", "recurrentgemma-2b")
+TRAIN28_CPU = (("mamba2-780m", 2, 1, 128), ("recurrentgemma-2b", 5, 1, 64))
+# a few donated make_train_step steps of the other families: (arch, layers:
+# an int cuts the full config's depth, None keeps it, "smoke" the smoke
+# config; batch, seq, steps)
+OTHER_FAMILIES = (("mixtral-8x7b", MIXTRAL_LAYERS, 2, 128, 3),
+                  ("hubert-xlarge", None, 2, 256, 3),
+                  ("internvl2-76b", 1, 2, 256, 3),
+                  ("arctic-480b", "smoke", 2, 64, 3))
+
+
+def tree_digest(tree):
+    """Each leaf's sum of its elements' bit patterns (int64: exact, so in
+    no order): equal trees give equal digests, and a change of any element
+    shows but for an exact cancellation within its leaf."""
+    import torch
+    from repro_torch import tree as tree_util
+    views = {4: torch.int32, 2: torch.int16, 1: torch.int8}
+    return torch.stack([
+        t.detach().contiguous().view(views[t.element_size()]).long().sum()
+        for t in tree_util.leaves(tree)])
+
+
+def family_batches(cfg, dev, batch: int, seq: int, n: int) -> list:
+    """The first ``n`` batches ``launch/train.py`` feeds ``cfg`` (Markov
+    tokens and labels, seed 0; the audio family's frames and the VLM's
+    image rows from ``family_batches``), on the card."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.data import MarkovLM, host_batches
+    gen = launch_train.family_batches(
+        cfg, host_batches(MarkovLM(cfg.vocab_size, seed=0),
+                          global_batch=batch, seq=seq), seq=seq, seed=0)
+    return [{k: torch.as_tensor(v).to(dev) for k, v in next(gen).items()}
+            for _ in range(n)]
+
+
+def first_step(model, opt, batch):
+    """From the model's seed-0 init, one donated step: (loss, digest of
+    params and moments), and the step function with its state."""
+    from repro_torch.training.train import make_train_step
+    step = make_train_step(model, opt, donate=True)
+    p = model.init(0)
+    s = opt.init(p)
+    p, s, m = step(p, s, batch)
+    return (m["loss"].clone(), tree_digest((p, s.m, s.v))), step, p, s
+
+
+def same_first_step(model, opt, batch, profile: bool = False):
+    """The first step twice from the same init: bit-equal loss, params and
+    moments; with ``profile``, one more step under the profiler (wall ms,
+    device busy ms)."""
+    import torch
+    a, _, p, s = first_step(model, opt, batch)
+    del p, s
+    torch.cuda.empty_cache()
+    b, step, p, s = first_step(model, opt, batch)
+    busy = device_busy(lambda: step(p, s, batch)) if profile else None
+    del p, s
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), busy
+
+
+def full_width_run(dev, arch: str) -> tuple:
+    """``launch/train.py`` on ``arch`` at full width and depth with its
+    defaults (batch 8, seq 512, warmup_cosine) but ``--lr``
+    :data:`TRAIN28_LR`, for :data:`TRAIN28_STEPS` steps: every loss
+    finite, the mean of the last 3 below the first, exact launches a step; then the first step twice from
+    the same init, bit-equal, and one step profiled.  Returns (launches,
+    numbers)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.training.optim import AdamW, warmup_cosine
+    cfg = get_config(arch)
+    model = transformer.build(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.registry.reset_counts()
+    t_run = time.perf_counter()
+    hist = launch_train.main(["--arch", arch, "--steps", str(TRAIN28_STEPS),
+                              "--lr", TRAIN28_LR], log_every=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    counts = ops.registry.dispatch_snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = train_counts(model)
+    losses = hist["loss"]
+    print(f"    {arch}: launches in {TRAIN28_STEPS} steps "
+          f"{nonzero(counts)}; a step {nonzero(per_step)}")
+    need(len(losses) == TRAIN28_STEPS and all(map(math.isfinite, losses)),
+         f"{arch} training losses not all finite: {losses}")
+    last3 = sum(losses[-3:]) / 3
+    need(last3 < losses[0], f"{arch} training loss did not fall: first "
+                            f"{losses[0]}, mean of the last 3 {last3}")
+    need_counts(counts, {k: v * TRAIN28_STEPS for k, v in per_step.items()},
+                f"{arch} training run")
+    tokens = 8 * 512
+    step_ms = sorted(tokens / t * 1e3 for t in hist["tps"][1:])
+    med = step_ms[len(step_ms) // 2]
+    opt = AdamW(lr=warmup_cosine(float(TRAIN28_LR), TRAIN28_STEPS // 10,
+                                 TRAIN28_STEPS), weight_decay=0.01)
+    batch = family_batches(cfg, dev, 8, 512, 1)[0]
+    same, (wall, busy) = same_first_step(model, opt, batch, profile=True)
+    print(f"  full-width {arch} ({cfg.n_layers} layers), {TRAIN28_STEPS} "
+          f"steps of (8, 512) tokens: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (last 3 mean {last3:.4f}); step ms (steps "
+          f"2-{TRAIN28_STEPS}) median {med:.1f}, min {step_ms[0]:.1f}, max "
+          f"{step_ms[-1]:.1f}; {tokens / med * 1e3:,.0f} tokens/s; peak "
+          f"memory {peak / 2**30:.2f} GiB; run {run_s:.1f} s; the first "
+          f"step twice from the same init: "
+          f"{'bit-equal' if same else 'DIFFERS'}; one step profiled: wall "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%})")
+    need(same, f"{arch}: the training step is not deterministic")
+    need(busy > 0, f"{arch} training step: the profiler saw no device time")
+    return counts, {"step_ms": med, "tokens_per_s": tokens / med * 1e3,
+                    "peak_bytes": peak, "busy": busy / wall}
+
+
+def other_family(dev, arch: str, layers, batch: int, seq: int,
+                 steps: int) -> dict:
+    """``steps`` donated ``make_train_step`` steps of ``arch`` (at full
+    width, its depth cut to ``layers``, or its smoke config) on its
+    family's batches: finite losses and exact launches a step; then the
+    first step again from the same init, bit-equal.  Returns the run's
+    launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.training.optim import AdamW, warmup_cosine
+    cfg = get_config(arch, smoke=layers == "smoke")
+    if isinstance(layers, int):
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = transformer.build(cfg, device=dev)
+    opt = AdamW(lr=warmup_cosine(3e-3, 1, steps), weight_decay=0.01)
+    batches = family_batches(cfg, dev, batch, seq, steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.registry.reset_counts()
+    t0 = time.perf_counter()
+    (loss0, dig0), step, p, s = first_step(model, opt, batches[0])
+    losses = [float(loss0)]
+    for b in batches[1:]:
+        p, s, m = step(p, s, b)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.registry.dispatch_snapshot()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del p, s
+    torch.cuda.empty_cache()
+    need(all(map(math.isfinite, losses)), f"{arch} losses {losses}")
+    need_counts(counts, {k: v * steps for k, v in train_counts(model).items()},
+                f"{arch} training")
+    (loss1, dig1), _, p, s = first_step(model, opt, batches[0])
+    del p, s
+    torch.cuda.empty_cache()
+    same = torch.equal(loss0, loss1) and torch.equal(dig0, dig1)
+    print(f"  {arch} ({cfg.name}, {cfg.n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f} B params), {steps} steps of "
+          f"({batch}, {seq}): losses {' '.join(f'{l:.4f}' for l in losses)}"
+          f"; {run_s:.1f} s; peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{nonzero(counts)}; the first step twice "
+          f"{'bit-equal' if same else 'DIFFERS'}")
+    need(same, f"{arch}: the training step is not deterministic")
+    return counts
+
+
+def train_families(dev, report: dict) -> dict:
+    """Phase 28: the scans' backward kernels against plain
+    (:func:`check_scan_backwards`); the card against the CPU at f32 for
+    the two recurrent families at small depth; full-width mamba2-780m and
+    recurrentgemma-2b through ``launch/train.py``
+    (:func:`full_width_run`); the MoE, audio and VLM families through
+    ``make_train_step`` (:func:`other_family`).  Each run's launches are
+    counted from 0 and summed into the path's.  Returns (the path's
+    launches, each full-width run's numbers)."""
+    import torch
+    t0 = time.perf_counter()
+    check_scan_backwards(dev, report)
+    t1 = time.perf_counter()
+    for arch, n_layers, batch, seq in TRAIN28_CPU:
+        train_card_vs_cpu(dev, arch, n_layers, batch, seq)
+        torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    path: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            path[k] = path.get(k, 0) + v
+    runs = {}
+    for arch in TRAIN28_ARCHS:
+        counts, runs[arch] = full_width_run(dev, arch)
+        add(counts)
+        torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    for spec in OTHER_FAMILIES:
+        add(other_family(dev, *spec))
+        torch.cuda.empty_cache()
+    print(f"  phase 28: kernel checks {t1 - t0:.1f} s, card vs CPU "
+          f"{t2 - t1:.1f} s, full-width runs {t3 - t2:.1f} s, the other "
+          f"families {time.perf_counter() - t3:.1f} s")
+    return {"launches": path, "runs": runs}
 
 
 def main() -> int:
@@ -5031,6 +5435,18 @@ def main() -> int:
         paths["training"] = (
             train["launches"],
             ("flash_attention", "flash_attention_bwd", "rmsnorm",
+             "rmsnorm_bwd"))
+        torch.cuda.empty_cache()
+        phase(f"[28] training every family: the scans' backward kernels "
+              f"against plain, card against CPU, full-width mamba2-780m and "
+              f"recurrentgemma-2b through launch/train.py ({TRAIN28_STEPS} "
+              f"steps), then mixtral-8x7b, hubert-xlarge, internvl2-76b and "
+              f"arctic-480b smoke through make_train_step")
+        fam = train_families(dev, report)
+        paths["training every family"] = (
+            fam["launches"],
+            ("ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd",
+             "flash_attention", "flash_attention_bwd", "rmsnorm",
              "rmsnorm_bwd"))
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")

@@ -5,13 +5,16 @@ launch choices of this tree's plans, and the rows probe.
 
 builds ``quant_matmul.cu``, ``flash_attention.cu``, ``decode_attention.cu``,
 ``ssd_scan.cu``, ``rglru_scan.cu``, ``weight_transform.cu``,
-``flash_attention_bwd.cu`` and ``rmsnorm.cu`` (with the headers beside
-them) of each named tree into that tree's own ``build/``, then times the
+``flash_attention_bwd.cu``, ``rmsnorm.cu`` and ``ssd_scan_bwd.cu`` (with
+the headers beside them; a tree without a source skips its kernels) of
+each named tree into that tree's own ``build/``, then times the
 kernels at the main path's shapes (the decode kernels also at a 2048-row
 cache, ``weight_transform`` at its large leaves and at four launch-bound
 small ones, ``flash_attention_bwd`` at smollm-360m's training shape and at
 h2o-danube-3-4b's heads with its window, ``rmsnorm`` at the training rows
-and a decode step's, ``rmsnorm_bwd`` at the training rows) in
+and a decode step's, ``rmsnorm_bwd`` at the training rows, the scans'
+backwards ``ssd_scan_bwd`` and ``rglru_scan_bwd`` at mamba2-780m's and
+recurrentgemma-2b's training shapes, also as eager calls) in
 turns, each tree in a process of its own, in the order A, B, B, A, so that
 a drift of the card over the run shows up as a difference between the two
 runs of one tree.  The decode kernels and the scans are also timed as
@@ -23,8 +26,9 @@ also hashes ``flash_attention_bwd``'s f32 results at phase 27's f32 cases
 (inputs from one seed): they must be the same bits in every turn of both
 trees, else the run fails; and ``rmsnorm_bwd``'s f32 results at
 ``NORM_F32`` (one seed), which must be the same bits in the turns of each
-tree (the trees may sum dscale in different orders).  Prints one JSON line
-per turn and a table of the means.
+tree (the trees may sum dscale in different orders), and the scans'
+backwards' f32 results at ``SCAN_BWD_F32`` likewise.  Prints one JSON
+line per turn and a table of the means over the shapes both trees have.
 
     python3 src/repro_torch/kernels/ab.py --sweep
 
@@ -39,7 +43,10 @@ rows, q keys) pair of tiles its padded dim is built at (``plan_bwd``'s
 and ``ALT_TILES``), ``rmsnorm`` at each (threads a row, teams a block,
 rows a team) and ``rmsnorm_bwd`` at each (threads a row, rows a team: its
 block rule), with phase 27's f32-x / bf16-scale case replayed to show
-how each launch shape's dscale rounds (:func:`norm_rounding`).  The
+how each launch shape's dscale rounds (:func:`norm_rounding`);
+``ssd_scan_bwd`` at each rows-a-thread instance that takes the head dim
+and both scan backwards beside their plain versions and bounds
+(:func:`sweep_scan_bwd`).  The
 plan's own choice is checked bit-equal to the wrapper,
 the others against the plain version within phase 3's (phase 27's for
 the backwards) tolerances; ``weight_transform``'s dequant at its large
@@ -71,12 +78,12 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
                                     ".."))
 KEEP = ("quant_matmul.cu", "flash_attention.cu", "decode_attention.cu",
         "ssd_scan.cu", "rglru_scan.cu", "weight_transform.cu",
-        "flash_attention_bwd.cu", "rmsnorm.cu")
+        "flash_attention_bwd.cu", "rmsnorm.cu", "ssd_scan_bwd.cu")
 ENTRIES = ("repro_quant_matmul", "repro_flash_attention",
            "repro_decode_attention", "repro_decode_attention_paged",
            "repro_ssd_scan", "repro_rglru_scan", "repro_wt_dequant",
            "repro_wt_cast", "repro_flash_attention_bwd", "repro_rmsnorm",
-           "repro_rmsnorm_bwd")
+           "repro_rmsnorm_bwd", "repro_ssd_scan_bwd", "repro_rglru_scan_bwd")
 
 # (name, M, K, N): the distinct smollm-360m projections at a 4-slot decode
 # step and a 128-token prefill, and the head at the decode step
@@ -134,6 +141,13 @@ NORM_BWD = [("rmsnorm_bwd (8,512,960) f32 scale", (8, 512, 960), "bfloat16",
              "float32")]
 # rmsnorm_bwd's f32 cases hashed every turn: phase 27's widths
 NORM_F32 = [(8, 512, 960), (3, 7, 3072), (2, 3, 20), (5, 8192)]
+# the scans' backwards at the training shapes (batch 8, seq 512): (name,
+# b, nh, S, dp, N) bf16 x for ssd_scan_bwd, (name, B, S, W) f32 for
+# rglru_scan_bwd; their f32 cases hashed every turn
+SSD_BWD = [("ssd_bwd bf16 (8,48,512,64) N128", 8, 48, 512, 64, 128)]
+RGLRU_BWD = [("rglru_bwd f32 (8,512,2560)", 8, 512, 2560)]
+SCAN_BWD_F32 = [("ssd", 2, 8, 300, 64, 128), ("ssd", 2, 4, 77, 16, 16),
+                ("rglru", 2, 300, 2560)]
 WT_SMALL = [("wt int8 (960,960) bf16", 960, 960, True, "bfloat16"),
             ("wt int8 (14400,64) bf16", 14400, 64, True, "bfloat16"),
             ("wt int8 (4096,8) bf16", 4096, 8, True, "bfloat16"),
@@ -310,8 +324,57 @@ def one_tree(tree: str) -> dict:
         x, sc, gy = norm_inputs(dev, gn, shape, torch.float32, torch.float32)
         for t in nmod.rmsnorm_bwd(x, sc, gy):
             h.update(t.cpu().numpy().tobytes())
-    return {"build_s": build_s, "ms": out, "f32": f32,
-            "norm_f32": h.hexdigest()[:16]}
+    res = {"build_s": build_s, "ms": out, "f32": f32,
+           "norm_f32": h.hexdigest()[:16]}
+    if hasattr(smod, "ssd_scan_bwd"):
+        res["scan_bwd_f32"] = time_scan_bwd(chip_smoke, smod, rmod, dev, g,
+                                            out)
+    return res
+
+
+def scan_bwd_inputs(dev, g, kind, *shape, dtype=None):
+    """A scan backward's inputs: (x, dt, A, B, C, dy) for ssd_scan_bwd
+    (x and dy in ``dtype``, default bf16), (a, y, g) for rglru_scan_bwd
+    with y the forward's output."""
+    import torch
+    if kind == "ssd":
+        x, dt, A, B, C = scan_inputs(dev, g, "ssd", *shape)
+        dtype = dtype or torch.bfloat16
+        return (x.to(dtype), dt, A, B, C,
+                torch.randn(x.shape, generator=g, device=dev).to(dtype))
+    from repro_torch.kernels import rglru_scan as rmod
+    a, b = scan_inputs(dev, g, "rglru", *shape)
+    return a, rmod.rglru_scan(a, b), torch.randn(
+        a.shape, generator=g, device=dev)
+
+
+def time_scan_bwd(chip_smoke, smod, rmod, dev, g, out) -> str:
+    """Time both scan backwards at the training shapes into ``out`` (device
+    and eager); returns the hash of their f32 results at
+    :data:`SCAN_BWD_F32` (one seed)."""
+    import torch
+    for name, *shape in SSD_BWD:
+        args = scan_bwd_inputs(dev, g, "ssd", *shape)
+        out[name] = chip_smoke.device_ms(lambda: smod.ssd_scan_bwd(*args),
+                                         iters=5, replays=3)
+        out[name + " eager"] = chip_smoke.call_ms(
+            lambda: smod.ssd_scan_bwd(*args), iters=5)
+        del args
+    for name, *shape in RGLRU_BWD:
+        args = scan_bwd_inputs(dev, g, "rglru", *shape)
+        out[name] = chip_smoke.device_ms(lambda: rmod.rglru_scan_bwd(*args))
+        out[name + " eager"] = chip_smoke.call_ms(
+            lambda: rmod.rglru_scan_bwd(*args))
+        del args
+    gs = torch.Generator(device=dev).manual_seed(28)
+    h = hashlib.sha256()
+    for kind, *shape in SCAN_BWD_F32:
+        args = scan_bwd_inputs(dev, gs, kind, *shape, dtype=torch.float32)
+        fn = smod.ssd_scan_bwd if kind == "ssd" else rmod.rglru_scan_bwd
+        for t in fn(*args):
+            if t is not None:                  # rglru's dh0, not asked for
+                h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def sweep() -> None:
@@ -328,6 +391,7 @@ def sweep() -> None:
     sweep_bwd(cuda_lib, bmod, chip_smoke, lib, dev, g)
     sweep_transform(wmod, chip_smoke, lib, dev, g)
     sweep_scans(cuda_lib, smod, rmod, chip_smoke, lib, dev, g)
+    sweep_scan_bwd(cuda_lib, smod, rmod, chip_smoke, lib, dev, g)
     sweep_decode(cuda_lib, dmod, chip_smoke, lib, dev, g)
     for name, B, S, H, K, dh in FLASH[:3]:
         q, k, v = (torch.randn(B, S, h, dh, generator=g, device=dev)
@@ -706,6 +770,76 @@ def sweep_scans(cuda_lib, smod, rmod, chip_smoke, lib, dev, g) -> None:
         print(f"{name} (slices x T): " + ", ".join(row), flush=True)
 
 
+def sweep_scan_bwd(cuda_lib, smod, rmod, chip_smoke, lib, dev, g) -> None:
+    """ssd_scan_bwd at each rows-a-thread instance at or above the head dim
+    (the training shape's dp 64 and the smoke configs' dp 16), each against
+    the plain version, the plan's bit-equal to the wrapper; both scan
+    backwards at the training shapes beside the plain versions and the
+    bounds (device ms by graph replay, eager ms by events)."""
+    import torch
+    for name, b, nh, S, dp, N in SSD_BWD + [
+            ("ssd_bwd bf16 (8,48,512,16) N128", 8, 48, 512, 16, 128)]:
+        x, dt, A, B, C, dy = scan_bwd_inputs(dev, g, "ssd", b, nh, S, dp, N)
+        want = smod.ssd_scan_bwd(x, dt, A, B, C, dy)
+        ref = smod.plain_bwd(x, dt, A, B, C, dy)
+        f32 = dict(dtype=torch.float32, device=dev)
+        outs = (torch.empty_like(x), torch.empty((b, nh, S), **f32),
+                torch.empty((nh,), **f32), torch.empty((b, S, N), **f32),
+                torch.empty((b, S, N), **f32))
+        scratch = (torch.empty((b, nh, S, N), **f32),
+                   torch.empty((b, nh, S, N), **f32),
+                   torch.empty((b, nh), **f32))
+        row = []
+        for rows in smod.BWD_ROWS:
+            if rows < dp:
+                continue
+
+            def call():
+                smod._launch_bwd(x, dt, A, B, C, None, dy, *outs, *scratch,
+                                 rows=rows)
+            call()
+            torch.cuda.synchronize()
+            mine = rows == smod.bwd_rows(dp)
+            if mine:
+                assert all(torch.equal(u, w) for u, w in zip(outs, want))
+            err = max(chip_smoke.rel_err(u, w) for u, w in zip(outs, ref))
+            assert err <= chip_smoke.BF16_ATOL, (name, rows, err)
+            row.append(f"rows {rows}{'*' if mine else ''} "
+                       f"{chip_smoke.device_ms(call, iters=5, replays=3):.5f}"
+                       f" ms")
+        print(f"{name}: " + ", ".join(row), flush=True)
+        del x, dy, want, ref, outs, scratch
+    for name, b, nh, S, dp, N in SSD_BWD:
+        args = scan_bwd_inputs(dev, g, "ssd", b, nh, S, dp, N)
+        print_beside_plain(chip_smoke, name, lambda: smod.ssd_scan_bwd(*args),
+                           lambda: smod.plain_bwd(*args), chip_smoke.bound(
+                               3 * 2 * b * nh * S * dp
+                               + 4 * (2 * b * nh * S + 4 * b * S * N),
+                               12 * b * nh * S * dp * N, torch.float32),
+                           iters=5)
+        del args
+    for name, Bz, S, W in RGLRU_BWD:
+        args = scan_bwd_inputs(dev, g, "rglru", Bz, S, W)
+        print_beside_plain(chip_smoke, name,
+                           lambda: rmod.rglru_scan_bwd(*args),
+                           lambda: rmod.plain_bwd(*args), chip_smoke.bound(
+                               5 * 4 * Bz * S * W, 3 * Bz * S * W,
+                               torch.float32))
+        del args
+
+
+def print_beside_plain(chip_smoke, name, kernel, plain, bnd,
+                       iters: int = 20) -> None:
+    """One line: the kernel's device ms (graph replay) and eager ms, the
+    plain version's device ms and the bound."""
+    ms = chip_smoke.device_ms(kernel, iters=iters, replays=3)
+    eager = chip_smoke.call_ms(kernel, iters=iters)
+    plain_ms = chip_smoke.device_ms(plain, iters=1, replays=2)
+    print(f"{name}: kernel {ms:.5f} ms, eager {eager:.5f}, plain "
+          f"{plain_ms:.5f}, bound {bnd[0]:.6f} ({bnd[1]}); bound / kernel "
+          f"{bnd[0] / ms:.1%}", flush=True)
+
+
 def sweep_decode(cuda_lib, dmod, chip_smoke, lib, dev, g) -> None:
     """Split lengths of the decode kernels at each DECODE shape."""
     import torch
@@ -1008,6 +1142,7 @@ def main() -> int:
     runs = {name: [] for name, _ in trees}
     hashes = []
     norm_hashes = {name: set() for name, _ in trees}
+    scan_hashes = {name: set() for name, _ in trees}
     for name, tree in (trees[0], trees[1], trees[1], trees[0]):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--tree", tree], capture_output=True, text=True)
@@ -1019,6 +1154,7 @@ def main() -> int:
         runs[name].append(res["ms"])
         hashes.append((name, res["f32"]))
         norm_hashes[name].add(res.get("norm_f32"))
+        scan_hashes[name].add(res.get("scan_bwd_f32"))
     same = all(h == hashes[0][1] for _, h in hashes)
     print(f"flash_attention_bwd f32 results, {len(BWD_F32)} cases: "
           f"{'bit-equal in every turn' if same else 'DIFFER'}"
@@ -1027,10 +1163,14 @@ def main() -> int:
     print(f"rmsnorm_bwd f32 results, {len(NORM_F32)} cases: "
           f"{'bit-equal in the turns of each tree' if norm_same else 'DIFFER'}"
           f" {norm_hashes}", flush=True)
-    same = same and norm_same
+    scan_same = all(len(h) == 1 for h in scan_hashes.values())
+    print(f"scan backwards' f32 results, {len(SCAN_BWD_F32)} cases: "
+          f"{'bit-equal in the turns of each tree' if scan_same else 'DIFFER'}"
+          f" {scan_hashes}", flush=True)
+    same = same and norm_same and scan_same
     (na, ra), (nb, rb) = runs.items()
     print(f"{'shape':30s} {na + ' ms':>20s} {nb + ' ms':>20s} {'ratio':>7s}")
-    for key in ra[0]:
+    for key in [k for k in ra[0] if k in rb[0]]:
         a_ms = [r[key] for r in ra]
         b_ms = [r[key] for r in rb]
         ratio = (sum(b_ms) / len(b_ms)) / (sum(a_ms) / len(a_ms))

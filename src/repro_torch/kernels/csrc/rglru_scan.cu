@@ -35,6 +35,18 @@
 // after step n_valid - 1 (the true final state under padding, since a zero
 // step resets h) is written to hS; h0 seeds the first pass; h is f32
 // throughout and y is written in a's dtype.
+//
+// The backward (repro_rglru_scan_bwd, for training) replaces the gradient
+// jax.grad takes of the reference's _xla_rglru (src/repro/kernels/ops.py:509).
+// Given g = dL/dh it walks the reverse recurrence dh_t = g_t + a_{t+1}
+// dh_{t+1} (a_S = 0), with db_t = dh_t, da_t = dh_t h_{t-1} (h_{-1} = h0 or
+// 0) and dh0 = a_0 dh_0, reading h from the forward's f32 output.  It moves
+// 5 B S W f32 (a, h, g read; da, db written) for 2 operations an element,
+// so bytes bound it.  The design is the simple one: a thread per (row,
+// lane), coalesced over the lanes, S walked in reverse with the loads of
+// BWD_STEPS steps issued together ahead of the chain of multiply-adds.
+// Each thread owns its column: no atomics, and a row's bits never depend on
+// the batch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,7 +146,66 @@ int dispatch(const void* a, const void* b, void* y, const float* h0,
   return (int)cudaErrorInvalidValue;
 }
 
+constexpr int BWD_THREADS = 128;      // lanes a block of the backward
+constexpr int BWD_STEPS = 8;          // steps whose loads go out together
+
+__global__ void __launch_bounds__(BWD_THREADS)
+rglru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ y,
+                 const float* __restrict__ g, const float* __restrict__ h0,
+                 float* __restrict__ da, float* __restrict__ db,
+                 float* __restrict__ dh0, int S, int W) {
+  const int w = blockIdx.x * BWD_THREADS + threadIdx.x;
+  const int row = blockIdx.y;
+  if (w >= W) return;
+  const long long base = (long long)row * S * W + w;
+  const float hinit = h0 != nullptr ? h0[(long long)row * W + w] : 0.f;
+  float dh = 0.f;                  // dL/dh of the step after the current one
+  float a_next = 0.f;              // a of that step (0 past the last)
+  for (int t1 = S; t1 > 0; t1 -= BWD_STEPS) {
+    float av[BWD_STEPS], gv[BWD_STEPS], hv[BWD_STEPS];
+#pragma unroll
+    for (int i = 0; i < BWD_STEPS; ++i) {      // steps t1 - 1 down
+      const int t = t1 - 1 - i;
+      const long long o = base + (long long)t * W;
+      av[i] = t >= 0 ? a[o] : 0.f;
+      gv[i] = t >= 0 ? g[o] : 0.f;
+      hv[i] = t > 0 ? y[o - W] : hinit;
+    }
+#pragma unroll
+    for (int i = 0; i < BWD_STEPS; ++i) {
+      const int t = t1 - 1 - i;
+      if (t < 0) break;
+      dh = fmaf(a_next, dh, gv[i]);
+      const long long o = base + (long long)t * W;
+      db[o] = dh;
+      da[o] = dh * hv[i];
+      a_next = av[i];
+    }
+  }
+  if (dh0 != nullptr) dh0[(long long)row * W + w] = a_next * dh;
+}
+
 }  // namespace
+
+// a, y, g, da, db (B, S, W) contiguous float32: y the forward's output (h at
+// every step), g = dL/dy; h0 (B, W) float32 or null (the forward started
+// from 0); dh0 (B, W) float32 or null (not wanted).  Writes da, db and dh0.
+// Returns cudaGetLastError().
+extern "C" int repro_rglru_scan_bwd(const void* a, const void* y,
+                                    const void* g, const void* h0, void* da,
+                                    void* db, void* dh0, int B, int S, int W,
+                                    void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((W + BWD_THREADS - 1) / BWD_THREADS, B);
+  rglru_bwd_kernel<<<grid, BWD_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(y),
+      static_cast<const float*>(g), static_cast<const float*>(h0),
+      static_cast<float*>(da), static_cast<float*>(db),
+      static_cast<float*>(dh0), S, W);
+  return (int)cudaGetLastError();
+}
 
 // a, b, y (B, S, W) contiguous, all of one dtype (0 = float32, 1 =
 // bfloat16); h0 (B, W) f32 or null (start from 0); hS (B, W) f32 or null

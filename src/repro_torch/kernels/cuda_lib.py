@@ -57,6 +57,8 @@ SIGNATURES = {
     "repro_flash_attention_bwd": [P, P, P, P, P, P, P, P, P, P,
                                   I, I, I, I, I, I, I, I, F, I, I, P],
     "repro_rmsnorm_bwd": [P, P, P, P, P, P, LL, I, F, I, I, I, I, I, I, P],
+    "repro_ssd_scan_bwd": [P] * 15 + [I] * 7 + [P],
+    "repro_rglru_scan_bwd": [P] * 7 + [I] * 3 + [P],
 }
 
 

@@ -4,6 +4,9 @@ Dispatch goes by the tensor's device and nothing else: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor takes the hand-written
 kernel (or the wrapper raises).  There is no mode that sends CUDA tensors
 to the plain versions; a comparison calls the spec's ``plain`` directly.
+Where autograd records and an input wants a gradient, a kernel with a
+backward goes through its autograd function, and a forward kernel without
+one raises on CUDA tensors (its output would carry no gradient).
 
 The registry keeps each kernel's launch count (:meth:`dispatch_snapshot`,
 :meth:`reset_counts`) and reports where the kernel library was built
@@ -12,6 +15,7 @@ The registry keeps each kernel's launch count (:meth:`dispatch_snapshot`,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -46,9 +50,10 @@ class KernelSpec:
         return self.counter.value
 
 
-def _spec(name: str, module, *, replaces: str = "", counter=None,
-          plain=None) -> KernelSpec:
-    return KernelSpec(name, module.SOURCE, replaces or module.REPLACES,
+def _spec(name: str, module, *, source: str = "", replaces: str = "",
+          counter=None, plain=None) -> KernelSpec:
+    return KernelSpec(name, source or module.SOURCE,
+                      replaces or module.REPLACES,
                       counter or module.launches, plain or module.plain)
 
 
@@ -100,14 +105,51 @@ registry.register(_spec("rmsnorm", _rms))
 registry.register(_spec("flash_attention_bwd", _flash_bwd))
 registry.register(_spec("rmsnorm_bwd", _rms, counter=_rms.bwd_launches,
                         plain=_rms.plain_bwd))
+registry.register(_spec("ssd_scan_bwd", _ssd, source=_ssd.BWD_SOURCE,
+                        replaces=_ssd.BWD_REPLACES,
+                        counter=_ssd.bwd_launches, plain=_ssd.plain_bwd))
+registry.register(_spec("rglru_scan_bwd", _rglru,
+                        replaces=_rglru.BWD_REPLACES,
+                        counter=_rglru.bwd_launches, plain=_rglru.plain_bwd))
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _wants_grad(*tensors) -> bool:
+    """Autograd records and one of ``tensors`` wants a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _forward_only(name: str, fn: Callable) -> Callable:
+    """The entry of a forward kernel with no backward: a call on a CUDA
+    tensor that wants a gradient raises, where the kernel's output would
+    carry none (a gradient lost without a word); every other call is the
+    kernel's, unchanged."""
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        ts = [t for t in (*args, *kwargs.values())
+              if isinstance(t, torch.Tensor)]
+        if _wants_grad(*ts) and any(_on_card(t) for t in ts):
+            raise RuntimeError(
+                f"{name}: the kernel has no backward, and an input wants a "
+                f"gradient; call it under torch.no_grad() or on detached "
+                f"tensors")
+        return fn(*args, **kwargs)
+    return entry
+
 
 # the model's entries: a gradient where autograd asks for one (backward
 # kernels), else the forward kernels as serving has always called them
 flash_attention = _flash.attention
-decode_attention = _decode.decode_attention
-decode_attention_paged = _decode.decode_attention_paged
-weight_transform = _wt.weight_transform
-quant_matmul = _qm.quant_matmul
+decode_attention = _forward_only("decode_attention", _decode.decode_attention)
+decode_attention_paged = _forward_only("decode_attention_paged",
+                                       _decode.decode_attention_paged)
+weight_transform = _forward_only("weight_transform", _wt.weight_transform)
+quant_matmul = _forward_only("quant_matmul", _qm.quant_matmul)
 rmsnorm = _rms.norm
 
 
@@ -124,7 +166,9 @@ def ssd_scan(x, dt, A, B, C, *, bc: Optional[int] = None,
     S is padded up to a multiple of the chunk length with dt = 0 steps
     (decay exp(0 A) = 1 and a zero input leave the state as it was); the
     padded outputs are sliced off.  dt, A, B and C go to the kernel as
-    contiguous float32."""
+    contiguous float32.  Where a gradient is wanted the padded call goes
+    through ``SSDScan`` (the padded steps' gradients are sliced off with
+    them); the state is then not returned."""
     S = x.shape[2]
     bc = min(bc if bc is not None else SSD_BC, S)
     pad = (-S) % bc if bc > 0 else 0
@@ -136,7 +180,14 @@ def ssd_scan(x, dt, A, B, C, *, bc: Optional[int] = None,
         dt = F.pad(dt, (0, pad))
         B = F.pad(B, (0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, pad))
-    out = _ssd.ssd_scan(x, dt, A, B, C, h0=h0, return_state=return_state)
+    if _wants_grad(x, dt, A, B, C, h0):
+        if return_state:
+            raise ValueError("ssd_scan: the final state takes no gradient; "
+                             "ask for it under torch.no_grad()")
+        out = _ssd.SSDScan.apply(x, dt, A, B, C, h0)
+    else:
+        out = _ssd.ssd_scan(x, dt, A, B, C, h0=h0,
+                            return_state=return_state)
     if not pad:
         return out
     if return_state:
@@ -164,7 +215,8 @@ def rglru_scan(a, b, *, bc: Optional[int] = None,
 
     S is padded with trailing zero steps up to a multiple of the chunk
     length (earlier steps are unaffected); the kernel takes the true S for
-    the final state, since a zero step resets h to 0."""
+    the final state, since a zero step resets h to 0.  Where a gradient is
+    wanted the padded call goes through ``RGLRUScan``."""
     S = a.shape[1]
     bc = min(bc if bc is not None else RGLRU_BC, S)
     pad = (-S) % bc if bc > 0 else 0
@@ -173,8 +225,14 @@ def rglru_scan(a, b, *, bc: Optional[int] = None,
     if pad:
         a = F.pad(a, (0, 0, 0, pad))
         b = F.pad(b, (0, 0, 0, pad))
-    out = _rglru.rglru_scan(a, b, h0=h0, return_state=return_state,
-                            n_valid=S)
+    if _wants_grad(a, b, h0):
+        if return_state:
+            raise ValueError("rglru_scan: the final state takes no "
+                             "gradient; ask for it under torch.no_grad()")
+        out = _rglru.RGLRUScan.apply(a, b, h0)
+    else:
+        out = _rglru.rglru_scan(a, b, h0=h0, return_state=return_state,
+                                n_valid=S)
     if not pad:
         return out
     if return_state:

@@ -5,15 +5,20 @@ Drives the full stack on the card (or ``--device cpu``): mesh
 construction, param init, the train step (remat + optional int8
 error-feedback gradient compression), Markov data pipeline, atomic
 checkpointing with resume, preemption-safe loop.  The same flags as the
-reference, plus ``--device``.  ``--production-mesh`` asks for the
-reference's 16 x 16 pod mesh, and raises when the process has fewer
-devices, as ``jax.make_mesh`` does.
+reference, plus ``--device``.  Every LM family trains: the audio family
+gets seeded random frames beside the chain's labels, the VLM seeded image
+rows ahead of the chain's tokens (:func:`family_batches`).  The step is
+donated (``make_train_step(donate=True)``: the same bits, one copy of the
+optimizer state).  ``--production-mesh`` asks for the reference's 16 x 16
+pod mesh, and raises when the process has fewer devices, as
+``jax.make_mesh`` does.
 """
 from __future__ import annotations
 
 import argparse
 import types
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -23,7 +28,7 @@ from repro_torch.distributed.compression import (init_error_feedback,
                                                  make_error_feedback_transform)
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models import transformer
-from repro_torch.models.api import get_config
+from repro_torch.models.api import Family, get_config
 from repro_torch.training.data import MarkovLM, host_batches
 from repro_torch.training.optim import AdamW, AdamWState, warmup_cosine
 from repro_torch.training.train import TrainLoop, make_train_step, \
@@ -39,6 +44,32 @@ def production_mesh(dev: torch.device):
         raise ValueError(f"the production mesh {mesh.shape} needs "
                          f"{mesh.size} devices, this process has {have}")
     return mesh
+
+
+def family_batches(cfg, batches, *, seq: int, seed: int, start_step: int = 0):
+    """The Markov batches made fit for the family: the audio family's
+    frames (B, seq, frontend_dim) f32, a function of (seed, step), in place
+    of the tokens; the VLM's ``min(256, seq // 2)`` image rows likewise,
+    ahead of the first ``seq - n_img`` tokens and their labels (the loss
+    masks the image rows).  Other families' batches pass unchanged."""
+    step = start_step
+    for b in batches:
+        if cfg.family in (Family.AUDIO, Family.VLM):
+            rng = np.random.default_rng(np.random.SeedSequence(
+                [seed, step, 0xF4A3]))
+            B = b["labels"].shape[0]
+            if cfg.family == Family.AUDIO:
+                b = {"frames": rng.standard_normal(
+                        (B, seq, cfg.frontend_dim)).astype(np.float32),
+                     "labels": b["labels"]}
+            else:
+                n_img = min(256, seq // 2)
+                b = {"tokens": b["tokens"][:, :seq - n_img],
+                     "img": rng.standard_normal(
+                         (B, n_img, cfg.frontend_dim)).astype(np.float32),
+                     "labels": b["labels"][:, :seq - n_img]}
+        yield b
+        step += 1
 
 
 def main(argv=None, *, log_every: int = 10):
@@ -66,7 +97,6 @@ def main(argv=None, *, log_every: int = 10):
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
     model = transformer.build(cfg, device=dev)
-    model.check_trainable()
     mesh = (production_mesh(dev) if args.production_mesh
             else make_local_mesh(args.model_parallel, device=dev))
     rules = shd.train_rules()
@@ -101,7 +131,7 @@ def main(argv=None, *, log_every: int = 10):
                 (loss, metrics), grads = value_and_grad(model, params, batch)
                 grads, ef = ef_transform(grads, ef)
                 params, adam_state, om = opt.update(grads, adam_state,
-                                                    params)
+                                                    params, donate=True)
                 metrics = dict(metrics)
                 metrics.update(om)
                 metrics["loss"] = loss
@@ -116,10 +146,12 @@ def main(argv=None, *, log_every: int = 10):
                 ckpt = types.SimpleNamespace(save=save,
                                              latest_step=inner.latest_step)
         else:
-            step_fn = make_train_step(model, opt)
+            step_fn = make_train_step(model, opt, donate=True)
         data = MarkovLM(cfg.vocab_size, seed=args.seed)
-        batches = host_batches(data, global_batch=args.batch, seq=args.seq,
-                               start_step=start_step)
+        batches = family_batches(
+            cfg, host_batches(data, global_batch=args.batch, seq=args.seq,
+                              start_step=start_step),
+            seq=args.seq, seed=args.seed, start_step=start_step)
         loop = TrainLoop(model, opt, step_fn=step_fn, checkpointer=ckpt,
                          ckpt_every=args.ckpt_every, log_every=log_every)
         loop.install_signal_handler()

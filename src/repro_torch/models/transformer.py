@@ -30,12 +30,14 @@ the tokens, so positions count the image rows first.  A token-only VLM
 batch (the schedulers' prompts, and every decode step, where the
 reference passes a zero-length image) has no image rows.
 
-Training (:meth:`LM.loss`) differentiates the same block functions:
-attention and rmsnorm go through autograd functions whose backwards are
-the hand-written kernels ``flash_attention_bwd`` and ``rmsnorm_bwd``, each
-unit body rematerialised under ``torch.utils.checkpoint`` as the
-reference's ``jax.checkpoint``.  The families whose kernels have no
-backward yet (``ssd``, ``rglru``, ``moe``, audio, VLM) refuse.
+Training (:meth:`LM.loss`) differentiates the same block functions, for
+every family: attention, rmsnorm and the two scans go through autograd
+functions whose backwards are the hand-written kernels
+``flash_attention_bwd``, ``rmsnorm_bwd``, ``ssd_scan_bwd`` and
+``rglru_scan_bwd``; the MoE FFN, the convolutions, layernorm, the gates
+and the audio and VLM frontend projections are PyTorch ops that autograd
+differentiates.  Each unit body is rematerialised under
+``torch.utils.checkpoint`` as the reference's ``jax.checkpoint``.
 
 The paged side (``decode_step_paged``, ``gather_pages`` /
 ``pack_pages`` / ``copy_page``, and ``prefill_continue`` for prefix
@@ -68,9 +70,6 @@ from repro_torch.quant import QuantLeaf
 PyTree = Any
 
 AUX_LOSS_WEIGHT = 0.01
-# block kinds whose kernels all have a backward (flash_attention_bwd,
-# rmsnorm_bwd); the rest wait for ROADMAP queue 1 item [17]
-TRAIN_KINDS = ("attn", "local_attn")
 
 
 # ---------------------------------------------------------------------------
@@ -540,20 +539,6 @@ class LM:
         return _head(cfg, params, x), aux
 
     # -------------------------------------------------------------- training
-    def check_trainable(self):
-        """Raise ``NotImplementedError`` for a family whose kernels have
-        no backward yet (no silent fall back to plain versions)."""
-        cfg = self.cfg
-        kinds = set(self.pattern) | set(self.tail_kinds)
-        if cfg.family in (Family.AUDIO, Family.VLM) or \
-                not kinds <= set(TRAIN_KINDS):
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family.value} family "
-                f"({sorted(kinds)} blocks) needs backward kernels the port "
-                f"does not have yet (ssd_scan, rglru_scan, the MoE FFN, the "
-                f"audio and VLM frontends): ROADMAP queue 1 item [17]; only "
-                f"{TRAIN_KINDS} blocks train")
-
     def forward_train(self, params: PyTree, batch: Dict[str, torch.Tensor],
                       *, remat: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -562,8 +547,8 @@ class LM:
         under ``torch.utils.checkpoint`` (non-reentrant) and runs again in
         the backward, as the reference's ``jax.checkpoint(body)``.  The
         stacked leaves are unbound once, so the backward stacks the
-        units' gradients in one op.  Returns (logits, aux_loss)."""
-        self.check_trainable()
+        units' gradients in one op.  The tail layers run outside
+        checkpoint, as the reference's.  Returns (logits, aux_loss)."""
         cfg, pat = self.cfg, self.pattern
         x = self.embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -601,12 +586,20 @@ class LM:
         """Next-token cross entropy from f32 logits (``logsumexp`` minus the
         gold logit, ``labels < 0`` masked) plus ``AUX_LOSS_WEIGHT`` times
         the aux loss.  Returns (total, {"ce", "aux", "accuracy"}), with
-        gradients to every parameter that asks for one.  ``unroll`` is
-        accepted for the reference's signature: the port's units already
-        run in a Python loop."""
+        gradients to every parameter that asks for one.  Labels cover every
+        position of the logits, the VLM's image rows first, as the
+        reference's; a VLM batch whose labels cover only its text positions
+        gets its image rows masked (labels -1).  ``unroll`` is accepted for
+        the reference's signature: the port's units already run in a Python
+        loop."""
         del unroll
         logits, aux = self.forward_train(params, batch, remat=remat)
         labels = batch["labels"].to(logits.device)
+        n_img = logits.shape[1] - labels.shape[1]
+        if n_img > 0 and batch.get("img") is not None and \
+                n_img == batch["img"].shape[1]:
+            labels = torch.cat([torch.full_like(labels[:, :1], -1).expand(
+                -1, n_img), labels], dim=1)
         lg = logits.float()
         valid = labels >= 0
         lbl = torch.where(valid, labels, torch.zeros_like(labels)).long()

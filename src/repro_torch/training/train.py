@@ -75,7 +75,8 @@ def value_and_grad(model, params: PyTree, batch: Dict[str, torch.Tensor], *,
 def make_train_step(model, opt: AdamW, *,
                     grad_transform: Optional[Callable] = None,
                     remat: bool = True, micro_batches: int = 1,
-                    unroll: bool = False, mixed_precision: bool = False):
+                    unroll: bool = False, mixed_precision: bool = False,
+                    donate: bool = False):
     """grad_transform(grads) -> grads: hook for DP compression etc.
 
     micro_batches > 1: gradient accumulation — the global batch is split
@@ -85,6 +86,12 @@ def make_train_step(model, opt: AdamW, *,
 
     mixed_precision: differentiate wrt a bf16 *copy* of the params (f32
     masters stay in the optimizer), as the reference does.
+
+    donate: the step updates the params and optimizer state it is given
+    in place (``AdamW.update(donate=True)``: the same bits), as a jitted
+    step that donates its buffers would; the caller gives up the old
+    ones.  It halves the optimizer's peak memory, which full-width
+    training of a few billion parameters on one card needs.
     """
 
     def grad_of(params, mb):
@@ -116,7 +123,8 @@ def make_train_step(model, opt: AdamW, *,
             loss = lsum / M
         if grad_transform is not None:
             grads = grad_transform(grads)
-        params, opt_state, opt_metrics = opt.update(grads, opt_state, params)
+        params, opt_state, opt_metrics = opt.update(grads, opt_state, params,
+                                                    donate=donate)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

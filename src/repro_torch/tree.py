@@ -56,12 +56,19 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 
 
 def unflatten(abstract: PyTree, values: Dict[str, Any]) -> PyTree:
-    """Rebuild ``abstract``'s structure from ``{"a/b": value}`` leaves."""
-    def build(node, prefix):
-        if isinstance(node, dict):
-            return {k: build(v, prefix + (str(k),)) for k, v in node.items()}
-        if type(node) in _SEQUENCES:
-            return type(node)(build(v, prefix + (str(i),))
-                              for i, v in enumerate(node))
-        return values["/".join(prefix)]
-    return build(abstract, ())
+    """Rebuild ``abstract``'s structure from ``{"a/b": value}`` leaves.
+    (A module-level walk: a recursive closure would hold ``values`` in a
+    reference cycle, alive until the garbage collector runs, which kept a
+    training step's gradients beside the next step's.)"""
+    return _unflatten(abstract, (), values)
+
+
+def _unflatten(node: PyTree, prefix: Tuple[str, ...],
+               values: Dict[str, Any]) -> PyTree:
+    if isinstance(node, dict):
+        return {k: _unflatten(v, prefix + (str(k),), values)
+                for k, v in node.items()}
+    if type(node) in _SEQUENCES:
+        return type(node)(_unflatten(v, prefix + (str(i),), values)
+                          for i, v in enumerate(node))
+    return values["/".join(prefix)]

@@ -49,18 +49,19 @@ def test_port_has_its_kernel_sources():
     assert srcs == ["decode_attention.cu", "flash_attention.cu",
                     "flash_attention_bwd.cu", "quant_matmul.cu",
                     "rglru_scan.cu", "rmsnorm.cu", "ssd_scan.cu",
-                    "weight_transform.cu"]
+                    "ssd_scan_bwd.cu", "weight_transform.cu"]
     assert ops.registry.names() == [
         "decode_attention", "decode_attention_paged", "flash_attention",
-        "flash_attention_bwd", "quant_matmul", "rglru_scan", "rmsnorm",
-        "rmsnorm_bwd", "ssd_scan", "weight_transform"]
+        "flash_attention_bwd", "quant_matmul", "rglru_scan",
+        "rglru_scan_bwd", "rmsnorm", "rmsnorm_bwd", "ssd_scan",
+        "ssd_scan_bwd", "weight_transform"]
     for name in ops.registry.names():
         spec = ops.registry.spec(name)
         assert (ROOT / spec.source).exists()
         path, line = spec.replaces.split(":")
         # the TPU kernels; rmsnorm (and its backward) stands for the
-        # reference's jnp rmsnorm, flash_attention_bwd for the jnp flash
-        # attention jax.grad differentiates
+        # reference's jnp rmsnorm, the other backwards for the jnp flash
+        # attention and scans jax.grad differentiates
         assert path.startswith("src/repro/kernels/") or (
             name in ("rmsnorm", "rmsnorm_bwd")
             and path == "src/repro/models/layers.py")
@@ -228,7 +229,8 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):
     assert ops.registry.dispatch_snapshot() == {
         "decode_attention": 0, "decode_attention_paged": 0,
         "flash_attention": 0, "flash_attention_bwd": 0, "quant_matmul": 0,
-        "rglru_scan": 0, "rmsnorm": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
+        "rglru_scan": 0, "rglru_scan_bwd": 0, "rmsnorm": 0,
+        "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
         "weight_transform": 0}
     assert ops.registry.describe()["library"]["built"] is False
 

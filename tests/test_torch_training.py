@@ -5,9 +5,9 @@ and ``AdamW.update`` on the same tree and gradients within 1e-6;
 model.loss)`` for smollm-360m (dh 20) and h2o-danube-3-4b (a window):
 the loss within 1e-5 relative, each leaf within 1e-4 of its max |g|;
 3-step loss trajectories through both packages' ``make_train_step``
-(plain, ``micro_batches=2``, ``mixed_precision``); the families whose
-kernels have no backward refuse; the serving forward carries no
-gradient and remat changes no bit.  The JAX side runs with
+(plain, ``micro_batches=2``, ``mixed_precision``); every assigned arch
+trains (none is refused); the serving forward carries no gradient and
+remat changes no bit.  The JAX side runs with
 ``REPRO_PALLAS=ref``; params go across with ``params_from_numpy``."""
 import dataclasses
 
@@ -201,18 +201,21 @@ def test_trajectory_matches_jax(name, opts, tol):
 
 
 def test_refused_families_raise():
-    """The families whose kernels have no backward yet refuse to train,
-    naming the ROADMAP item, rather than run plain versions."""
-    for arch in ("mamba2-780m", "recurrentgemma-2b", "mixtral-8x7b",
-                 "hubert-xlarge", "internvl2-76b"):
+    """No family is refused any more: every assigned arch, each family's
+    smoke config, gives a finite loss and a gradient to every leaf that
+    ``LM.loss`` reaches (the families the port once refused, ROADMAP item
+    [17], among them), and the model has no refusal left to call."""
+    from repro_torch.configs import ASSIGNED
+    from test_torch_training_families import family_batch
+    for arch in ASSIGNED:
         m = ttransformer.build(tget_config(arch, smoke=True), device="cpu")
-        with pytest.raises(NotImplementedError, match=r"item \[17\]"):
-            m.loss(m.init(0), {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                               "labels": torch.zeros((1, 4),
-                                                     dtype=torch.long)})
-    for arch in ("smollm-360m", "h2o-danube-3-4b"):
-        ttransformer.build(tget_config(arch, smoke=True),
-                           device="cpu").check_trainable()
+        assert not hasattr(m, "check_trainable")
+        b = {k: torch.as_tensor(v) for k, v in
+             family_batch(m.cfg, B=1, S=12).items()}
+        (loss, _), g = ttrain.value_and_grad(m, m.init(0), b)
+        assert torch.isfinite(loss), arch
+        assert all(torch.isfinite(t.float()).all() for t in
+                   tree_util.leaves(g)), arch
 
 
 def test_serving_forward_carries_no_gradient():
