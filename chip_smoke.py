@@ -4691,21 +4691,56 @@ def check_backward_kernels(dev, report: dict):
 RGLRU_BWD_CASES = ((8, 512, 2560, 256, False), (2, 300, 2560, 256, True),
                    (2, 37, 300, 16, True))
 # ssd_scan_bwd (b, nh, S, dp, N, bc, h0, dtypes): mamba2-780m's training
-# shape, a 300-step S over chunks of 256 (through ops and autograd), and
-# the kernel's instances of 16 and 32 rows from a non-zero state
+# shape, a 300-step S over chunks of 256 (through ops and autograd), the
+# f32 kernel's instances of 16 and 32 rows from a non-zero state; for the
+# bf16 design a 200-step S (not a multiple of its 128-step chunks) from a
+# non-zero state and a head dim of 32
 SSD_BWD_CASES = ((8, 48, 512, 64, 128, 256, False, ("bfloat16", "float32")),
                  (2, 8, 300, 64, 128, 256, False, ("bfloat16", "float32")),
                  (2, 4, 77, 16, 16, 16, True, ("bfloat16", "float32")),
-                 (1, 3, 50, 32, 20, 32, True, ("float32",)))
+                 (1, 3, 50, 32, 20, 32, True, ("float32",)),
+                 (2, 6, 200, 64, 128, 200, True, ("bfloat16",)),
+                 (2, 4, 177, 32, 96, 177, True, ("bfloat16",)))
+
+
+def ssd_bwd_bounds(b: int, nh: int, S: int, dp: int, N: int) -> tuple:
+    """The least time of ``ssd_scan_bwd`` at bf16 x (b, nh, S, dp), N, and
+    the counts it is taken from: ((ms, by), {name: (ms, by)}).  Bytes: x,
+    dy, dx (bf16), dt, ddt, B, C, dB, dC (f32), each once.  Operations: the
+    chunked form's products at the bf16 rate, in chunks of Q steps
+    b nh nc (2 Q^2 dp + 2 Q^2 N + 5 Q dp N) + b nc Q^2 N multiply-adds (dy
+    x^T and its product with dy for dx; the two with B and C; five of the
+    state terms; C B^T once a batch row and chunk, the same for every head),
+    at Q 16, 32, 64 and 128 (the design's); the least time is the larger of
+    the bytes' and the fewest products'.  Beside them the f32 count of the
+    sequential form (12 a state element and step), the first design's."""
+    import torch
+    nbytes = 3 * 2 * b * nh * S * dp + 4 * (2 * b * nh * S + 4 * b * S * N)
+    counts = {"bytes": bound(nbytes, 0, torch.bfloat16)}
+    fewest = None
+    for Q in (16, 32, 64, 128):
+        nc = -(-S // Q)
+        macs = b * nh * nc * (2 * Q * Q * dp + 2 * Q * Q * N
+                              + 5 * Q * dp * N) + b * nc * Q * Q * N
+        fewest = macs if fewest is None else min(fewest, macs)
+        counts[f"chunked bf16 products, Q {Q}"] = bound(0, 2 * macs,
+                                                        torch.bfloat16)
+    counts["sequential f32 count"] = bound(0, 12 * b * nh * S * dp * N,
+                                           torch.float32)
+    return bound(nbytes, 2 * fewest, torch.bfloat16), counts
 
 
 def check_scan_backwards(dev, report: dict):
     """The scans' backward kernels against their plain formulas on the
     card: each output within 1e-4 of its max |g| (f32 outputs; dx of bf16
-    x within 2e-2), two calls bit-equal; where S is not a multiple of the
-    chunk, the gradients of ``ops.ssd_scan`` / ``ops.rglru_scan`` (padded,
-    through the autograd functions) against autograd of the plain forward.
-    Then both timed at the training shapes for the JSON line."""
+    x within 2e-2), two calls bit-equal, and for ``ssd_scan_bwd`` batch row
+    0 (dx, ddt, dB, dC) bit-equal to a call of that row alone; where S is
+    not a multiple of the chunk, the gradients of ``ops.ssd_scan`` /
+    ``ops.rglru_scan`` (padded, through the autograd functions) against
+    autograd of the plain forward.  Then both timed at the training shapes
+    for the JSON line, ``ssd_scan_bwd`` beside its byte bound, the bound of
+    its chunked form's products at the bf16 rate and the f32 count of the
+    sequential form (its kernels' split: ``ab.py --sweep``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rmod
@@ -4777,6 +4812,11 @@ def check_scan_backwards(dev, report: dict):
             tols = [BF16_ATOL if dt_ == torch.bfloat16 else F32_ATOL] + \
                 [F32_ATOL] * 4
             det = all(torch.equal(u, z) for u, z in zip(got, again))
+            one = smod.ssd_scan_bwd(
+                *(t[:1].contiguous() for t in (x, dt)), A,
+                *(t[:1].contiguous() for t in (B, C, dy)),
+                h0=None if h0 is None else h0[:1].contiguous())
+            rows = all(torch.equal(got[i][:1], one[i]) for i in (0, 1, 3, 4))
             s_worst = max(s_worst, *errs)
             extra = ""
             if S % bc:
@@ -4790,13 +4830,16 @@ def check_scan_backwards(dev, report: dict):
                   f"h0={with_h0} {dname}: {'/'.join(names)} err "
                   f"{'/'.join(f'{e:.2e}' for e in errs[:5])} of max |g| "
                   f"(tol {tols[0]} dx, {F32_ATOL} the rest){extra}; two "
-                  f"calls {'bit-equal' if det else 'DIFFER'}")
+                  f"calls {'bit-equal' if det else 'DIFFER'}; row 0 "
+                  f"{'bit-equal' if rows else 'DIFFERS'} to b=1")
             need(all(math.isfinite(e) and e <= t for e, t in zip(errs, tols))
                  and got[0].dtype == dt_,
                  f"ssd_scan_bwd {b, nh, S, dp, N} {dname}: errors {errs}")
             need(det, f"ssd_scan_bwd {b, nh, S, dp, N} {dname} not "
                       f"deterministic")
-            del x, dy, got, again, want
+            need(rows, f"ssd_scan_bwd {b, nh, S, dp, N} {dname}: row 0 "
+                       f"depends on the other rows")
+            del x, dy, got, again, want, one
 
     # timing at the training shapes (batch 8, seq 512)
     Bz, S, W = 8, 512, 2560
@@ -4831,11 +4874,12 @@ def check_scan_backwards(dev, report: dict):
         library="none: no single PyTorch call computes the SSD scan's "
                 "gradient",
         shape="bf16 x/dy (8,48,512,64), f32 dt (8,48,512), B/C (8,512,128)")
-    # bytes: x, dy, dx (bf16), dt, ddt, B, C, dB, dC (f32); operations: the
-    # kernel's 12 a state element and step
-    report["ssd_scan_bwd"].update(zip(("bound_ms", "bound_by"), bound(
-        3 * 2 * b * nh * S * dp + 4 * (2 * b * nh * S + 4 * b * S * N),
-        12 * b * nh * S * dp * N, torch.float32)))
+    bnd, bounds = ssd_bwd_bounds(b, nh, S, dp, N)
+    report["ssd_scan_bwd"].update(zip(("bound_ms", "bound_by"), bnd))
+    report["ssd_scan_bwd"]["bounds"] = {
+        k: {"bound_ms": ms, "bound_by": by} for k, (ms, by) in bounds.items()}
+    print("  ssd_scan_bwd bounds: " + "; ".join(
+        f"{k} {ms:.6f} ms ({by})" for k, (ms, by) in bounds.items()))
     for name in ("rglru_scan_bwd", "ssd_scan_bwd"):
         r = report[name]
         print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms on the "
@@ -4875,9 +4919,10 @@ def train_counts(model) -> dict:
     return want
 
 
-def device_busy(fn) -> tuple:
+def device_busy(fn, by_kernel: bool = False) -> tuple:
     """(wall ms, device busy ms) of one call of ``fn`` under
-    torch.profiler: the union of its kernels and copies on the device."""
+    torch.profiler: the union of its kernels and copies on the device;
+    with ``by_kernel`` also the device ms of each kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4888,9 +4933,16 @@ def device_busy(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = [(ev.time_range.start, ev.time_range.end)
-             for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    return wall, union_ms(spans)
+    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    busy = union_ms([(ev.time_range.start, ev.time_range.end)
+                     for ev in events])
+    if not by_kernel:
+        return wall, busy
+    per: dict = {}
+    for ev in events:
+        per[ev.name] = per.get(ev.name, 0.0) + (
+            ev.time_range.end - ev.time_range.start) / 1e3
+    return wall, busy, per
 
 
 def train_batch(data, step: int, dev, batch: int = 8, seq: int = 512):
@@ -5113,13 +5165,14 @@ def first_step(model, opt, batch):
 def same_first_step(model, opt, batch, profile: bool = False):
     """The first step twice from the same init: bit-equal loss, params and
     moments; with ``profile``, one more step under the profiler (wall ms,
-    device busy ms)."""
+    device busy ms, device ms by kernel name)."""
     import torch
     a, _, p, s = first_step(model, opt, batch)
     del p, s
     torch.cuda.empty_cache()
     b, step, p, s = first_step(model, opt, batch)
-    busy = device_busy(lambda: step(p, s, batch)) if profile else None
+    busy = device_busy(lambda: step(p, s, batch), by_kernel=True) \
+        if profile else None
     del p, s
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5168,7 +5221,11 @@ def full_width_run(dev, arch: str) -> tuple:
     opt = AdamW(lr=warmup_cosine(float(TRAIN28_LR), TRAIN28_STEPS // 10,
                                  TRAIN28_STEPS), weight_decay=0.01)
     batch = family_batches(cfg, dev, 8, 512, 1)[0]
-    same, (wall, busy) = same_first_step(model, opt, batch, profile=True)
+    same, (wall, busy, per) = same_first_step(model, opt, batch,
+                                              profile=True)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    scan_bwd = sum(ms for name, ms in per.items()
+                   if "ssd_bwd" in name or "rglru_bwd" in name)
     print(f"  full-width {arch} ({cfg.n_layers} layers), {TRAIN28_STEPS} "
           f"steps of (8, 512) tokens: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f} (last 3 mean {last3:.4f}); step ms (steps "
@@ -5177,11 +5234,15 @@ def full_width_run(dev, arch: str) -> tuple:
           f"memory {peak / 2**30:.2f} GiB; run {run_s:.1f} s; the first "
           f"step twice from the same init: "
           f"{'bit-equal' if same else 'DIFFERS'}; one step profiled: wall "
-          f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%})")
+          f"{wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}), "
+          f"of which the scan's backward kernels {scan_bwd:.1f} ms "
+          f"({scan_bwd / busy:.1%}); the largest kernels "
+          + "; ".join(f"{name[:48]} {ms:.1f}" for name, ms in top))
     need(same, f"{arch}: the training step is not deterministic")
     need(busy > 0, f"{arch} training step: the profiler saw no device time")
     return counts, {"step_ms": med, "tokens_per_s": tokens / med * 1e3,
-                    "peak_bytes": peak, "busy": busy / wall}
+                    "peak_bytes": peak, "busy": busy / wall,
+                    "busy_ms": busy, "scan_bwd_ms": scan_bwd}
 
 
 def other_family(dev, arch: str, layers, batch: int, seq: int,
@@ -5470,6 +5531,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": r.get("library"), "shape": r["shape"],
             "library_device_ms": r.get("library_device_ms"),
+            "bounds": r.get("bounds"),
             "more": EXTRA.get(name, [])})
     need(cuda_lib.status()["built"], "kernel library not loaded")
     phase("done")

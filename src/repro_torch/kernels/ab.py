@@ -12,9 +12,10 @@ kernels at the main path's shapes (the decode kernels also at a 2048-row
 cache, ``weight_transform`` at its large leaves and at four launch-bound
 small ones, ``flash_attention_bwd`` at smollm-360m's training shape and at
 h2o-danube-3-4b's heads with its window, ``rmsnorm`` at the training rows
-and a decode step's, ``rmsnorm_bwd`` at the training rows, the scans'
-backwards ``ssd_scan_bwd`` and ``rglru_scan_bwd`` at mamba2-780m's and
-recurrentgemma-2b's training shapes, also as eager calls) in
+and a decode step's, ``rmsnorm_bwd`` at the training rows, ``ssd_scan``
+and the scans' backwards ``ssd_scan_bwd`` and ``rglru_scan_bwd`` at
+mamba2-780m's and recurrentgemma-2b's training shapes, also as eager
+calls) in
 turns, each tree in a process of its own, in the order A, B, B, A, so that
 a drift of the card over the run shows up as a difference between the two
 runs of one tree.  The decode kernels and the scans are also timed as
@@ -24,10 +25,12 @@ src/repro_torch | tar -x -C DIR``.  Each tree is timed through its own
 wrappers, so trees whose C entry points differ compare fine.  Each turn
 also hashes ``flash_attention_bwd``'s f32 results at phase 27's f32 cases
 (inputs from one seed): they must be the same bits in every turn of both
-trees, else the run fails; and ``rmsnorm_bwd``'s f32 results at
-``NORM_F32`` (one seed), which must be the same bits in the turns of each
-tree (the trees may sum dscale in different orders), and the scans'
-backwards' f32 results at ``SCAN_BWD_F32`` likewise.  Prints one JSON
+trees, else the run fails; ``rmsnorm_bwd``'s f32 results at ``NORM_F32``
+(one seed), which must be the same bits in the turns of each tree (the
+trees may sum dscale in different orders); and the scans' backwards' f32
+results at ``SCAN_BWD_F32``, which must be the same bits in every turn of
+both trees (the bf16 ``ssd_scan_bwd`` was redesigned, its f32 design
+kept).  Prints one JSON
 line per turn and a table of the means over the shapes both trees have.
 
     python3 src/repro_torch/kernels/ab.py --sweep
@@ -44,14 +47,24 @@ and ``ALT_TILES``), ``rmsnorm`` at each (threads a row, teams a block,
 rows a team) and ``rmsnorm_bwd`` at each (threads a row, rows a team: its
 block rule), with phase 27's f32-x / bf16-scale case replayed to show
 how each launch shape's dscale rounds (:func:`norm_rounding`);
-``ssd_scan_bwd`` at each rows-a-thread instance that takes the head dim
-and both scan backwards beside their plain versions and bounds
-(:func:`sweep_scan_bwd`).  The
+``ssd_scan_bwd`` at each of its bf16 instances (Q, L, P) with its three
+kernels' times and both scan backwards beside their plain versions and
+bounds (:func:`sweep_scan_bwd`).  The
 plan's own choice is checked bit-equal to the wrapper,
 the others against the plain version within phase 3's (phase 27's for
 the backwards) tolerances; ``weight_transform``'s dequant at its large
 leaves over the grid (steps a thread), each launch bit-equal to the plain
 version.
+
+    python3 src/repro_torch/kernels/ab.py --ablate
+
+times ``ssd_scan_bwd`` (bf16) at mamba2-780m's training shape in copies of
+this tree's port under ``build/ablate/``, each with one part of the bf16
+kernels' work taken out of ``csrc/ssd_scan_bwd.cu`` (:data:`ABLATIONS`;
+the results are wrong, the device times show what that part costs),
+beside the unchanged source: the call by graph replay and each kernel by
+torch.profiler.  The copies are built at once, one process each, then
+timed one after another.
 
     python3 src/repro_torch/kernels/ab.py --probe DIR
 
@@ -70,6 +83,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -83,7 +97,8 @@ ENTRIES = ("repro_quant_matmul", "repro_flash_attention",
            "repro_decode_attention", "repro_decode_attention_paged",
            "repro_ssd_scan", "repro_rglru_scan", "repro_wt_dequant",
            "repro_wt_cast", "repro_flash_attention_bwd", "repro_rmsnorm",
-           "repro_rmsnorm_bwd", "repro_ssd_scan_bwd", "repro_rglru_scan_bwd")
+           "repro_rmsnorm_bwd", "repro_ssd_scan_bwd", "repro_ssd_scan_bwd_tc",
+           "repro_rglru_scan_bwd")
 
 # (name, M, K, N): the distinct smollm-360m projections at a 4-slot decode
 # step and a 128-token prefill, and the head at the decode step
@@ -120,7 +135,9 @@ DECODE_DIMS = [("decode dh128 pos159", 32, 4, 128, 256, (159,), 0),
                ("decode dh128 B4 S2048", 32, 4, 128, 2048,
                 (2047, 1535, 1023, 511), 0)]
 # (name, b, nh, S, dp, N): mamba2-780m's SSD block at a 128-token prefill
-SSD = [("ssd bf16 (1,48,128,64) N128", 1, 48, 128, 64, 128)]
+# and at its training shape (batch 8, seq 512)
+SSD = [("ssd bf16 (1,48,128,64) N128", 1, 48, 128, 64, 128),
+       ("ssd bf16 (8,48,512,64) N128", 8, 48, 512, 64, 128)]
 # (name, B, S, W): recurrentgemma-2b's RG-LRU block at a 128-token prefill
 RGLRU = [("rglru f32 (1,128,2560)", 1, 128, 2560)]
 # (name, n, m, int8 or cast, output type): smollm-360m's tok leaf, vgg16's
@@ -148,6 +165,73 @@ SSD_BWD = [("ssd_bwd bf16 (8,48,512,64) N128", 8, 48, 512, 64, 128)]
 RGLRU_BWD = [("rglru_bwd f32 (8,512,2560)", 8, 512, 2560)]
 SCAN_BWD_F32 = [("ssd", 2, 8, 300, 64, 128), ("ssd", 2, 4, 77, 16, 16),
                 ("rglru", 2, 300, 2560)]
+# ssd_scan_bwd.cu's bf16 kernels with one part of their work taken out:
+# (name, [(text, its replacement, times it occurs)]).  A condition on dp
+# (positive at run time, unknown to the compiler) skips the work and keeps
+# the code around it as it was.
+ABLATIONS = [
+    ("walk: no dx", [
+        ("    if (rev) {\n      // ---- dx of this warp's steps",
+         "    if (rev && dp < 0) {\n      // ---- dx of this warp's steps", 1)]),
+    ("walk: no B, C loads", [
+        ("        if (j < nv && cc < N) {\n"
+         "          const long long o = (long long)(t0 + j) * N + cc;\n"
+         "          if (nvec) {",
+         "        if (j < nv && cc < N && dp < 0) {\n"
+         "          const long long o = (long long)(t0 + j) * N + cc;\n"
+         "          if (nvec) {", 1)]),
+    ("walk: no B, C pieces", [
+        ("        if (!rev) {\n"
+         "          const float w = expf(cum_last - cum[j]) * dts[j];",
+         "        if (dp < 0) {\n"
+         "        } else if (b4.x == 1.2345f && c4.y == 1.2345f) {\n"
+         "          R0[so4] = __float2bfloat16_rn(b4.z + c4.w);\n"
+         "        } else if (dp < 0 && !rev) {\n"
+         "          const float w = expf(cum_last - cum[j]) * dts[j];", 1),
+        ("        } else {\n          const float w = expf(cum[j]);",
+         "        } else if (dp < 0) {\n          const float w = expf(cum[j]);",
+         1)]),
+    ("walk: no state products", [
+        ("              mma::mma_bf16(st[m][2 * np + q], xa, v[pc][2 * q],\n"
+         "                            v[pc][2 * q + 1]);",
+         "              st[m][2 * np + q][0] +=\n"
+         "                  __uint_as_float(xa[0] ^ v[pc][2 * q]);", 1)]),
+    ("heads: no intra products", [
+        ("if (jt > rt) continue;", "if (jt > rt || dp > 0) continue;", 1),
+        ("if (kt < rt) continue;", "if (kt < rt || dp > 0) continue;", 1)]),
+    ("heads: no inter products", [
+        ("            for (int pc = 0; pc < 3; ++pc) {\n"
+         "              uint32_t hb[4];",
+         "            for (int pc = 0; pc < 3 * (dp < 0); ++pc) {\n"
+         "              uint32_t hb[4];", 1),
+        ("            for (int pc = 0; pc < 3; ++pc) {\n"
+         "              uint32_t gb[4];",
+         "            for (int pc = 0; pc < 3 * (dp < 0); ++pc) {\n"
+         "              uint32_t gb[4];", 1)]),
+    ("heads: intra hi.hi only", [
+        ("  mma::mma_bf16(c0, a[0], b1[0], b1[1]);     // hi.mid\n"
+         "  mma::mma_bf16(c1, a[0], b1[2], b1[3]);\n"
+         "  mma::mma_bf16(c0, a[1], b0[0], b0[1]);     // mid.hi\n"
+         "  mma::mma_bf16(c1, a[1], b0[2], b0[3]);\n"
+         "  mma::mma_bf16(c0, a[0], b2[0], b2[1]);     // hi.lo\n"
+         "  mma::mma_bf16(c1, a[0], b2[2], b2[3]);\n"
+         "  mma::mma_bf16(c0, a[1], b1[0], b1[1]);     // mid.mid\n"
+         "  mma::mma_bf16(c1, a[1], b1[2], b1[3]);\n"
+         "  mma::mma_bf16(c0, a[2], b0[0], b0[1]);     // lo.hi\n"
+         "  mma::mma_bf16(c1, a[2], b0[2], b0[3]);\n", "", 1)]),
+    ("heads: no h_prev, g pieces", [
+        ("      split3_store4(H3 + so4, H3 + HP + so4, H3 + 2 * HP + so4, hv);\n"
+         "      split3_store4(G3 + so4, G3 + HP + so4, G3 + 2 * HP + so4, gv);",
+         "      if (dp < 0) {\n"
+         "      split3_store4(H3 + so4, H3 + HP + so4, H3 + 2 * HP + so4, hv);\n"
+         "      split3_store4(G3 + so4, G3 + HP + so4, G3 + 2 * HP + so4, gv);\n"
+         "      }", 1)]),
+    ("heads: no exp on the diagonal", [
+        ("j <= i ? v * expf(ci - cumv[j]) * dtv[j] : 0.f;",
+         "j <= i ? v * dtv[j] : 0.f;", 1),
+        ("j >= i ? v * expf(cumv[j] - ci) : 0.f;", "j >= i ? v : 0.f;", 1)]),
+]
+ABLATE_SHAPE = (8, 48, 512, 64, 128)    # mamba2-780m's training shape
 WT_SMALL = [("wt int8 (960,960) bf16", 960, 960, True, "bfloat16"),
             ("wt int8 (14400,64) bf16", 14400, 64, True, "bfloat16"),
             ("wt int8 (4096,8) bf16", 4096, 8, True, "bfloat16"),
@@ -375,6 +459,79 @@ def time_scan_bwd(chip_smoke, smod, rmod, dev, g, out) -> str:
             if t is not None:                  # rglru's dh0, not asked for
                 h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def ablated_source(source: str, edits) -> str:
+    """``source`` with each (text, replacement, times) of ``edits`` made;
+    raises unless the text occurs exactly that many times."""
+    for old, new, times in edits:
+        if source.count(old) != times:
+            raise ValueError(f"ablation text found {source.count(old)} "
+                             f"times, not {times}: {old[:60]!r}")
+        source = source.replace(old, new)
+    return source
+
+
+def ablate() -> int:
+    """Build this tree's port with each of :data:`ABLATIONS` (and without
+    any) under ``build/ablate/``, all at once, then time each copy's
+    ``ssd_scan_bwd`` in a process of its own."""
+    base = os.path.join(ROOT, "build", "ablate")
+    cu = os.path.join("src", "repro_torch", "kernels", "csrc",
+                      "ssd_scan_bwd.cu")
+    source = open(os.path.join(ROOT, cu)).read()
+    trees = []
+    for i, (name, edits) in enumerate([("none", [])] + ABLATIONS):
+        tree = os.path.join(base, str(i))
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
+                        os.path.join(tree, "src", "repro_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        with open(os.path.join(tree, cu), "w") as f:
+            f.write(ablated_source(source, edits))
+        trees.append((name, tree))
+    me = os.path.abspath(__file__)
+    builds = [subprocess.Popen([sys.executable, me, "--ablated", tree,
+                                "--build-only"]) for _, tree in trees]
+    if any(p.wait() for p in builds):
+        return 1
+    for name, tree in trees:
+        r = subprocess.run([sys.executable, me, "--ablated", tree],
+                           capture_output=True, text=True)
+        if r.returncode:
+            print(r.stdout, r.stderr, file=sys.stderr)
+            return r.returncode
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        print(f"ssd_bwd bf16 {ABLATE_SHAPE} without {name}: "
+              f"{res['ms']:.5f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in res["split"].items())
+              + ")", flush=True)
+    return 0
+
+
+def ablated(tree: str, build_only: bool) -> None:
+    """Build (and unless ``build_only`` time) ``ssd_scan_bwd`` of the copy
+    at ``tree``, its library holding that source alone; prints one JSON
+    line."""
+    import torch
+    cuda_lib, _, _, _, smod, _, _, chip_smoke, _, _ = use_tree(tree)
+    cuda_lib._sources = lambda: [cuda_lib.CSRC / "ssd_scan_bwd.cu"]
+    cuda_lib.SIGNATURES = {k: v for k, v in cuda_lib.SIGNATURES.items()
+                           if k.startswith("repro_ssd_scan_bwd")}
+    cuda_lib.library()
+    if build_only:
+        return
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    args = scan_bwd_inputs(dev, g, "ssd", *ABLATE_SHAPE)
+
+    def call():
+        smod.ssd_scan_bwd(*args)
+    split = chip_smoke.kernel_ms(call, n=5)
+    print(json.dumps({
+        "ms": chip_smoke.device_ms(call, iters=5, replays=3),
+        "split": {k.split("::")[-1].split("(")[0]: v
+                  for k, v in split.items()}}))
 
 
 def sweep() -> None:
@@ -771,11 +928,14 @@ def sweep_scans(cuda_lib, smod, rmod, chip_smoke, lib, dev, g) -> None:
 
 
 def sweep_scan_bwd(cuda_lib, smod, rmod, chip_smoke, lib, dev, g) -> None:
-    """ssd_scan_bwd at each rows-a-thread instance at or above the head dim
-    (the training shape's dp 64 and the smoke configs' dp 16), each against
-    the plain version, the plan's bit-equal to the wrapper; both scan
-    backwards at the training shapes beside the plain versions and the
-    bounds (device ms by graph replay, eager ms by events)."""
+    """ssd_scan_bwd's bf16 instances (Q: the kept states' and the heads
+    pass's steps, L: the walks' steps, P: dp rows a walk block) at the
+    training shape and at dp 16, each against the plain version within
+    phase 28's tolerances, the plan's and the others of its chunk length
+    bit-equal to the wrapper (the rows a walk block change no bits), device
+    ms by graph replay and each of the three kernels' by torch.profiler;
+    both scan backwards at the training shapes beside the plain versions
+    and the bounds (device ms by graph replay, eager ms by events)."""
     import torch
     for name, b, nh, S, dp, N in SSD_BWD + [
             ("ssd_bwd bf16 (8,48,512,16) N128", 8, 48, 512, 16, 128)]:
@@ -786,37 +946,42 @@ def sweep_scan_bwd(cuda_lib, smod, rmod, chip_smoke, lib, dev, g) -> None:
         outs = (torch.empty_like(x), torch.empty((b, nh, S), **f32),
                 torch.empty((nh,), **f32), torch.empty((b, S, N), **f32),
                 torch.empty((b, S, N), **f32))
-        scratch = (torch.empty((b, nh, S, N), **f32),
-                   torch.empty((b, nh, S, N), **f32),
-                   torch.empty((b, nh), **f32))
+        best = smod.plan_bwd(dp, N, x.dtype)
         row = []
-        for rows in smod.BWD_ROWS:
-            if rows < dp:
-                continue
+        for inst in smod.BWD_TC_PLANS:
+            p = smod.BwdPlan(*inst, smod.BWD_STATE_COLS)
+            scratch = smod.bwd_scratch(b, nh, S, dp, N, p, dev)
 
             def call():
-                smod._launch_bwd(x, dt, A, B, C, None, dy, *outs, *scratch,
-                                 rows=rows)
+                smod._launch_bwd_tc(x, dt, A, B, C, None, dy, *outs,
+                                    *scratch, plan=p)
             call()
             torch.cuda.synchronize()
-            mine = rows == smod.bwd_rows(dp)
-            if mine:
+            mine = p == best
+            if p.chunk == best.chunk:
+                # the plan's, or other rows a walk block: the same bits
                 assert all(torch.equal(u, w) for u, w in zip(outs, want))
-            err = max(chip_smoke.rel_err(u, w) for u, w in zip(outs, ref))
-            assert err <= chip_smoke.BF16_ATOL, (name, rows, err)
-            row.append(f"rows {rows}{'*' if mine else ''} "
-                       f"{chip_smoke.device_ms(call, iters=5, replays=3):.5f}"
-                       f" ms")
-        print(f"{name}: " + ", ".join(row), flush=True)
-        del x, dy, want, ref, outs, scratch
+            errs = [chip_smoke.rel_err(u, w) for u, w in zip(outs, ref)]
+            assert errs[0] <= chip_smoke.BF16_ATOL and \
+                max(errs[1:]) <= chip_smoke.F32_ATOL, (name, inst, errs)
+            ms = chip_smoke.device_ms(call, iters=5, replays=3)
+            split = chip_smoke.kernel_ms(call, n=5)
+            row.append(f"Q={p.chunk} L={p.walk} P={p.cols}"
+                       f"{'*' if mine else ''} {ms:.5f} ms ("
+                       + ", ".join(f"{k.split('::')[-1].split('(')[0]} "
+                                   f"{v:.4f}" for k, v in split.items())
+                       + ")")
+            del scratch
+        print(f"{name}: " + "; ".join(row), flush=True)
+        del x, dy, want, ref, outs
     for name, b, nh, S, dp, N in SSD_BWD:
         args = scan_bwd_inputs(dev, g, "ssd", b, nh, S, dp, N)
+        bnd, bounds = chip_smoke.ssd_bwd_bounds(b, nh, S, dp, N)
         print_beside_plain(chip_smoke, name, lambda: smod.ssd_scan_bwd(*args),
-                           lambda: smod.plain_bwd(*args), chip_smoke.bound(
-                               3 * 2 * b * nh * S * dp
-                               + 4 * (2 * b * nh * S + 4 * b * S * N),
-                               12 * b * nh * S * dp * N, torch.float32),
-                           iters=5)
+                           lambda: smod.plain_bwd(*args), bnd, iters=5)
+        print(f"{name} bounds: " + "; ".join(
+            f"{k} {ms:.6f} ms ({by})" for k, (ms, by) in bounds.items()),
+            flush=True)
         del args
     for name, Bz, S, W in RGLRU_BWD:
         args = scan_bwd_inputs(dev, g, "rglru", Bz, S, W)
@@ -1128,7 +1293,17 @@ def main() -> int:
                     help="this tree's launch choices")
     ap.add_argument("--probe", metavar="DIR",
                     help="the rows probe on the tree at DIR")
+    ap.add_argument("--ablate", action="store_true",
+                    help="ssd_scan_bwd with parts of its work taken out")
+    ap.add_argument("--ablated", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--build-only", action="store_true",
+                    help=argparse.SUPPRESS)
     a = ap.parse_args()
+    if a.ablate:
+        return ablate()
+    if a.ablated:
+        ablated(a.ablated, a.build_only)
+        return 0
     if a.probe:
         probe(a.probe)
         return 0
@@ -1163,9 +1338,9 @@ def main() -> int:
     print(f"rmsnorm_bwd f32 results, {len(NORM_F32)} cases: "
           f"{'bit-equal in the turns of each tree' if norm_same else 'DIFFER'}"
           f" {norm_hashes}", flush=True)
-    scan_same = all(len(h) == 1 for h in scan_hashes.values())
+    scan_same = len(set().union(*scan_hashes.values())) == 1
     print(f"scan backwards' f32 results, {len(SCAN_BWD_F32)} cases: "
-          f"{'bit-equal in the turns of each tree' if scan_same else 'DIFFER'}"
+          f"{'bit-equal in every turn of both trees' if scan_same else 'DIFFER'}"
           f" {scan_hashes}", flush=True)
     same = same and norm_same and scan_same
     (na, ra), (nb, rb) = runs.items()

@@ -58,6 +58,7 @@ SIGNATURES = {
                                   I, I, I, I, I, I, I, I, F, I, I, P],
     "repro_rmsnorm_bwd": [P, P, P, P, P, P, LL, I, F, I, I, I, I, I, I, P],
     "repro_ssd_scan_bwd": [P] * 15 + [I] * 7 + [P],
+    "repro_ssd_scan_bwd_tc": [P] * 17 + [I] * 9 + [P],
     "repro_rglru_scan_bwd": [P] * 7 + [I] * 3 + [P],
 }
 

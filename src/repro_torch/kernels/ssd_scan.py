@@ -11,7 +11,9 @@ it computes :func:`plain`, the sequential definition
 Training goes through :class:`SSDScan`, whose backward is
 :func:`ssd_scan_bwd` (``csrc/ssd_scan_bwd.cu`` on CUDA tensors,
 :func:`plain_bwd` on CPU tensors); ``ops.ssd_scan`` picks it only where a
-gradient is wanted.
+gradient is wanted.  Its bf16 design runs on the tensor cores in chunks
+that :func:`plan_bwd` fixes; f32 keeps the first design (a thread a state
+column, :func:`bwd_rows`).
 """
 from __future__ import annotations
 
@@ -27,8 +29,16 @@ launches = cuda_lib.LaunchCounter()
 BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 BWD_REPLACES = "src/repro/kernels/ops.py:411"  # XLA's gradient of _xla_ssd
 bwd_launches = cuda_lib.LaunchCounter()        # repro_ssd_scan_bwd calls
-BWD_ROWS = (16, 32, 64)         # dp rows a thread, the backward's instances
+BWD_ROWS = (16, 32, 64)         # dp rows a thread, the f32 backward's instances
 BWD_MAX_N = 128                 # a thread a column of the state
+# (chunk, walk, cols) instances of the bf16 backward (csrc
+# repro_ssd_scan_bwd_tc): states kept and the heads pass in chunks of Q
+# steps, the walks in steps of L, P rows of dp a walk block.  The first two
+# are the plan's (dp above 32, dp up to 32); the third, 64-step chunks, is
+# there for ab.py --sweep
+BWD_TC_PLANS = ((128, 64, 64), (128, 64, 32), (64, 64, 64))
+BWD_STATE_COLS = 32             # state columns a heads-pass block (SCOLS)
+BWD_MAX_DP = 64                 # head dim the bf16 backward takes (DPMAX)
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 128                     # state width the bf16 kernel takes
@@ -114,6 +124,55 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cuda_lib.check(rc, "ssd_scan")
     launches.add()
     return (y, hS) if return_state else y
+
+
+class BwdPlan(NamedTuple):
+    """Launch of the bf16 backward: states kept, and the heads pass run, in
+    chunks of ``chunk`` steps from the call's first step; the walks in steps
+    of ``walk``, ``cols`` rows of dp a walk block; ``state_cols`` columns of
+    the state a heads-pass block."""
+    chunk: int
+    walk: int
+    cols: int
+    state_cols: int
+
+
+def plan_bwd(dp: int, N: int, dtype: torch.dtype) -> BwdPlan:
+    """The bf16 backward's launch from the head geometry alone (never b or
+    S), so a row's chunks, and so its bits, are the same in any batch.
+
+    States kept every 128 steps (b nh (S / Q) dp N f32 each, half of what
+    64-step chunks keep), walks in steps of 64 with every row of dp in one
+    block (one B C^T a step for all of dp): 32 rows where dp is at most 32,
+    else 64; 32 state columns a heads-pass block.  The rows a walk block
+    take change no bits.  Raises where the kernels do not take the shape:
+    another dtype (f32 runs the first design, :func:`bwd_rows`), dp above
+    64, N above 128."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"ssd_scan_bwd: the chunked design takes bf16 x, "
+                         f"got {dtype}")
+    if not 1 <= N <= BWD_MAX_N:
+        raise ValueError(f"ssd_scan_bwd: state width {N} outside the "
+                         f"kernel's 1 to {BWD_MAX_N}")
+    if not 1 <= dp <= BWD_MAX_DP:
+        raise ValueError(f"ssd_scan_bwd: head dim {dp} outside the bf16 "
+                         f"kernel's 1 to {BWD_MAX_DP}")
+    return BwdPlan(*BWD_TC_PLANS[0 if dp > 32 else 1], BWD_STATE_COLS)
+
+
+def bwd_scratch(b: int, nh: int, S: int, dp: int, N: int, p: BwdPlan,
+                device) -> tuple:
+    """The bf16 backward's float32 scratch: the states h_prev and g at
+    every chunk's start (b, nh, chunks, dp, N rounded up to the columns), the
+    chunks' dt and cum, and r and v by column block."""
+    nc = -(-S // p.chunk)
+    npad = -(-N // p.state_cols) * p.state_cols
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((b, nh, nc, dp, npad), **f32),
+            torch.empty((b, nh, nc, dp, npad), **f32),
+            torch.empty((2, b, nh, nc * p.chunk), **f32),
+            torch.empty((b, nh, S, npad // p.state_cols), **f32),
+            torch.empty((b, nh, S, npad // p.state_cols), **f32))
 
 
 def bwd_rows(dp: int) -> int:
@@ -203,7 +262,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not 1 <= N <= BWD_MAX_N:
         raise ValueError(f"ssd_scan_bwd: state width {N} outside the "
                          f"kernel's 1 to {BWD_MAX_N}")
-    rows = bwd_rows(dp)
+    if x.dtype == torch.bfloat16:
+        plan = plan_bwd(dp, N, x.dtype)
+    else:
+        rows = bwd_rows(dp)
     x, dy = x.contiguous(), dy.contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -215,6 +277,11 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         for t in (dx, ddt, dA, dB, dC):
             t.zero_()
         return dx, ddt, dA, dB, dC
+    if x.dtype == torch.bfloat16:
+        _launch_bwd_tc(x, dt, A, B, C, h0, dy, dx, ddt, dA, dB, dC,
+                       *bwd_scratch(b, nh, S, dp, N, plan, x.device),
+                       plan=plan)
+        return dx, ddt, dA, dB, dC
     scratch = (torch.empty((b, nh, S, N), **f32),
                torch.empty((b, nh, S, N), **f32), torch.empty((b, nh), **f32))
     _launch_bwd(x, dt, A, B, C, h0, dy, dx, ddt, dA, dB, dC, *scratch,
@@ -224,7 +291,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def _launch_bwd(x, dt, A, B, C, h0, dy, dx, ddt, dA, dB, dC, dB_h, dC_h,
                 dA_h, *, rows: int):
-    """One call of the backward's two kernels on the current stream;
+    """One call of the f32 backward's two kernels on the current stream;
     raises if the library reports an error, and counts the call only when
     it launched."""
     b, nh, S, dp = x.shape
@@ -237,6 +304,26 @@ def _launch_bwd(x, dt, A, B, C, h0, dy, dx, ddt, dA, dB, dC, dB_h, dC_h,
             dB.data_ptr(), dC.data_ptr(), dB_h.data_ptr(), dC_h.data_ptr(),
             dA_h.data_ptr(), b, nh, S, dp, B.shape[-1], _DTYPE[x.dtype],
             rows, cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(rc, "ssd_scan_bwd")
+    bwd_launches.add()
+
+
+def _launch_bwd_tc(x, dt, A, B, C, h0, dy, dx, ddt, dA, dB, dC, hs, gs,
+                   dtc, rs, vs, *, plan: BwdPlan):
+    """One call of the bf16 backward's three kernels on the current stream
+    (scratch from :func:`bwd_scratch`); raises if the library reports an
+    error, and counts the call once, only when it launched."""
+    b, nh, S, dp = x.shape
+    lib = cuda_lib.library()
+    with torch.cuda.device(x.device):
+        rc = lib.repro_ssd_scan_bwd_tc(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), None if h0 is None else h0.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), hs.data_ptr(), gs.data_ptr(),
+            dtc.data_ptr(), rs.data_ptr(), vs.data_ptr(), b, nh, S, dp,
+            B.shape[-1], plan.chunk, plan.walk, plan.cols, hs.shape[-1],
+            cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "ssd_scan_bwd")
     bwd_launches.add()
 
