@@ -88,7 +88,14 @@ CPU's for mamba2-780m and recurrentgemma-2b at small depth, both trained
 at full width and depth through ``launch/train.py`` with exact launches a
 step, a falling loss and a bit-equal repeated step, then a few steps of
 mixtral-8x7b (2 layers), hubert-xlarge, internvl2-76b (1 layer) and
-arctic-480b smoke, each step repeated bit-equal.
+arctic-480b smoke, each step repeated bit-equal.  Last, chunked prefill
+(``LM.prefill_chunked``, 2048-token chunks) at full width: smollm-360m f32
+at B 2 and 8192 tokens against the unchunked prefill (logits and every
+cache leaf) and 16 greedy decode steps from each cache; smollm-360m at
+32768 tokens and internvl2-76b (2 layers, 256 image rows, 8192 rows) in
+bf16, the greedy token equal and the logits moved no more than bf16 moves
+them from f32; ms and peak memory chunked and unchunked, exact launches;
+``flash_attention`` at the last chunk's shape against plain and SDPA.
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
 seven TPU kernels' counterparts, ``rmsnorm`` and the four backward
 kernels), holds each against its
@@ -718,12 +725,15 @@ def extra_line(name: str, shape: str, kernel, plain, library_fn, bnd,
     """Time a kernel at a second main-path shape, print it and keep it for
     the kernel's ``more`` list in the JSON line."""
     r = {"shape": shape, "ms": device_ms(kernel), "call_ms": call_ms(kernel),
-         "plain_ms": device_ms(plain), "library_ms": device_ms(library_fn),
+         "plain_ms": device_ms(plain),
+         "library_ms": device_ms(library_fn) if library_fn else None,
          "library": library, "bound_ms": bnd[0], "bound_by": bnd[1]}
     EXTRA.setdefault(name, []).append(r)
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f} ms")
     print(f"  {name} [{shape}]: kernel {r['ms']:.4f} ms on the device "
           f"({r['call_ms']:.4f} ms per eager call), plain "
-          f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms, "
+          f"{r['plain_ms']:.4f} ms, {library} {lib}, "
           f"bound {bnd[0]:.6f} ms ({bnd[1]})")
 
 
@@ -1126,6 +1136,38 @@ def check_head_dims(dev, randn):
                    library="SDPA over the valid rows, enable_gqa")
 
 
+def ssd_fwd_bounds(b: int, nh: int, S: int, dp: int, N: int) -> tuple:
+    """The least time of ``ssd_scan`` at bf16 x (b, nh, S, dp), N, counted
+    as :func:`ssd_bwd_bounds` counts the backward: ((ms, by), {name: (ms,
+    by)}).  Bytes: x and y (bf16), dt, A, B, C (f32), each once.
+    Operations: the chunked form's products at the bf16 rate, in the
+    plan's chunks of L steps, times the bf16 pieces the kernel feeds each:
+    C B^T once a batch row and chunk (the same for every head), the intra
+    product (C B^T o L)(dt x) L^2 dp, the state update (w dt x)^T B three
+    times L dp N (hi.hi + lo.hi + hi.lo) and the inter term C h^T twice L N
+    dp (h's halves), a (batch, head) and chunk; the least time is the larger
+    of the bytes' and these products'.  Beside them the design's own count
+    (each of a (batch, head)'s dp / cols blocks recomputes C B^T) and the
+    sequential form's f32 count (5 dp N a step and head), the first
+    bound's."""
+    import torch
+    from repro_torch.kernels import ssd_scan as smod
+    L, cols = smod.plan(dp, N, torch.bfloat16)
+    nc = -(-S // L)
+    nbytes = 2 * 2 * b * nh * S * dp + 4 * (b * nh * S + nh + 2 * b * S * N)
+    per_head = b * nh * nc * (L * L * dp + 3 * L * dp * N + 2 * L * N * dp)
+    macs = b * nc * L * L * N + per_head
+    design = b * nh * (dp // cols) * nc * L * L * N + per_head
+    counts = {"bytes": bound(nbytes, 0, torch.bfloat16),
+              f"chunked bf16 products, L {L}": bound(0, 2 * macs,
+                                                     torch.bfloat16),
+              f"the design's products (C B^T in each of dp / {cols} "
+              f"blocks)": bound(0, 2 * design, torch.bfloat16),
+              "sequential f32 count": bound(0, 5 * b * nh * S * dp * N,
+                                            torch.float32)}
+    return bound(nbytes, 2 * macs, torch.bfloat16), counts
+
+
 def check_scans(dev, report: dict, randn, g):
     """ssd_scan and rglru_scan against their plain (sequential) versions:
     at the path shapes, at a multi-chunk S that the chunk does not divide,
@@ -1175,10 +1217,8 @@ def check_scans(dev, report: dict, randn, g):
                                                       + 2 * b * S * N),
                        5 * b * nh * S * dp * N, torch.float32)
     # the bound at the precision the design computes in (bf16 operands on
-    # the tensor cores): the bytes
-    b16_ms, b16_by = bound(2 * 2 * b * nh * S * dp + 4 * (b * nh * S + nh
-                                                          + 2 * b * S * N),
-                           0, torch.bfloat16)
+    # the tensor cores): the bytes and the chunked form's products
+    (b16_ms, b16_by), _ = ssd_fwd_bounds(b, nh, S, dp, N)
     report["ssd_scan"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: smod.ssd_scan(x, dt, A, B, C)),
@@ -1189,6 +1229,18 @@ def check_scans(dev, report: dict, randn, g):
         bound_ms=b_ms, bound_by=b_by,
         bound_bf16_ms=b16_ms, bound_bf16_by=b16_by,
         shape="bf16 x (1,48,128,64), f32 dt (1,48,128), B/C (1,128,128)")
+    # mamba2-780m's training shape (batch 8 of 512 steps), the forward of
+    # phase 28's steps: bound as the backward's (bytes and the chunked
+    # form's bf16 products), the plain scan beside it
+    b, S = 8, 512
+    x, dt, A, B, C = ssd_inputs(b, nh, S, dp, N, torch.bfloat16)
+    bnd, bounds = ssd_fwd_bounds(b, nh, S, dp, N)
+    print("  ssd_scan bounds at (8,48,512,64): " + "; ".join(
+        f"{k} {ms:.6f} ms ({by})" for k, (ms, by) in bounds.items()))
+    extra_line("ssd_scan", "bf16 x (8,48,512,64), f32 dt (8,48,512), B/C "
+               "(8,512,128)", lambda: smod.ssd_scan(x, dt, A, B, C),
+               lambda: smod.plain(x, dt, A, B, C), None, bnd,
+               library="none")
 
     err = 0.0
     for (Bz, S, W, bc, with_h0) in [(1, 128, 2560, 256, False),
@@ -5332,6 +5384,370 @@ def train_families(dev, report: dict) -> dict:
     return {"launches": path, "runs": runs}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 29: chunked prefill at full width
+# ---------------------------------------------------------------------------
+
+CHUNK = 2048                # LM.prefill_chunked's default
+CHUNK_PROMPT = 8192         # (a)'s and (c)'s prompt rows
+LONG_PROMPT = 32_768        # SHAPES["prefill_32k"]'s length, (b)'s
+CHUNK_STEPS = 16            # greedy decode steps from each cache in (a)
+CHUNK_VLM_IMG = 256         # internvl2's image rows ahead of the tokens
+# (a)'s tolerances: tests/test_chunked_prefill.py:37-42 (prefill) and
+# :60-62 (each decode step)
+CHUNK_TOL = dict(atol=2e-4, rtol=1e-3)
+STEP_TOL = dict(atol=1e-4, rtol=1e-3)
+# the chunk-shape flash check: max |err| over max |plain|, bf16 output
+# rounding is 2^-9 relative; q scaled so attention is peaked
+FLASH_CHUNK_REL = 1e-2
+FLASH_PEAK = 4.0
+
+
+def check_flash_chunk(dev, g):
+    """``flash_attention`` at the chunked prefill's last chunk of a
+    32768-token prompt: queries at the last CHUNK of T = 32768 keys, k/v
+    transposed views of a kv-major cache, smollm-360m's heads, bf16.
+    Held against plain by ``rel_err`` (an N(0, 1) q averages over ~32k
+    keys, so its outputs are ~0.01 and an absolute tolerance would pass a
+    kernel that dropped the diagonal block), also with q scaled by
+    FLASH_PEAK so each row's attention is peaked and its outputs O(1);
+    the last CHUNK rows equal those of an S = T = CHUNK_PROMPT call bit for
+    bit.  Then timed beside plain, its bound and SDPA with a bottom-right
+    causal mask (k/v heads repeated, which SDPA's bottom-right path needs)
+    into the kernel's ``more`` list."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.kernels import flash_attention as fmod
+    S, T, H, K, dh = CHUNK, LONG_PROMPT, 15, 5, 64
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf16)
+    q = randn(1, S, H, dh)
+    kc, vc = randn(1, K, T, dh), randn(1, K, T, dh)          # kv-major
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    got = fmod.flash_attention(q, k, v, causal=True)
+    want = fmod.plain(q, k, v, causal=True)
+    qp = q * FLASH_PEAK
+    err_p = rel_err(fmod.flash_attention(qp, k, v, causal=True),
+                    fmod.plain(qp, k, v, causal=True))
+    # the same rows as the last CHUNK of an unchunked call at T' = 8192
+    T2 = CHUNK_PROMPT
+    q2 = randn(1, T2, H, dh)
+    k2, v2 = (c[:, :, :T2].transpose(1, 2) for c in (kc, vc))
+    full = fmod.flash_attention(q2, k2, v2, causal=True)
+    cont = fmod.flash_attention(q2[:, T2 - S:], k2, v2, causal=True)
+    qt = q.transpose(1, 2)
+    kt, vt = (c.repeat_interleave(H // K, dim=1) for c in (kc, vc))
+    mask = causal_lower_right(S, T)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib = library().transpose(1, 2)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    lib_err = rel_err(lib, want)
+    same = torch.equal(cont, full[:, T2 - S:])
+    print(f"  flash_attention S={S} at T={T} (H={H} K={K} dh={dh}, "
+          f"strided kv-major views) bf16: max abs err / max |plain| "
+          f"{err:.3e}, with q x {FLASH_PEAK} (peaked) {err_p:.3e} (tol "
+          f"{FLASH_CHUNK_REL}); SDPA with causal_lower_right {lib_err:.3e}; "
+          f"the last {S} of T={T2} vs S=T={T2}: "
+          f"{'bit-equal' if same else 'DIFFERS'}")
+    need(all(math.isfinite(x) and x <= FLASH_CHUNK_REL for x in (err, err_p)),
+         f"flash_attention at the chunk shape: rel err {err}, peaked {err_p}")
+    need(same, f"flash_attention's last {S} rows at T={T2} depend on S")
+    del full, cont, q2, qp
+    del got, want, lib
+    pairs = S * (T - S) + S * (S + 1) // 2
+    extra_line("flash_attention",
+               f"bf16 q (1,{S},{H},{dh}) at the last {S} of T={T}, k/v "
+               f"(1,{T},{K},{dh}) transposed views of a kv-major cache, "
+               f"causal",
+               lambda: fmod.flash_attention(q, k, v, causal=True),
+               lambda: fmod.plain(q, k, v, causal=True), library,
+               bound(2 * (2 * S * H * dh + 2 * T * K * dh),
+                     4 * dh * pairs * H, bf16),
+               library="SDPA, causal_lower_right, kv heads repeated")
+
+
+def need_exact(got: dict, want: dict, what: str):
+    """Every kernel's launches: ``want``'s, and none elsewhere."""
+    need(nonzero(got) == nonzero(want),
+         f"{what}: launches {nonzero(got)}, not {nonzero(want)}")
+
+
+def prefill_run(model, params, batch, cache_len: int, chunk=None,
+                repeats: int = 3) -> dict:
+    """One prefill (``prefill_chunked`` when ``chunk`` is given) into a
+    fresh cache: the last position's f32 logits, the cache and the run's
+    launches, its ms on the host clock (ending in a synchronise), and its
+    ``max_memory_allocated`` beside what was resident before it (params
+    and cache); then the same prefill ``repeats`` times more into that
+    cache, their median ms (the steady state: the allocator warm)."""
+    import torch
+    from repro_torch.kernels import ops
+    B = next(iter(batch.values())).shape[0]
+    cache = model.init_cache(B, cache_len)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+
+    def run():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if chunk:
+            lg, _ = model.prefill_chunked(params, batch, cache, chunk=chunk)
+        else:
+            lg, _ = model.prefill(params, batch, cache)
+        # a copy: a view would hold the whole logits alive (f32 ``.float()``
+        # returns its input)
+        last = lg[:, -1].to(torch.float32, copy=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return last, ms, torch.cuda.max_memory_allocated(), tuple(lg.shape)
+    before = ops.registry.dispatch_snapshot()
+    last, ms, peak, shape = run()
+    out = {"last": last, "cache": cache, "counts": delta(before),
+           "first_ms": ms, "peak": peak, "base": base, "shape": shape,
+           "runs_ms": []}
+    for _ in range(repeats):
+        _, ms, peak, _ = run()
+        out["runs_ms"].append(ms)
+        out["peak"] = max(out["peak"], peak)
+    out["ms"] = sorted(out["runs_ms"] or [ms])[len(out["runs_ms"]) // 2]
+    return out
+
+
+def close_report(a, b, tol: dict) -> tuple:
+    """(within ``tol`` as ``allclose`` reads it, max |a - b|)."""
+    d = (a.float() - b.float()).abs()
+    ok = bool((d <= tol["atol"] + tol["rtol"] * b.float().abs()).all())
+    return ok, d.max().item()
+
+
+def chunked_equal(label: str, runs: dict) -> float:
+    """Chunked against unchunked: the last position's logits and every
+    cache leaf within CHUNK_TOL; prints the largest difference and
+    whether all of them are bit-equal; returns the logits' difference."""
+    import torch
+    from repro_torch import tree as tree_util
+    u, c = runs["unchunked"], runs["chunked"]
+    ok, d = close_report(c["last"], u["last"], CHUNK_TOL)
+    same = torch.equal(c["last"], u["last"])
+    worst = 0.0
+    for (path, a), b in zip(tree_util.leaves_with_path(c["cache"]),
+                            tree_util.leaves(u["cache"])):
+        ok_l, d_l = close_report(a, b, CHUNK_TOL)
+        worst = max(worst, d_l)
+        same = same and torch.equal(a, b)
+        need(ok_l, f"{label} cache leaf {'/'.join(path)}: chunked vs "
+                   f"unchunked max abs diff {d_l:.3e} beyond {CHUNK_TOL}")
+    print(f"    {label}: last-position logits chunked vs unchunked max abs "
+          f"diff {d:.3e}, every cache leaf {worst:.3e} (tol {CHUNK_TOL}); "
+          f"{'all bit-equal' if same else 'not bit-equal'}")
+    need(ok, f"{label} chunked logits {d:.3e} from unchunked, beyond "
+             f"{CHUNK_TOL}")
+    return d
+
+
+def print_runs(label: str, runs: dict):
+    for side, r in runs.items():
+        times = ", ".join(f"{t:.1f}" for t in r["runs_ms"])
+        print(f"    {label} {side}: logits {r['shape']}, {r['ms']:.1f} ms "
+              f"(median of {times}; first run {r['first_ms']:.1f} ms; host "
+              f"clock, synchronised), peak memory {r['peak'] / 2**30:.3f} GiB "
+              f"({(r['peak'] - r['base']) / 2**30:.3f} GiB above the "
+              f"{r['base'] / 2**30:.3f} GiB of params and cache before "
+              f"it); launches {nonzero(r['counts'])}")
+
+
+def chunk_counts(cfg, chunks: int) -> dict:
+    """Launches of a uniform attention stack's prefill over ``chunks``
+    chunks: flash and both norms a layer a chunk, the final norm once
+    (the head runs on the last chunk only)."""
+    fwd, _ = lm_counts(cfg)
+    out = {"flash_attention": fwd["flash_attention"] * chunks}
+    if "rmsnorm" in fwd:
+        out["rmsnorm"] = (fwd["rmsnorm"] - 1) * chunks + 1
+    return out
+
+
+def chunked_vs_f32(label: str, cfg, dev, batch, params32, cache_len: int
+                   ) -> dict:
+    """(b) and (c): the bf16 prefill unchunked and chunked (CHUNK) on
+    bf16 weights, and unchunked in f32 on the f32 weights: the
+    last-position logits and every cache leaf chunked against unchunked
+    within CHUNK_TOL (:func:`chunked_equal`, as in (a): both runs are the
+    same kernels at one precision), the greedy next token equal, and the
+    chunked run's last-position logits no further from the unchunked
+    run's than 1.1 x the unchunked run's distance from the f32 run (phase
+    6's rule: chunking may move the logits no more than bf16 does)."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.models import transformer
+    S = sum(v.shape[1] for v in batch.values())
+    m16 = transformer.build(cfg, device=dev)
+    m32 = transformer.build(
+        dataclasses.replace(cfg, compute_dtype=torch.float32), device=dev)
+    params16 = tree_util.tree_map(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t,
+        params32)
+    runs = {"unchunked": prefill_run(m16, params16, batch, cache_len)}
+    need_exact(runs["unchunked"]["counts"], chunk_counts(cfg, 1),
+               f"{label} unchunked prefill")
+    runs["chunked"] = prefill_run(m16, params16, batch, cache_len, CHUNK)
+    need_exact(runs["chunked"]["counts"], chunk_counts(cfg, S // CHUNK),
+               f"{label} chunked prefill")
+    for side, r in runs.items():
+        def again(side=side, cache=r["cache"]):
+            if side == "chunked":
+                return m16.prefill_chunked(params16, batch, cache,
+                                           chunk=CHUNK)
+            return m16.prefill(params16, batch, cache)
+        wall, busy, per = device_busy(again, by_kernel=True)
+        flash = sum(ms for name, ms in per.items() if "flash" in name)
+        print(f"    {label} {side}, one run profiled: wall {wall:.1f} ms, "
+              f"device busy {busy:.1f} ms ({busy / wall:.1%}), of which "
+              f"flash_attention {flash:.1f} ms")
+    d_chunk = chunked_equal(label, runs)
+    for r in runs.values():
+        r["cache"] = None
+    del params16
+    t0 = time.perf_counter()
+    f32 = prefill_run(m32, params32, batch, cache_len, repeats=0)
+    f32_s = time.perf_counter() - t0
+    need_exact(f32["counts"], chunk_counts(cfg, 1), f"{label} f32 prefill")
+    u, c, o = runs["unchunked"]["last"], runs["chunked"]["last"], f32["last"]
+    d_bf16 = (u - o).abs().max().item()
+    scale = o.abs().max().item()
+    tu, tc, to = (int(x[0].argmax()) for x in (u, c, o))
+    print_runs(label, runs)
+    print(f"    {label}: last position, chunked vs unchunked max abs diff "
+          f"{d_chunk:.4e}; unchunked bf16 vs f32 {d_bf16:.4e} (limit "
+          f"1.1 x; max |logit| {scale:.3f}); greedy next token chunked "
+          f"{tc}, unchunked {tu}, f32 {to}; the f32 prefill took "
+          f"{f32_s:.1f} s (host clock)")
+    need(all(math.isfinite(x) for x in (d_chunk, d_bf16, scale)),
+         f"{label}: logits not finite")
+    need(d_chunk <= 1.1 * d_bf16,
+         f"{label}: chunking moved the logits {d_chunk:.4e}, beyond 1.1 x "
+         f"bf16's {d_bf16:.4e}")
+    need(tc == tu, f"{label}: greedy next token {tc} chunked, {tu} "
+                   f"unchunked")
+    return {"runs": runs, "d_chunk": d_chunk, "d_bf16": d_bf16}
+
+
+def chunked_prefill(dev) -> dict:
+    """Phase 29: ``LM.prefill_chunked`` at full width on the card.
+    (a) smollm-360m, f32, B 2, S CHUNK_PROMPT: chunked against unchunked
+    prefill (last-position logits and every cache leaf), then CHUNK_STEPS
+    greedy decode steps from each cache, tokens equal and each step's
+    logits within STEP_TOL; (b) smollm-360m, bf16, B 1, S LONG_PROMPT and
+    (c) internvl2-76b at INTERNVL_LAYERS layers, bf16, B 1, S
+    CHUNK_PROMPT with CHUNK_VLM_IMG image rows: :func:`chunked_vs_f32`.
+    Exact launches on every run; ms and peak memory chunked and
+    unchunked.  The flash check at the chunk shape comes first and counts
+    on no path."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    check_flash_chunk(dev, g)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ops.registry.reset_counts()
+
+    # (a) smollm-360m, f32, B 2, S CHUNK_PROMPT
+    cfg = get_config("smollm-360m")
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    m32 = transformer.build(cfg32, device=dev)
+    params32 = m32.init(0)
+    B, S = 2, CHUNK_PROMPT
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=g, device=dev)}
+    runs = {"unchunked": prefill_run(m32, params32, batch, S + CHUNK_STEPS),
+            "chunked": prefill_run(m32, params32, batch, S + CHUNK_STEPS,
+                                   CHUNK)}
+    need_exact(runs["unchunked"]["counts"], chunk_counts(cfg, 1),
+               "(a) unchunked prefill")
+    need_exact(runs["chunked"]["counts"], chunk_counts(cfg, S // CHUNK),
+               "(a) chunked prefill")
+    print_runs(f"(a) smollm-360m f32 B 2 S {S}", runs)
+    chunked_equal("(a)", runs)
+    toks = {k: r["last"].argmax(-1) for k, r in runs.items()}
+    need(torch.equal(toks["chunked"], toks["unchunked"]),
+         "(a) first greedy tokens differ")
+    before = ops.registry.dispatch_snapshot()
+    step_diff, seq = 0.0, [toks["chunked"].tolist()]
+    t_dec = time.perf_counter()
+    for t in range(S, S + CHUNK_STEPS):
+        pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+        lg = {k: m32.decode_step(params32, runs[k]["cache"],
+                                 toks[k][:, None], pos)[0][:, 0]
+              for k in runs}
+        ok, d = close_report(lg["chunked"], lg["unchunked"], STEP_TOL)
+        step_diff = max(step_diff, d)
+        need(ok, f"(a) decode step at {t}: logits {d:.3e} apart, beyond "
+                 f"{STEP_TOL}")
+        toks = {k: v.argmax(-1) for k, v in lg.items()}
+        need(torch.equal(toks["chunked"], toks["unchunked"]),
+             f"(a) greedy tokens differ at {t}")
+        seq.append(toks["chunked"].tolist())
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t_dec
+    _, per_step = lm_counts(cfg)
+    need_exact(delta(before), {k: v * CHUNK_STEPS * 2
+                               for k, v in per_step.items()},
+               "(a) decode steps")
+    print(f"    (a): {CHUNK_STEPS} greedy decode steps from each cache in "
+          f"{dec_s:.1f} s: tokens equal, each step's logits within "
+          f"{step_diff:.3e} (tol {STEP_TOL}); row 0's tokens "
+          f"{[s_[0] for s_ in seq]}")
+    del runs, lg
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+
+    # (b) smollm-360m, bf16, B 1, S 32768
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                                     generator=g, device=dev)}
+    b = chunked_vs_f32(f"(b) smollm-360m bf16 B 1 S {LONG_PROMPT}", cfg, dev,
+                       batch, params32, LONG_PROMPT)
+    del params32, m32
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+
+    # (c) internvl2-76b at INTERNVL_LAYERS of 80 layers, bf16, B 1, S
+    # CHUNK_PROMPT with CHUNK_VLM_IMG image rows
+    cfg = dataclasses.replace(get_config("internvl2-76b"),
+                              n_layers=INTERNVL_LAYERS)
+    params32 = transformer.build(
+        dataclasses.replace(cfg, compute_dtype=torch.float32),
+        device=dev).init(0)
+    S = CHUNK_PROMPT
+    batch = {"img": torch.randn(1, CHUNK_VLM_IMG, cfg.frontend_dim,
+                                generator=g, device=dev),
+             "tokens": torch.randint(0, cfg.vocab_size,
+                                     (1, S - CHUNK_VLM_IMG), generator=g,
+                                     device=dev)}
+    c = chunked_vs_f32(f"(c) internvl2-76b {INTERNVL_LAYERS} layers bf16 B 1 "
+                       f"S {S} ({CHUNK_VLM_IMG} image rows)", cfg, dev,
+                       batch, params32, S)
+    del params32
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    print(f"  phase 29: flash check {t1 - t0:.1f} s, (a) {t2 - t1:.1f} s, "
+          f"(b) {t3 - t2:.1f} s, (c) {t4 - t3:.1f} s")
+    return {"launches": ops.registry.dispatch_snapshot(),
+            "kernels": ("flash_attention", "decode_attention", "rmsnorm"),
+            "b": b, "c": c}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5509,6 +5925,14 @@ def main() -> int:
             ("ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd",
              "flash_attention", "flash_attention_bwd", "rmsnorm",
              "rmsnorm_bwd"))
+        torch.cuda.empty_cache()
+        phase(f"[29] chunked prefill at full width ({CHUNK}-token chunks): "
+              f"smollm-360m f32 B 2 S {CHUNK_PROMPT} against unchunked "
+              f"and {CHUNK_STEPS} decode steps; smollm-360m bf16 S "
+              f"{LONG_PROMPT} and internvl2-76b ({INTERNVL_LAYERS} layers) "
+              f"bf16 S {CHUNK_PROMPT} against unchunked and f32")
+        chunked = chunked_prefill(dev)
+        paths["chunked prefill"] = (chunked["launches"], chunked["kernels"])
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

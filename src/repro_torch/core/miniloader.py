@@ -48,6 +48,10 @@ class ConstructedUnit:
         return self.placeholders is not None
 
 
+def n_params(abstract: PyTree) -> int:
+    return sum(math.prod(l.shape) for l in tree_util.leaves(abstract))
+
+
 def full_bytes(abstract: PyTree) -> int:
     return sum(math.prod(l.shape) * l.element_size()
                for l in tree_util.leaves(abstract))

@@ -183,12 +183,25 @@ class PipelineTrace:
             peak = max(peak, cur)
         return peak
 
+    def memory_total_bytes(self) -> int:
+        """Placeholder bytes summed over every layer, resident at once or
+        not (paper Fig. 10)."""
+        return sum(n for _, n, _, _ in self.memory)
+
     def memory_usage_time(self) -> float:
         """Cumulative placeholder-residency duration over all layers
         (paper Fig. 10 right)."""
         return sum(t1 - t0 for _, _, t0, t1 in self.memory)
 
     # ----------------------------------------------------------------- gantt
+    def gantt_rows(self) -> List[dict]:
+        """Every stage event in start order, times from the trace's first
+        event (paper Fig. 14's timeline as data)."""
+        ts, _ = self._bounds()
+        return [{"row": e.row, "stage": e.stage, "layer": e.layer,
+                 "start": e.t_start - ts, "end": e.t_end - ts}
+                for e in sorted(self.events, key=lambda e: e.t_start)]
+
     def render_gantt(self, width: int = 100) -> str:
         """ASCII Gantt chart (Fig. 14 analogue)."""
         if not self.events:

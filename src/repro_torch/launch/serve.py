@@ -48,14 +48,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import tempfile
 
 import numpy as np
 import torch
 
-from repro_torch import tree as tree_util
 from repro_torch.cluster import ClusterPlatform
+from repro_torch.core.miniloader import n_params
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.api import Family, get_config
@@ -92,12 +91,6 @@ def example_batch(cfg, seq: int = 32):
                     dtype=torch.bfloat16)}
     return {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (1, seq)))}
-
-
-def _n_params(model) -> int:
-    """Parameters the model deploys (its abstract tree's leaves)."""
-    return sum(math.prod(leaf.shape)
-               for leaf in tree_util.leaves(model.abstract()))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -306,7 +299,7 @@ def main(argv=None):
         model = transformer.build(cfg, device=device)
         if not store.has_model(name):
             print(f"deploying {name} "
-                  f"({_n_params(model) / 1e6:.1f}M params"
+                  f"({n_params(model.abstract()) / 1e6:.1f}M params"
                   f"{', int8' if args.compute_quant else ''}) ...")
             deploy_model(store, model, name, seed=args.seed,
                          quant="int8" if args.compute_quant else None)

@@ -48,6 +48,11 @@ the tail, while SSM and RG-LRU states and sliding-window rings stay
 slot-resident beside them (Griffin pages its ``attn`` layers, Mamba-2
 pages nothing).  Like the slotted caches, pools and caches are written
 in place.
+``prefill_chunked`` (the reference's ``transformer.py:491``) runs a
+full-attention prompt through the same ``block_chunk`` as
+``prefill_continue``, one segment at a time, so attention and the head
+hold a chunk's rows, not the prompt's.  ``abstract_cache`` and
+``input_specs`` are the reference's abstract values as meta tensors.
 :func:`build` hands the vision family to :mod:`repro_torch.models.vision`.
 """
 from __future__ import annotations
@@ -618,6 +623,13 @@ class LM:
         return {key: self._group_cache(kind, stacked, batch, cache_len)
                 for key, kind, stacked in self._cache_groups()}
 
+    def abstract_cache(self, batch: int, cache_len: int) -> PyTree:
+        """The tree of :meth:`init_cache` on the meta device: shapes and
+        dtypes, no storage (the reference's ``jax.eval_shape``)."""
+        return {key: self._group_cache(kind, stacked, batch, cache_len,
+                                       device="meta")
+                for key, kind, stacked in self._cache_groups()}
+
     @torch.no_grad()
     def prefill(self, params: PyTree, batch: Dict[str, torch.Tensor],
                 cache: PyTree) -> Tuple[torch.Tensor, PyTree]:
@@ -669,10 +681,12 @@ class LM:
                             for t in trees)
 
     def _group_cache(self, kind: str, stacked: bool, batch: int,
-                     cache_len: int) -> PyTree:
-        """One group's zeroed cache: ``(n_units, B, ...)`` leaves when
-        stacked, ``(B, ...)`` in the tail."""
-        per = [kind_cache(self.cfg, kind, batch, cache_len, self.device)
+                     cache_len: int, device=None) -> PyTree:
+        """One group's zeroed cache on ``device`` (default: the model's):
+        ``(n_units, B, ...)`` leaves when stacked, ``(B, ...)`` in the
+        tail."""
+        device = self.device if device is None else device
+        per = [kind_cache(self.cfg, kind, batch, cache_len, device)
                for _ in range(self.n_units if stacked else 1)]
         if not stacked:
             return per[0]
@@ -790,12 +804,54 @@ class LM:
         if not self.supports_prefix_cache:
             raise ValueError("prefill_continue: full-attention decoder LMs "
                              "only")
-        cfg = self.cfg
-        x = self.embed(params, batch)
-        cs = x.shape[1]
+        x = self._segment(params, self.embed(params, batch), cache, off)
+        return _head(self.cfg, params, x), cache
+
+    def _segment(self, params: PyTree, x: torch.Tensor, cache: PyTree,
+                 off: int) -> torch.Tensor:
+        """Every layer over the segment ``x`` at absolute positions
+        ``[off, off + x.shape[1])`` through :func:`block_chunk`, its K/V
+        written into ``cache`` in place; the hidden rows before the
+        head."""
         for (kind, p), (_, c) in zip(self._layers(params["blocks"]),
                                      self._layers(cache)):
-            x, _ = block_chunk(cfg, kind, p, x, c, off, cs)
+            x, _ = block_chunk(self.cfg, kind, p, x, c, off, x.shape[1])
+        return x
+
+    @torch.no_grad()
+    def prefill_chunked(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                        cache: PyTree, *, chunk: int = 2048
+                        ) -> Tuple[torch.Tensor, PyTree]:
+        """Chunked prefill for full-attention decoder LMs: the prompt goes
+        through every layer in ``chunk``-row segments, in order, each
+        attending to the cache prefix and itself, so attention and the
+        head hold one chunk's rows at a time instead of the prompt's.
+        Offsets are static (a Python loop).  The VLM's image rows come
+        first, as in :meth:`prefill`.  Writes the cache in place and
+        returns the last chunk's logits ``(B, chunk, V)`` with it.
+
+        Raises ``ValueError`` for a sliding window, an encoder, the SSM
+        and hybrid families, ``S % chunk != 0`` and a cache shorter than
+        the prompt."""
+        cfg = self.cfg
+        if (cfg.sliding_window or cfg.is_encoder
+                or cfg.family in (Family.SSM, Family.HYBRID)):
+            raise ValueError("prefill_chunked: full-attention decoder LMs "
+                             "only")
+        x_all = self.embed(params, batch if cfg.family == Family.VLM
+                           else {"tokens": batch["tokens"]})
+        S = x_all.shape[1]
+        chunk = min(chunk, S)
+        if S % chunk:
+            raise ValueError(f"prefill_chunked: {S} prompt rows are not a "
+                             f"multiple of the chunk {chunk}")
+        for key, _, _ in self._cache_groups():
+            n = cache[key]["k"].shape[-2]
+            if n < S:
+                raise ValueError(f"prefill_chunked: cache {key} holds {n} "
+                                 f"rows, the prompt {S}")
+        for off in range(0, S, chunk):
+            x = self._segment(params, x_all[:, off:off + chunk], cache, off)
         return _head(cfg, params, x), cache
 
     @torch.no_grad()
@@ -819,6 +875,34 @@ class LM:
             x, _, _ = block_decode_paged(cfg, kind, p, x, pos, c, pages,
                                          tables)
         return _head(cfg, params, x), cache, pools
+
+    # ----------------------------------------------------------- input specs
+    def input_specs(self, kind: str, seq: int, batch: int
+                    ) -> Dict[str, torch.Tensor]:
+        """Meta-tensor stand-ins (shape and dtype, no storage) for every
+        model input of a shape cell, as the reference's
+        ``ShapeDtypeStruct``s.  kind: "train" | "prefill" | "decode"."""
+        cfg = self.cfg
+
+        def sd(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        i32 = torch.int32
+        if kind == "decode":
+            return {"tokens": sd((batch, 1), i32), "pos": sd((batch,), i32)}
+        if cfg.family == Family.AUDIO:
+            specs = {"frames": sd((batch, seq, cfg.frontend_dim),
+                                  cfg.compute_dtype)}
+        elif cfg.family == Family.VLM:
+            n_img = min(256, seq // 2)
+            specs = {"tokens": sd((batch, seq - n_img), i32),
+                     "img": sd((batch, n_img, cfg.frontend_dim),
+                               cfg.compute_dtype)}
+        else:
+            specs = {"tokens": sd((batch, seq), i32)}
+        if kind == "train":
+            specs["labels"] = sd((batch, seq), i32)
+        return specs
 
 
 def unit_seed(seed: int, index: int) -> int:

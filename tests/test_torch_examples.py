@@ -3,7 +3,9 @@ at smoke size through their ``main`` with ``--device cpu``, and say what
 their JAX twins say: the cold start's logits equal a warm forward's; the
 pool scales out and keep-alive reclaims it; a second cluster node's cold
 start reads nothing from the origin; each strategy replays the trace;
-training lowers the loss and resumes from its checkpoint."""
+training lowers the loss and resumes from its checkpoint; the component
+ablation cold-starts under the five strategies, MiniLoader's placeholders
+24-32x below full buffers."""
 import importlib.util
 
 import pytest
@@ -68,9 +70,26 @@ def test_train_smollm(capsys):
     assert "resumed from step 4" in text and "trained 4 steps" in text
 
 
+def test_ablation_components(capsys):
+    traces = _example("ablation_components").main(["--device", "cpu",
+                                                   "--smoke"])
+    text = capsys.readouterr().out
+    assert list(traces) == ["traditional", "pisel", "mini", "preload",
+                            "cicada"]
+    # MiniLoader's 1-bit placeholders against full f32 buffers, in total
+    # (the peak depends on how many coexist)
+    for full, mini in (("pisel", "mini"), ("preload", "cicada")):
+        ratio = (traces[full].memory_total_bytes()
+                 / traces[mini].memory_total_bytes())
+        assert 24 < ratio <= 32.5, (full, mini, ratio)
+    assert all(t.total_time() > 0 and 0 < t.utilization() <= 1
+               for t in traces.values())
+    assert "resnet50-smoke on cpu" in text and text.count("vs pisel") == 3
+
+
 def test_examples_need_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("quickstart", "router_serving", "serve_trace",
-                 "train_smollm"):
+                 "train_smollm", "ablation_components"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _example(name).main([])
