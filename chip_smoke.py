@@ -226,6 +226,36 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def cost_bound(name: str, *args, peak, **kwargs) -> tuple:
+    """:func:`bound` of registry kernel ``name``'s call on these
+    arguments, its work as the package counts it
+    (``ops.registry.spec(name).cost``, from their shapes); operations at
+    the ``peak`` dtype's rate."""
+    from repro_torch.kernels import ops
+    flops, nbytes = ops.registry.spec(name).cost(*args, **kwargs)
+    return bound(nbytes, flops, peak)
+
+
+def decode_bound(pos, H: int, K: int, dh: int, NP: int = 0) -> tuple:
+    """:func:`bound` of a bf16 decode step whose rows sit at ``pos``:
+    ``decode_attention``'s cost of each row over the pos + 1 cache
+    positions it reads (``cost`` counts a whole cache: the keys a row
+    reads are this run's data), and for a paged step (``NP`` table
+    entries a row) the int32 page table read once."""
+    import torch
+    from repro_torch.kernels import ops
+    cost = ops.registry.spec("decode_attention").cost
+
+    def m(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    flops = nbytes = 0
+    for t in pos:
+        f, b = cost(m(1, H, dh), m(1, K, t + 1, dh), m(1, K, t + 1, dh),
+                    m(1, dtype=torch.int32))
+        flops, nbytes = flops + f, nbytes + b
+    return bound(nbytes + 4 * len(pos) * NP, flops, torch.bfloat16)
+
+
 def kernel_ms(fn, n: int = 10, per_launch: bool = False) -> dict:
     """Device ms of one call of ``fn`` by kernel name: the self device time
     of each kernel under torch.profiler over ``n`` calls (after 3 to warm
@@ -360,7 +390,8 @@ def check_weight_transform(dev, report: dict, g):
     w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
                       dtype=torch.int8)
     s = torch.rand(m, generator=g, device=dev) * 0.05
-    b_ms, b_by = bound(n * m * 1 + m * 4 + n * m * 4, n * m, torch.float32)
+    b_ms, b_by = cost_bound("weight_transform", w, s,
+                            out_dtype=torch.float32, peak=torch.float32)
     report["weight_transform"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: wmod.weight_transform(w, s,
@@ -378,7 +409,8 @@ def check_weight_transform(dev, report: dict, g):
                lambda: wmod.weight_transform(wf, None),
                lambda: wmod.plain(wf, None),
                lambda: wf.to(torch.bfloat16),
-               bound(n * m * 6, 0, torch.float32), "w.to(torch.bfloat16)")
+               cost_bound("weight_transform", wf, peak=torch.float32),
+               "w.to(torch.bfloat16)")
     del w, s, wf
     # the int8-resident recurrent paths' dequant at each use, to bf16:
     # mamba2's in_proj and out_proj, and recurrentgemma's tied head
@@ -400,7 +432,8 @@ def check_weight_transform(dev, report: dict, g):
                                                  out_dtype=torch.bfloat16),
                    lambda: wmod.plain(w, s, out_dtype=torch.bfloat16),
                    lambda: (w.float() * s).to(torch.bfloat16),
-                   bound(n * m * 3 + m * 4, n * m, torch.float32),
+                   cost_bound("weight_transform", w, s,
+                              out_dtype=torch.bfloat16, peak=torch.float32),
                    "(w.float() * s).to(dt)")
         del w, s
     torch.cuda.empty_cache()
@@ -449,14 +482,13 @@ def check_slice_transforms(dev, g):
               f"({p.path}): {'exact' if same else 'MISMATCH'}")
         need(same, f"weight_transform {label} differs from plain")
         if label in timed:
-            b = n * m * (1 if q else 4) + n * m * got.element_size() + \
-                (m * 4 if q else 0)
             extra_line("weight_transform", f"{label} ({n},{m}) -> "
                        f"{str(dt)[6:]}",
                        lambda: wmod.weight_transform(w, s, out_dtype=dt),
                        lambda: wmod.plain(w, s, out_dtype=dt),
                        lambda: (w.float() * s).to(dt) if q else w.to(dt),
-                       bound(b, n * m if q else 0, torch.float32),
+                       cost_bound("weight_transform", w, s, out_dtype=dt,
+                                  peak=torch.float32),
                        "(w.float() * s).to(dt)" if q else "w.to(dt)")
         del w, s, got
     # the wg column slice at a pointer 4 bytes off 16: the scalar path
@@ -475,7 +507,8 @@ def check_slice_transforms(dev, g):
                f"f32 at 4 mod 16 -> bf16 (scalar path)",
                lambda: wmod.weight_transform(w, None),
                lambda: wmod.plain(w, None), lambda: w.to(torch.bfloat16),
-               bound(n * m * 6, 0, torch.float32), "w.to(dt)")
+               cost_bound("weight_transform", w, peak=torch.float32),
+               "w.to(dt)")
     del buf, w
     torch.cuda.empty_cache()
 
@@ -573,9 +606,7 @@ def check_kernels(dev, report: dict):
     q = randn(1, S, H, dh, dtype=torch.bfloat16)
     k = randn(1, S, K, dh, dtype=torch.bfloat16)
     v = randn(1, S, K, dh, dtype=torch.bfloat16)
-    pairs = S * (S + 1) // 2
-    b_ms, b_by = bound(2 * (2 * S * H * dh + 2 * S * K * dh),
-                       4 * dh * pairs * H, torch.bfloat16)
+    b_ms, b_by = cost_bound("flash_attention", q, k, v, peak=torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     report["flash_attention"] = dict(
         max_abs_err=fl_err,
@@ -598,8 +629,7 @@ def check_kernels(dev, report: dict):
                lambda: fmod.plain(q, k, v, causal=True),
                lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
-               bound(2 * (2 * S * H * dh + 2 * S * K * dh),
-                     4 * dh * (S * (S + 1) // 2) * H, torch.bfloat16))
+               cost_bound("flash_attention", q, k, v, peak=torch.bfloat16))
     check_flash_continue(randn)
     # recurrentgemma's attention E: 10 query heads of dh 256 over 1 kv head
     S, H, K, dh = 128, 10, 1, 256
@@ -613,8 +643,7 @@ def check_kernels(dev, report: dict):
                lambda: fmod.plain(q, k, v, causal=True),
                lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
-               bound(2 * (2 * S * H * dh + 2 * S * K * dh),
-                     4 * dh * (S * (S + 1) // 2) * H, torch.bfloat16))
+               cost_bound("flash_attention", q, k, v, peak=torch.bfloat16))
 
     # --- decode_attention ---------------------------------------------------
     de_err = 0.0
@@ -652,8 +681,7 @@ def check_kernels(dev, report: dict):
     vc = randn(1, K, S_max, dh, dtype=torch.bfloat16)
     p = torch.tensor([t], dtype=torch.int32, device=dev)
     rows = t + 1
-    b_ms, b_by = bound(2 * (2 * H * dh) + 4 + 2 * 2 * rows * K * dh,
-                       4 * H * dh * rows, torch.bfloat16)
+    b_ms, b_by = decode_bound((t,), H, K, dh)
     q4 = q[:, :, None]
     report["decode_attention"] = dict(
         max_abs_err=de_err,
@@ -677,8 +705,7 @@ def check_kernels(dev, report: dict):
                lambda: dmod.plain(q, kc, vc, p),
                lambda: F.scaled_dot_product_attention(
                    q4, kc[:, :, :rows], vc[:, :, :rows], enable_gqa=True),
-               bound(2 * (2 * H * dh) + 4 + 2 * 2 * rows * K * dh,
-                     4 * H * dh * rows, torch.bfloat16))
+               decode_bound((t,), H, K, dh))
     check_quant_matmul(dev, report, randn, g)
     check_paged(dev, report, randn, g)
     check_decode_splits(dev, randn)
@@ -809,8 +836,7 @@ def check_quant_matmul(dev, report: dict, randn, g):
     w, s = qweight(k, n)
     x = randn(m, k, dtype=torch.bfloat16)
     wd = (w.float() * s).to(torch.bfloat16)      # outside the timed region
-    b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n,
-                       torch.bfloat16)
+    b_ms, b_by = cost_bound("quant_matmul", x, w, s, peak=torch.bfloat16)
     report["quant_matmul"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: qmod.quant_matmul(x, w, s)),
@@ -836,8 +862,7 @@ def check_quant_matmul(dev, report: dict, randn, g):
                    lambda: qmod.quant_matmul(x, w, s),
                    lambda: qmod.plain(x, w, s),
                    lambda: torch.matmul(x, wd),
-                   bound(m * k * 2 + k * n + n * 4 + m * n * 2,
-                         2 * m * k * n, torch.bfloat16),
+                   cost_bound("quant_matmul", x, w, s, peak=torch.bfloat16),
                    library="torch.matmul (bf16 copy)")
 
 
@@ -876,10 +901,7 @@ def check_paged(dev, report: dict, randn, g):
     H, K, dh = 15, 5, 64
     pos = (37, 80, 123, 159)
     q, kp, vp, tb, p = make(pos, torch.bfloat16, 1)
-    rows = sum(x + 1 for x in pos)
-    b_ms, b_by = bound(2 * B * H * dh * 2 + 2 * rows * K * dh * 2
-                       + B * NP * 4 + B * 4, 4 * H * dh * rows,
-                       torch.bfloat16)
+    b_ms, b_by = decode_bound(pos, H, K, dh, NP=NP)
     idx = tb.long()
     kg = kp[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)  # gathered
     vg = vp[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)  # outside
@@ -912,9 +934,7 @@ def check_paged(dev, report: dict, randn, g):
                lambda: dmod.plain_paged(q, kp, vp, tb, p),
                lambda: F.scaled_dot_product_attention(
                    q4, kg, vg, attn_mask=valid, enable_gqa=True),
-               bound(2 * B * H * dh * 2 + 2 * rows * K * dh * 2
-                     + B * NP * 4 + B * 4, 4 * H * dh * rows,
-                     torch.bfloat16),
+               decode_bound(pos, H, K, dh, NP=NP),
                "SDPA over the gathered rows")
 
 
@@ -1031,14 +1051,12 @@ def check_decode_splits(dev, randn):
     q4 = q[:, :, None]
     shape = (f"bf16 q (4,15,64), cache (4,5,2048,64), pos "
              f"{'/'.join(map(str, pos))}")
-    nbytes = 2 * B * H * dh * 2 + 2 * rows * K * dh * 2 + B * 4
     extra_line("decode_attention", shape,
                lambda: dmod.decode_attention(q, kc, vc, p),
                lambda: dmod.plain(q, kc, vc, p),
                lambda: F.scaled_dot_product_attention(
                    q4, kc, vc, attn_mask=valid, enable_gqa=True),
-               bound(nbytes, 4 * H * dh * rows, torch.bfloat16),
-               library="SDPA masked past pos")
+               decode_bound(pos, H, K, dh), library="SDPA masked past pos")
     extra_line("decode_attention_paged", shape.replace(
                    "cache (4,5,2048,64)", f"pools {tuple(kp.shape)}, 16-token "
                    f"pages shuffled"),
@@ -1046,8 +1064,7 @@ def check_decode_splits(dev, randn):
                lambda: dmod.plain_paged(q, kp, vp, tb, p),
                lambda: F.scaled_dot_product_attention(
                    q4, kc, vc, attn_mask=valid, enable_gqa=True),
-               bound(nbytes + tb.numel() * 4, 4 * H * dh * rows,
-                     torch.bfloat16),
+               decode_bound(pos, H, K, dh, NP=tb.shape[1]),
                library="SDPA over the slotted rows, masked past pos")
 
 
@@ -1131,41 +1148,45 @@ def check_head_dims(dev, randn):
                    lambda: F.scaled_dot_product_attention(
                        q4, kc[:, :, :t + 1], vc[:, :, :t + 1],
                        enable_gqa=True),
-                   bound(2 * (2 * H * dh) + 4 + 2 * 2 * (t + 1) * K * dh,
-                         4 * H * dh * (t + 1), torch.bfloat16),
+                   decode_bound((t,), H, K, dh),
                    library="SDPA over the valid rows, enable_gqa")
 
 
 def ssd_fwd_bounds(b: int, nh: int, S: int, dp: int, N: int) -> tuple:
-    """The least time of ``ssd_scan`` at bf16 x (b, nh, S, dp), N, counted
-    as :func:`ssd_bwd_bounds` counts the backward: ((ms, by), {name: (ms,
-    by)}).  Bytes: x and y (bf16), dt, A, B, C (f32), each once.
-    Operations: the chunked form's products at the bf16 rate, in the
-    plan's chunks of L steps, times the bf16 pieces the kernel feeds each:
-    C B^T once a batch row and chunk (the same for every head), the intra
-    product (C B^T o L)(dt x) L^2 dp, the state update (w dt x)^T B three
-    times L dp N (hi.hi + lo.hi + hi.lo) and the inter term C h^T twice L N
-    dp (h's halves), a (batch, head) and chunk; the least time is the larger
-    of the bytes' and these products'.  Beside them the design's own count
-    (each of a (batch, head)'s dp / cols blocks recomputes C B^T) and the
-    sequential form's f32 count (5 dp N a step and head), the first
-    bound's."""
+    """The least time of ``ssd_scan`` at bf16 x (b, nh, S, dp), N, from the
+    package's ``ssd_scan.cost`` (as the backward's from ``cost_bwd``):
+    ((ms, by), {name: (ms, by)}).  Bytes: x and y (bf16), dt, A, B, C
+    (f32), each once.  Operations: the chunked form's products at the bf16
+    rate in the plan's chunks of L steps (``ssd_scan.fwd_products``: C B^T
+    once a batch row and chunk, the intra product, the state update in
+    three bf16 pieces and the inter term in two); the least time is the
+    larger of the bytes' and these products'.  Beside them the design's
+    own count (each of a (batch, head)'s dp / cols blocks recomputes C
+    B^T) and the sequential form's f32 count (5 dp N a step and head)."""
     import torch
     from repro_torch.kernels import ssd_scan as smod
     L, cols = smod.plan(dp, N, torch.bfloat16)
-    nc = -(-S // L)
-    nbytes = 2 * 2 * b * nh * S * dp + 4 * (b * nh * S + nh + 2 * b * S * N)
-    per_head = b * nh * nc * (L * L * dp + 3 * L * dp * N + 2 * L * N * dp)
-    macs = b * nc * L * L * N + per_head
-    design = b * nh * (dp // cols) * nc * L * L * N + per_head
+    flops, nbytes = smod.cost(*ssd_meta(b, nh, S, dp, N))
+    design = 2 * smod.fwd_products(b, nh, S, dp, N, L, cols)
     counts = {"bytes": bound(nbytes, 0, torch.bfloat16),
-              f"chunked bf16 products, L {L}": bound(0, 2 * macs,
+              f"chunked bf16 products, L {L}": bound(0, flops,
                                                      torch.bfloat16),
               f"the design's products (C B^T in each of dp / {cols} "
-              f"blocks)": bound(0, 2 * design, torch.bfloat16),
+              f"blocks)": bound(0, design, torch.bfloat16),
               "sequential f32 count": bound(0, 5 * b * nh * S * dp * N,
                                             torch.float32)}
-    return bound(nbytes, 2 * macs, torch.bfloat16), counts
+    return bound(nbytes, flops, torch.bfloat16), counts
+
+
+def ssd_meta(b: int, nh: int, S: int, dp: int, N: int) -> tuple:
+    """Meta tensors of an ``ssd_scan`` call's shapes: bf16 x, f32 dt, A,
+    B, C (what ``cost`` reads)."""
+    import torch
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return (m(b, nh, S, dp, dtype=torch.bfloat16), m(b, nh, S), m(nh),
+            m(b, S, N), m(b, S, N))
 
 
 def check_scans(dev, report: dict, randn, g):
@@ -1209,16 +1230,13 @@ def check_scans(dev, report: dict, randn, g):
                  eh <= F32_ATOL * (1 if dt_ == torch.float32 else 10),
                  f"ssd_scan S={S} {dt_} err {e}, state err {eh}")
     # main-path timing shape: one mamba2-780m SSD block of a 128-token
-    # prefill; the bound counts the sequential recurrence's 5 dp N
-    # operations per step and head
+    # prefill; the bound is the package's count (the bytes and the chunked
+    # form's bf16 products), the other counts beside it
     b, nh, S, dp, N = 1, 48, 128, 64, 128
     x, dt, A, B, C = ssd_inputs(b, nh, S, dp, N, torch.bfloat16)
-    b_ms, b_by = bound(2 * 2 * b * nh * S * dp + 4 * (b * nh * S + nh
-                                                      + 2 * b * S * N),
-                       5 * b * nh * S * dp * N, torch.float32)
-    # the bound at the precision the design computes in (bf16 operands on
-    # the tensor cores): the bytes and the chunked form's products
-    (b16_ms, b16_by), _ = ssd_fwd_bounds(b, nh, S, dp, N)
+    (b_ms, b_by), bounds = ssd_fwd_bounds(b, nh, S, dp, N)
+    print("  ssd_scan bounds at (1,48,128,64): " + "; ".join(
+        f"{k} {ms:.6f} ms ({by})" for k, (ms, by) in bounds.items()))
     report["ssd_scan"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: smod.ssd_scan(x, dt, A, B, C)),
@@ -1227,7 +1245,8 @@ def check_scans(dev, report: dict, randn, g):
         library_ms=None,
         library="none: no single PyTorch call computes the SSD scan",
         bound_ms=b_ms, bound_by=b_by,
-        bound_bf16_ms=b16_ms, bound_bf16_by=b16_by,
+        bounds={k: {"bound_ms": ms, "bound_by": by}
+                for k, (ms, by) in bounds.items()},
         shape="bf16 x (1,48,128,64), f32 dt (1,48,128), B/C (1,128,128)")
     # mamba2-780m's training shape (batch 8 of 512 steps), the forward of
     # phase 28's steps: bound as the backward's (bytes and the chunked
@@ -1269,7 +1288,7 @@ def check_scans(dev, report: dict, randn, g):
     Bz, S, W = 1, 128, 2560
     a = torch.rand(Bz, S, W, generator=g, device=dev) * 0.5 + 0.5
     bb = randn(Bz, S, W)
-    b_ms, b_by = bound(3 * 4 * Bz * S * W, 2 * Bz * S * W, torch.float32)
+    b_ms, b_by = cost_bound("rglru_scan", a, bb, peak=torch.float32)
     check_scan_rows(dev, randn, g)
     report["rglru_scan"] = dict(
         max_abs_err=err,
@@ -1383,8 +1402,8 @@ def check_rmsnorm(dev, report: dict, randn):
             need(same, f"rmsnorm rows depend on M at M={m}, d {d}")
     x = x[:4]
     w = (1.0 + sc.float()).to(torch.bfloat16)      # outside the timed region
-    n, d = 4, 2560
-    b_ms, b_by = bound(2 * n * d * 2 + 2 * d, 4 * n * d, torch.float32)
+    d = 2560
+    b_ms, b_by = cost_bound("rmsnorm", x, sc, peak=torch.float32)
     report["rmsnorm"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: nmod.rmsnorm(x, sc)),
@@ -2666,7 +2685,8 @@ def time_vgg_fc1(dev):
     need(torch.equal(got, wmod.plain(w, s, out_dtype=torch.float32)),
          "weight_transform (25088, 4096) differs from its plain version")
     del got
-    bnd = bound(n * m * 1 + m * 4 + n * m * 4, n * m, torch.float32)
+    bnd = cost_bound("weight_transform", w, s, out_dtype=torch.float32,
+                     peak=torch.float32)
     extra_line("weight_transform", "vgg16 fc1 int8 (25088,4096) -> f32",
                lambda: wmod.weight_transform(w, s, out_dtype=torch.float32),
                lambda: wmod.plain(w, s, out_dtype=torch.float32),
@@ -3997,7 +4017,8 @@ def check_expert_transform(store, name: str, unit: str, leaf: str):
                lambda: wmod.weight_transform(q, s, out_dtype=torch.bfloat16),
                lambda: wmod.plain(q, s, out_dtype=torch.bfloat16),
                lambda: (q.float() * s).to(torch.bfloat16),
-               bound(n * m * 1 + m * 4 + n * m * 2, n * m, torch.float32),
+               cost_bound("weight_transform", q, s,
+                          out_dtype=torch.bfloat16, peak=torch.float32),
                "(w.float() * s).to(dt)")
     del q, s, leaves
     torch.cuda.empty_cache()
@@ -4660,9 +4681,10 @@ def check_backward_kernels(dev, report: dict):
     q, do = randn(B, S, H, dh, dtype=bf), randn(B, S, H, dh, dtype=bf)
     k, v = randn(B, S, K, dh, dtype=bf), randn(B, S, K, dh, dtype=bf)
     o, lse = fmod.flash_attention(q, k, v, causal=True, return_lse=True)
-    fwd_flops = 4 * dh * (S * (S + 1) // 2) * H * B
-    nbytes = 2 * (4 * B * S * H * dh + 4 * B * S * K * dh) + 4 * B * H * S
-    b_ms, b_by = bound(nbytes, 2.5 * fwd_flops, bf)
+    # the package's count: 2.5 times the forward's products, each of q, k,
+    # v, o, dO, lse read and dq, dk, dv written once
+    b_ms, b_by = cost_bound("flash_attention_bwd", q, k, v, o, lse, do,
+                            peak=bf)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -4689,7 +4711,7 @@ def check_backward_kernels(dev, report: dict):
     sc = randn(960) * 0.1
     gy = randn(B, S, 960, dtype=bf)
     n, d = B * S, 960
-    b_ms, b_by = bound(2 * n * d * 3 + 4 * d * 2, 10 * n * d, torch.float32)
+    b_ms, b_by = cost_bound("rmsnorm_bwd", x, sc, gy, peak=torch.float32)
     xl = x.detach().requires_grad_()
     wl = (1.0 + sc).detach().requires_grad_()
     lib_out = F.rms_norm(xl, (d,), wl.to(bf), 1e-6)
@@ -4729,7 +4751,7 @@ def check_backward_kernels(dev, report: dict):
     extra_line("rmsnorm", "bf16 x (8,512,960), f32 scale (960,)",
                lambda: nmod.rmsnorm(x, sc), lambda: nmod.plain(x, sc),
                lambda: F.rms_norm(x, (d,), w, 1e-6),
-               bound(2 * n * d * 2 + 4 * d, 4 * n * d, torch.float32),
+               cost_bound("rmsnorm", x, sc, peak=torch.float32),
                library="F.rms_norm with weight 1 + scale made outside the "
                        "timed region")
 
@@ -4757,29 +4779,27 @@ SSD_BWD_CASES = ((8, 48, 512, 64, 128, 256, False, ("bfloat16", "float32")),
 
 def ssd_bwd_bounds(b: int, nh: int, S: int, dp: int, N: int) -> tuple:
     """The least time of ``ssd_scan_bwd`` at bf16 x (b, nh, S, dp), N, and
-    the counts it is taken from: ((ms, by), {name: (ms, by)}).  Bytes: x,
-    dy, dx (bf16), dt, ddt, B, C, dB, dC (f32), each once.  Operations: the
-    chunked form's products at the bf16 rate, in chunks of Q steps
-    b nh nc (2 Q^2 dp + 2 Q^2 N + 5 Q dp N) + b nc Q^2 N multiply-adds (dy
-    x^T and its product with dy for dx; the two with B and C; five of the
-    state terms; C B^T once a batch row and chunk, the same for every head),
-    at Q 16, 32, 64 and 128 (the design's); the least time is the larger of
-    the bytes' and the fewest products'.  Beside them the f32 count of the
-    sequential form (12 a state element and step), the first design's."""
+    the counts it is taken from, by the package's ``ssd_scan.cost_bwd``:
+    ((ms, by), {name: (ms, by)}).  Bytes: x, dy, dx (bf16), dt, ddt, B, C,
+    dB, dC (f32), each once.  Operations: the chunked form's products at
+    the bf16 rate in chunks of Q steps (``ssd_scan.bwd_products``: dy x^T
+    and its product with dy for dx; the two with B and C; five of the
+    state terms; C B^T once a batch row and chunk, the same for every
+    head), at Q 16, 32, 64 and 128 (the design's); the least time is the
+    larger of the bytes' and the fewest products'.  Beside them the f32
+    count of the sequential form (12 a state element and step), the first
+    design's."""
     import torch
-    nbytes = 3 * 2 * b * nh * S * dp + 4 * (2 * b * nh * S + 4 * b * S * N)
+    from repro_torch.kernels import ssd_scan as smod
+    x, dt, A, B, C = ssd_meta(b, nh, S, dp, N)
+    flops, nbytes = smod.cost_bwd(x, dt, A, B, C, x)
     counts = {"bytes": bound(nbytes, 0, torch.bfloat16)}
-    fewest = None
-    for Q in (16, 32, 64, 128):
-        nc = -(-S // Q)
-        macs = b * nh * nc * (2 * Q * Q * dp + 2 * Q * Q * N
-                              + 5 * Q * dp * N) + b * nc * Q * Q * N
-        fewest = macs if fewest is None else min(fewest, macs)
-        counts[f"chunked bf16 products, Q {Q}"] = bound(0, 2 * macs,
-                                                        torch.bfloat16)
+    for Q in smod.BWD_COST_CHUNKS:
+        counts[f"chunked bf16 products, Q {Q}"] = bound(
+            0, 2 * smod.bwd_products(b, nh, S, dp, N, Q), torch.bfloat16)
     counts["sequential f32 count"] = bound(0, 12 * b * nh * S * dp * N,
                                            torch.float32)
-    return bound(nbytes, 2 * fewest, torch.bfloat16), counts
+    return bound(nbytes, flops, torch.bfloat16), counts
 
 
 def check_scan_backwards(dev, report: dict):
@@ -4910,7 +4930,7 @@ def check_scan_backwards(dev, report: dict):
         shape="f32 a, h, g (8,512,2560)")
     report["rglru_scan_bwd"].update(zip(
         ("bound_ms", "bound_by"),
-        bound(5 * 4 * Bz * S * W, 3 * Bz * S * W, torch.float32)))
+        cost_bound("rglru_scan_bwd", a, y, gy, peak=torch.float32)))
     b, nh, S, dp, N = 8, 48, 512, 64, 128
     x, dt, A, B, C = ssd_inputs(b, nh, S, dp, N, torch.bfloat16)
     dy = randn(b, nh, S, dp, dtype=torch.bfloat16)
@@ -5461,15 +5481,13 @@ def check_flash_chunk(dev, g):
     need(same, f"flash_attention's last {S} rows at T={T2} depend on S")
     del full, cont, q2, qp
     del got, want, lib
-    pairs = S * (T - S) + S * (S + 1) // 2
     extra_line("flash_attention",
                f"bf16 q (1,{S},{H},{dh}) at the last {S} of T={T}, k/v "
                f"(1,{T},{K},{dh}) transposed views of a kv-major cache, "
                f"causal",
                lambda: fmod.flash_attention(q, k, v, causal=True),
                lambda: fmod.plain(q, k, v, causal=True), library,
-               bound(2 * (2 * S * H * dh + 2 * T * K * dh),
-                     4 * dh * pairs * H, bf16),
+               cost_bound("flash_attention", q, k, v, peak=bf16),
                library="SDPA, causal_lower_right, kv heads repeated")
 
 
@@ -5748,6 +5766,196 @@ def chunked_prefill(dev) -> dict:
             "b": b, "c": c}
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the dry run against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_WORKERS = 8          # processes tracing the meta table (8 cores)
+# the cells run for real: (arch, shape, batch as cut from the published)
+DRYRUN_CARD = (("smollm-360m", "train_4k", 2),
+               ("smollm-360m", "prefill_32k", 1),
+               ("smollm-360m", "decode_32k", 8),
+               ("mamba2-780m", "prefill_32k", 1),
+               ("mamba2-780m", "long_500k", 1))
+DRYRUN_TIMED = 3            # timed steps (after one to warm up), median
+PEAK_RATIO = (0.5, 2.0)     # traced peak over the card's, accepted
+
+
+def alloc_slack(nbytes: int) -> int:
+    """The most the caching allocator's ``memory_allocated`` can count for
+    one live storage of ``nbytes`` above its size: the request rounded up
+    to 512 bytes, and a block whose rest it does not split off (under 512
+    bytes in the small pool, storages up to 1 MiB; up to 1 MiB in the
+    large pool)."""
+    return 511 + (511 if nbytes <= 1 << 20 else 1 << 20)
+
+
+def dryrun_table() -> list:
+    """``launch/dryrun.py --all --both-meshes`` on meta tensors, in
+    :data:`DRYRUN_WORKERS` processes, the train cells (the longest)
+    first: every cell ok or skipped, the skips the 7 cells (x 2 meshes)
+    the reference skips, with its reasons (``configs.supported``, held to
+    the reference's by ``tests/test_torch_dryrun.py``)."""
+    from repro_torch.configs import SHAPES, supported
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import get_config
+    jobs = [(a, s, dict(multi_pod=mp, costs=not mp))
+            for a, s in dryrun.iter_cells() for mp in (False, True)]
+    jobs.sort(key=lambda j: j[1] != "train_4k")
+    t0 = time.perf_counter()
+    recs = list(dryrun.records(jobs, DRYRUN_WORKERS))
+    for rec in recs:
+        print("  " + dryrun.summary(rec))
+    print(f"  the table: {len(recs)} records in "
+          f"{time.perf_counter() - t0:.1f} s ({DRYRUN_WORKERS} workers, "
+          f"{sum(r.get('trace_s', 0) for r in recs):.1f} s of traces)")
+    bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r.get('error')}"
+           for r in recs if r["status"] not in ("ok", "skip")]
+    need(not bad, f"dry run cells failed: {bad}")
+    skips = [r for r in recs if r["status"] == "skip"]
+    need(len(skips) == 14 and all(
+        r["skip_reason"] == supported(get_config(r["arch"]),
+                                      SHAPES[r["shape"]])[1]
+        for r in skips), f"dry run skips: {len(skips)}")
+    out = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "dryrun_table.json"), "w") as f:
+        json.dump(recs, f, indent=1)
+    return recs
+
+
+def dryrun_on_card(dev, arch: str, shape: str, batch: int) -> dict:
+    """One cell traced on meta, then the same step at full width and depth
+    on the card inside the same counting context, with seed-0 weights made
+    on the card: FLOPs, bytes, kernel calls and the state trees' bytes
+    equal exactly, the bytes requested of the allocator while building
+    the card's trees equal theirs exactly (its allocated delta within
+    :func:`alloc_slack` of them), the kernel calls equal the launches, the
+    traced peak within :data:`PEAK_RATIO` of the card's above the state;
+    ms a step
+    (median of :data:`DRYRUN_TIMED` after a warm-up) and its roofline."""
+    import statistics
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cost_analysis, dryrun, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.api import get_config
+    cfg, pub = get_config(arch), SHAPES[shape]
+    cell = dataclasses.replace(pub, batch=batch)
+    mesh = make_production_mesh()
+    label = f"{arch} {shape}"
+    print(f"  {label}: reduced: batch {pub.batch} -> {batch} (seq "
+          f"{cell.seq}, all {cfg.n_layers} layers at full width)")
+    t0 = time.perf_counter()
+    cm = dryrun.build_cell(cfg, cell, mesh, device="meta")
+    meta = cost_analysis.count_step(cm.step)
+    meta_state = cm.state_bytes()
+    del cm
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated(dev)
+    r0 = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+    cc = dryrun.build_cell(cfg, cell, mesh, device=dev, seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    requested = torch.cuda.memory_stats(dev)["requested_bytes.all.current"] \
+        - r0
+    card_state = cc.state_bytes()
+    slack = sum(alloc_slack(n) for t in (cc.params, cc.opt_state, cc.cache,
+                                         cc.batch)
+                for n in cost_analysis.storage_sizes(t))
+    before = ops.registry.dispatch_snapshot()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with cost_analysis.counting() as tally:
+        out = cc.step()
+        del out
+        torch.cuda.synchronize()
+    card = tally.record()
+    after = ops.registry.dispatch_snapshot()
+    launched = {n: after[n] - before[n] for n in after
+                if after[n] != before[n]}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t2 = time.perf_counter()
+    cc.step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DRYRUN_TIMED):
+        t = time.perf_counter()
+        out = cc.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        del out
+    ms = statistics.median(times)
+    last = ops.registry.dispatch_snapshot()
+    t3 = time.perf_counter()
+    del cc
+    torch.cuda.empty_cache()
+
+    state = sum(card_state.values())
+    ratio = meta["peak_live_bytes"] / max(peak, 1)
+    terms = roofline.terms(card["flops"], card["bytes"])
+    bound_ms = terms["bound_s"] * 1e3
+    mf = roofline.model_flops(arch, shape, batch=batch)
+    share = mf / (ms / 1e3 * roofline.PEAK_FLOPS)
+    print(f"    meta: {meta['flops']:.6e} FLOPs, {meta['bytes']:.6e} bytes, "
+          f"kernels {meta['kernels']} (traced in {t1 - t0:.1f} s)")
+    print(f"    card: {card['flops']:.6e} FLOPs, {card['bytes']:.6e} bytes, "
+          f"kernels {card['kernels']}, launched {launched}")
+    print(f"    state bytes {card_state} = {state} (meta {meta_state}); "
+          f"requested of the allocator while building {requested}; its "
+          f"allocated delta {base - m0} ({(base - m0) / max(state, 1):.6f} of "
+          f"the state, its rounding at most {slack} above it)")
+    print(f"    peak above the state: traced {meta['peak_live_bytes']} "
+          f"(card's tally {card['peak_live_bytes']}), "
+          f"max_memory_allocated {peak}: ratio {ratio:.4f}")
+    print(f"    ms a step {ms:.3f} (runs {', '.join(f'{t:.3f}' for t in times)}"
+          f"; counted run and timing {t3 - t1:.1f} s)")
+    print(f"    roofline: t_compute {terms['t_compute_s'] * 1e3:.4f} ms, "
+          f"t_memory {terms['t_memory_s'] * 1e3:.4f} ms, {terms['dominant']}"
+          f"-bound, the step {ms / bound_ms:.2f}x its bound; model FLOPs "
+          f"{mf:.6e}, share of 989 TFLOP/s {share:.6f}")
+    for key in ("flops", "bytes", "kernels"):
+        need(meta[key] == card[key], f"{label}: {key} meta {meta[key]} "
+             f"against card {card[key]}")
+    need(card["kernels"] == launched, f"{label}: kernel calls "
+         f"{card['kernels']} against launches {launched}")
+    need(card_state == meta_state, f"{label}: state bytes {card_state} "
+         f"against meta {meta_state}")
+    need(requested == state, f"{label}: {requested} bytes requested of the "
+         f"allocator while building, not the state's {state}")
+    need(state <= base - m0 <= state + slack, f"{label}: the allocator's "
+         f"delta {base - m0} outside [{state}, {state + slack}]")
+    need(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+         f"{label}: traced peak / card peak {ratio:.4f} outside "
+         f"{PEAK_RATIO}")
+    return {"label": label, "ms": ms, "runs": times, "flops": card["flops"],
+            "bytes": card["bytes"], "kernels": card["kernels"],
+            "state_bytes": state, "requested": requested,
+            "allocated": base - m0, "peak": peak,
+            "traced_peak": meta["peak_live_bytes"], "ratio": ratio,
+            "model_flops": mf, "share": share, "bound_ms": bound_ms,
+            "terms": terms, "launches": {n: last[n] - before[n]
+                                         for n in last}}
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 30: the meta table, then :data:`DRYRUN_CARD` on the card."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    dryrun_table()
+    t1 = time.perf_counter()
+    cells = [dryrun_on_card(dev, *c) for c in DRYRUN_CARD]
+    launches = {n: sum(c["launches"][n] for c in cells)
+                for n in ops.registry.names()}
+    print(f"  phase 30: the meta table {t1 - t0:.1f} s, the cells on the "
+          f"card {time.perf_counter() - t1:.1f} s")
+    return {"cells": cells, "launches": launches,
+            "kernels": ("flash_attention", "flash_attention_bwd",
+                        "decode_attention", "ssd_scan", "rmsnorm",
+                        "rmsnorm_bwd")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5933,6 +6141,12 @@ def main() -> int:
               f"bf16 S {CHUNK_PROMPT} against unchunked and f32")
         chunked = chunked_prefill(dev)
         paths["chunked prefill"] = (chunked["launches"], chunked["kernels"])
+        torch.cuda.empty_cache()
+        phase("[30] the dry run against the card: every cell on meta on "
+              "both production meshes, then five cells at full width and "
+              "depth (batch cut) traced on meta and run on the card")
+        dry = dryrun_phase(dev)
+        paths["dry run cells"] = (dry["launches"], dry["kernels"])
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

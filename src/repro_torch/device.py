@@ -4,7 +4,10 @@ Every entry point (``ColdStartEngine``, ``transformer.build``,
 ``reference_generate``) takes ``device=None``, which means the GPU: with no
 CUDA device present it raises instead of carrying on elsewhere.  Passing
 ``device="cpu"`` runs the same code on the CPU, where each kernel wrapper
-takes its plain PyTorch version; the tests do that.
+takes its plain PyTorch version; the tests do that.  ``device="meta"``
+builds the same steps on meta tensors (shapes and dtypes, no storage),
+where each kernel wrapper gives its outputs' shapes and launches nothing:
+the dry run (``repro_torch.launch.dryrun``) traces its cells so.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> the current CUDA device, or raise if there is none."""
+    """``None`` -> the current CUDA device, or raise if there is none;
+    ``"cpu"`` and ``"meta"`` as asked."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -30,8 +34,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                                f"available")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda', 'cpu' or "
+                         f"'meta'")
     return dev
 
 

@@ -619,8 +619,9 @@ def sweep_rmsnorm(cuda_lib, nmod, chip_smoke, lib, dev, g) -> None:
         d = shape[-1]
         rows = x.numel() // d
         p = nmod.plan(d, dt, sdt)
-        bnd = (3 if bwd else 2) * x.numel() * x.element_size() / \
-            chip_smoke.HBM_BPS * 1e3
+        bnd = chip_smoke.cost_bound(*(("rmsnorm_bwd", x, sc, gy) if bwd
+                                      else ("rmsnorm", x, sc)),
+                                    peak=torch.float32)[0]
         if bwd:
             want = nmod.rmsnorm_bwd(x, sc, gy)
             ref = nmod.plain_bwd(x, sc, gy)
@@ -842,9 +843,8 @@ def sweep_transform(wmod, chip_smoke, lib, dev, g) -> None:
         w, s = wt_inputs(dev, g, n, m, quantized)
         dt = getattr(torch, dt)
         want = wmod.plain(w, s, out_dtype=dt)
-        nbytes = w.numel() * (w.element_size() + want.element_size()) + \
-            (0 if s is None else s.numel() * 4)
-        bound_ms = nbytes / chip_smoke.HBM_BPS * 1e3
+        bound_ms = chip_smoke.cost_bound("weight_transform", w, s,
+                                         out_dtype=dt, peak=torch.float32)[0]
         ptrs = (w.data_ptr(), None if s is None else s.data_ptr(),
                 want.data_ptr())
         best = wmod.plan(n, m, dt, *ptrs)
@@ -987,9 +987,9 @@ def sweep_scan_bwd(cuda_lib, smod, rmod, chip_smoke, lib, dev, g) -> None:
         args = scan_bwd_inputs(dev, g, "rglru", Bz, S, W)
         print_beside_plain(chip_smoke, name,
                            lambda: rmod.rglru_scan_bwd(*args),
-                           lambda: rmod.plain_bwd(*args), chip_smoke.bound(
-                               5 * 4 * Bz * S * W, 3 * Bz * S * W,
-                               torch.float32))
+                           lambda: rmod.plain_bwd(*args),
+                           chip_smoke.cost_bound("rglru_scan_bwd", *args,
+                                                 peak=torch.float32))
         del args
 
 

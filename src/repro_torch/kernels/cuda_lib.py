@@ -13,10 +13,16 @@ first call.
 Each C entry point launches on the stream it is given (the wrapper passes
 ``torch.cuda.current_stream().cuda_stream``) and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but 0.
+
+:func:`accounted` marks each registry kernel's wrapper for the counting
+context of :mod:`repro_torch.launch.cost_analysis`: while one is
+installed (:func:`set_tally`), a wrapper's call is reported to it with
+the kernel's own cost; while none is, the wrapper runs as it is.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,7 +30,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch import analysis
 
@@ -199,6 +205,48 @@ class LaunchCounter:
     def value(self) -> int:
         with self._lock:
             return self._n
+
+
+# the counting context installed by repro_torch.launch.cost_analysis, or
+# None; one at a time in a process (a step's autograd runs on other threads
+# than the one that installed it, so it is not thread-local)
+_tally = None
+
+
+def set_tally(tally) -> Any:
+    """Install ``tally`` (None: remove it); returns the one it replaces.
+    A tally has ``kernel(name, cost, args, kwargs)``, a context manager
+    around one wrapper call."""
+    global _tally
+    prev, _tally = _tally, tally
+    return prev
+
+
+def accounted(name: str, cost: Callable) -> Callable:
+    """Decorator of the wrapper of registry kernel ``name``, whose
+    ``cost(*args, **kwargs) -> (flops, bytes)`` reads the call's shapes:
+    with a tally installed the call runs inside ``tally.kernel(name, cost,
+    args, kwargs)``; without one, the wrapper is called as it is."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            tally = _tally
+            if tally is None:
+                return fn(*args, **kwargs)
+            with tally.kernel(name, cost, args, kwargs):
+                return fn(*args, **kwargs)
+        return entry
+    return wrap
+
+
+def kernel_layout(out):
+    """A CPU branch's outputs (a tensor, or a tuple with ``None`` entries)
+    laid out as the kernel lays out its own, contiguous: the values are
+    the plain version's, and the ops after the wrapper are the same on
+    every device."""
+    if isinstance(out, tuple):
+        return tuple(None if t is None else t.contiguous() for t in out)
+    return out.contiguous()
 
 
 def check(rc: int, what: str):

@@ -10,7 +10,9 @@ written to an f32 scratch, then a merge of a row's splits in split order.
 On CUDA tensors :func:`decode_attention` and
 :func:`decode_attention_paged` launch their kernels or raise; on CPU
 tensors they compute :func:`plain` / :func:`plain_paged` (the oracles in
-:mod:`repro_torch.kernels.ref`).
+:mod:`repro_torch.kernels.ref`); on meta tensors they check the call and
+return the output's shape with the splits' scratch allocated, launching
+nothing.  :func:`cost` and :func:`cost_paged` count a call's work.
 """
 from __future__ import annotations
 
@@ -84,6 +86,8 @@ def _launch(fn, what: str, q, pools, extra, s_ext: int, K: int, dh: int,
     out = torch.empty_like(q)
     part = torch.empty(B * K * n_split * rep * (padded_dim(dh) + 2),
                        dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":             # shapes only: nothing launches
+        return out
     lib = cuda_lib.library()
     with torch.cuda.device(q.device):
         rc = getattr(lib, fn)(
@@ -108,6 +112,37 @@ def plain_paged(q: torch.Tensor, k_pages: torch.Tensor,
                                       window=window)
 
 
+def _cost(q: torch.Tensor, K: int, keys: int, extra_bytes: int) -> tuple:
+    """4 dh a (query head, key read) (the two products); q read and the
+    output written once, each row's ``keys`` cached K and V rows read
+    once, plus ``extra_bytes`` (pos, the page table)."""
+    B, H, dh = q.shape
+    return (4 * H * dh * keys * B,
+            q.element_size() * (2 * q.numel() + 2 * B * keys * K * dh)
+            + extra_bytes)
+
+
+def cost(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+         pos: torch.Tensor, *, window: int = 0) -> tuple:
+    """(flops, bytes) of one call, from the shapes: each row reads all
+    ``S_max`` cache positions (a row at the end of its cache), or the
+    window's."""
+    S_max = k_cache.shape[2]
+    keys = min(S_max, window) if window > 0 else S_max
+    return _cost(q, k_cache.shape[1], keys, pos.element_size() * pos.numel())
+
+
+def cost_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+               tables: torch.Tensor, pos: torch.Tensor, *, window: int = 0
+               ) -> tuple:
+    """(flops, bytes) of one paged call, as :func:`cost`, over the table's
+    ``NP * pt`` positions a row; the tables read once too."""
+    span = tables.shape[1] * k_pages.shape[2]
+    keys = min(span, window) if window > 0 else span
+    return _cost(q, k_pages.shape[1], keys,
+                 4 * (tables.numel() + pos.numel()))
+
+
 def _check_heads(what: str, q: torch.Tensor, K: int, dh: int):
     H = q.shape[1]
     if K == 0 or H % K or q.shape[2] != dh:
@@ -119,14 +154,16 @@ def _check_heads(what: str, q: torch.Tensor, K: int, dh: int):
                          f"the kernel")
 
 
+@cuda_lib.accounted("decode_attention", cost)
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      window: int = 0) -> torch.Tensor:
     """q: (B, H, dh); caches: (B, K, S_max, dh); pos: (B,) int32.
     Returns (B, H, dh) in q's dtype."""
     if q.device.type == "cpu":
-        return plain(q, k_cache, v_cache, pos, window=window)
-    if q.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain(q, k_cache, v_cache, pos,
+                                            window=window))
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: q (B,H,dh), caches "
@@ -158,6 +195,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                    launches)
 
 
+@cuda_lib.accounted("decode_attention_paged", cost_paged)
 def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, tables: torch.Tensor,
                            pos: torch.Tensor, *,
@@ -165,8 +203,9 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (B, H, dh); pools: (P, K, pt, dh); tables: (B, NP) int32 page
     ids in [0, P); pos: (B,) int32.  Returns (B, H, dh) in q's dtype."""
     if q.device.type == "cpu":
-        return plain_paged(q, k_pages, v_pages, tables, pos, window=window)
-    if q.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain_paged(
+            q, k_pages, v_pages, tables, pos, window=window))
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention_paged: unsupported device "
                          f"{q.device}")
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:

@@ -4,8 +4,10 @@ queries at the last S of T positions, causal and/or sliding window.
 
 Kernel: ``csrc/flash_attention.cu`` (see its note on what bounds it).
 On CUDA tensors :func:`flash_attention` launches that kernel or raises;
-on CPU tensors it computes :func:`plain`.  Asked for it, either also
-returns each row's log-sum-exp, which the backward reads.
+on CPU tensors it computes :func:`plain`; on meta tensors it checks the
+call as the kernel would and returns its outputs' shapes, launching
+nothing.  Asked for it, each also returns each row's log-sum-exp, which
+the backward reads.  :func:`cost` counts the call's work from its shapes.
 
 Training goes through :class:`FlashAttention`, the autograd function whose
 backward is :mod:`repro_torch.kernels.flash_attention_bwd` (a kernel on
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_lib
@@ -81,6 +84,31 @@ def visible(S: int, T: int, causal: bool, window: int,
     return mask
 
 
+def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The number of True entries of :func:`visible` (the (query, key)
+    pairs the kernel computes), from each query's range of keys."""
+    if not causal and window <= 0:
+        return S * T
+    p = np.arange(S, dtype=np.int64) + (T - S)        # queries' positions
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros_like(p)
+    hi = np.minimum(p if causal else p + window - 1, T - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: int = 0, return_lse: bool = False
+         ) -> tuple:
+    """(flops, bytes) of one call, from the shapes: 4 dh a visible pair
+    and query head (the two products); q, k and v read once, the output
+    (and the log-sum-exp) written once."""
+    B, S, H, dh = q.shape
+    T = k.shape[1]
+    flops = 4 * dh * visible_pairs(S, T, causal, window) * H * B
+    nbytes = q.element_size() * 2 * q.numel() + k.element_size() * (
+        k.numel() + v.numel()) + (4 * B * H * S if return_lse else 0)
+    return flops, nbytes
+
+
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool = True, window: int = 0, return_lse: bool = False):
     """The kernel's function in PyTorch, materialising the scores in f32.
@@ -110,6 +138,7 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse[..., 0]
 
 
+@cuda_lib.accounted("flash_attention", cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     return_lse: bool = False):
@@ -117,9 +146,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     contiguous, in q's dtype; with ``return_lse`` also the rows'
     log-sum-exp (B, H, S) f32."""
     if q.device.type == "cpu":
-        return plain(q, k, v, causal=causal, window=window,
-                     return_lse=return_lse)
-    if q.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain(
+            q, k, v, causal=causal, window=window, return_lse=return_lse))
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q (B,S,H,dh), k/v (B,T,K,dh) "
@@ -149,6 +178,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             out.zero_()
             if lse is not None:
                 lse.fill_(float("-inf"))
+        return (out, lse) if return_lse else out
+    if q.device.type == "meta":             # shapes only: nothing launches
         return (out, lse) if return_lse else out
     p = plan(B, S, H, K, dh)
     lib = cuda_lib.library()

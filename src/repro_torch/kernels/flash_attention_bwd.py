@@ -5,7 +5,9 @@ log-sum-exp.
 
 Kernel: ``csrc/flash_attention_bwd.cu`` (see its note).  On CUDA tensors
 :func:`flash_attention_bwd` launches it or raises (S != T, a head dim
-above 256, other dtypes); on CPU tensors it computes :func:`plain`.  The
+above 256, other dtypes); on CPU tensors it computes :func:`plain`; on
+meta tensors it checks the call and returns the gradients' shapes,
+launching nothing (:func:`cost` counts its work).  The
 JAX package has no backward kernel: ``jax.grad`` differentiates its
 pure-jnp flash attention, which :data:`REPLACES` names.  :func:`plan_bwd`
 gives the bf16 kernel's tiles and blocks.
@@ -18,7 +20,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.flash_attention import HEAD_DIMS, padded_dim, visible
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, padded_dim,
+                                                 visible, visible_pairs)
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/kernels/ops.py:215"      # XLA's gradient of _xla_flash
@@ -115,14 +118,31 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.sum(2).transpose(1, 2).to(v.dtype))
 
 
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+         lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+         window: int = 0) -> tuple:
+    """(flops, bytes) of one call, from the shapes: 2.5 times the
+    forward's products (five products of a visible pair where the forward
+    has two); q, k, v, o, dO and lse read once, dq, dk and dv written
+    once."""
+    B, S, H, dh = q.shape
+    T = k.shape[1]
+    flops = 10 * dh * visible_pairs(S, T, causal, window) * H * B
+    nbytes = q.element_size() * 4 * q.numel() + k.element_size() * 4 * \
+        k.numel() + lse.element_size() * lse.numel()
+    return flops, nbytes
+
+
+@cuda_lib.accounted("flash_attention_bwd", cost)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int = 0):
     """q, o, do: (B, S, H, dh); k, v: (B, S, K, dh); lse: (B, H, S) f32.
     Returns (dq, dk, dv), contiguous, in the inputs' dtype."""
     if q.device.type == "cpu":
-        return plain(q, k, v, o, lse, do, causal=causal, window=window)
-    if q.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain(q, k, v, o, lse, do,
+                                            causal=causal, window=window))
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     B, S, H, dh = q.shape
@@ -162,7 +182,9 @@ def _launch(q, k, v, o, do, lse, dq, dk, dv, D, *, causal: bool,
             window: int):
     """One call of the backward's three kernels on the current stream;
     raises if the library reports an error, and counts the call only when
-    it launched."""
+    it launched.  On meta tensors nothing launches."""
+    if q.device.type == "meta":
+        return
     B, S, H, dh = q.shape
     K = k.shape[2]
     p = plan_bwd(B, S, H, K, dh)

@@ -2,8 +2,10 @@
 
 Dispatch goes by the tensor's device and nothing else: a CPU tensor takes
 the kernel's plain PyTorch version, a CUDA tensor takes the hand-written
-kernel (or the wrapper raises).  There is no mode that sends CUDA tensors
-to the plain versions; a comparison calls the spec's ``plain`` directly.
+kernel (or the wrapper raises), a meta tensor gets the kernel's output
+shapes and launches nothing (the dry run's).  There is no mode that sends
+CUDA tensors to the plain versions; a comparison calls the spec's
+``plain`` directly.
 Where autograd records and an input wants a gradient, a kernel with a
 backward goes through its autograd function, and a forward kernel without
 one raises on CUDA tensors (its output would carry no gradient).
@@ -37,13 +39,16 @@ class KernelSpec:
     """One registered kernel: its CUDA source, what it replaces in the
     reference (``file:line`` of a TPU kernel; for ``rmsnorm``, of the jnp
     function XLA compiles; for the backward kernels, of the jnp function
-    whose gradient ``jax.grad`` derives), its launch counter and its
-    plain PyTorch version."""
+    whose gradient ``jax.grad`` derives), its launch counter, its plain
+    PyTorch version, and its ``cost``: ``(flops, bytes)`` of a call from
+    the wrapper's arguments' shapes, the algorithm's work (not the plain
+    version's), which the dry run counts."""
     name: str
     source: str
     replaces: str
     counter: cuda_lib.LaunchCounter
     plain: Callable
+    cost: Callable
 
     @property
     def launches(self) -> int:
@@ -51,10 +56,11 @@ class KernelSpec:
 
 
 def _spec(name: str, module, *, source: str = "", replaces: str = "",
-          counter=None, plain=None) -> KernelSpec:
+          counter=None, plain=None, cost=None) -> KernelSpec:
     return KernelSpec(name, source or module.SOURCE,
                       replaces or module.REPLACES,
-                      counter or module.launches, plain or module.plain)
+                      counter or module.launches, plain or module.plain,
+                      cost or module.cost)
 
 
 class KernelRegistry:
@@ -96,7 +102,7 @@ registry.register(_spec("decode_attention", _decode))
 registry.register(_spec("decode_attention_paged", _decode,
                         replaces=_decode.REPLACES_PAGED,
                         counter=_decode.paged_launches,
-                        plain=_decode.plain_paged))
+                        plain=_decode.plain_paged, cost=_decode.cost_paged))
 registry.register(_spec("weight_transform", _wt))
 registry.register(_spec("quant_matmul", _qm))
 registry.register(_spec("ssd_scan", _ssd))
@@ -104,13 +110,15 @@ registry.register(_spec("rglru_scan", _rglru))
 registry.register(_spec("rmsnorm", _rms))
 registry.register(_spec("flash_attention_bwd", _flash_bwd))
 registry.register(_spec("rmsnorm_bwd", _rms, counter=_rms.bwd_launches,
-                        plain=_rms.plain_bwd))
+                        plain=_rms.plain_bwd, cost=_rms.cost_bwd))
 registry.register(_spec("ssd_scan_bwd", _ssd, source=_ssd.BWD_SOURCE,
                         replaces=_ssd.BWD_REPLACES,
-                        counter=_ssd.bwd_launches, plain=_ssd.plain_bwd))
+                        counter=_ssd.bwd_launches, plain=_ssd.plain_bwd,
+                        cost=_ssd.cost_bwd))
 registry.register(_spec("rglru_scan_bwd", _rglru,
                         replaces=_rglru.BWD_REPLACES,
-                        counter=_rglru.bwd_launches, plain=_rglru.plain_bwd))
+                        counter=_rglru.bwd_launches, plain=_rglru.plain_bwd,
+                        cost=_rglru.cost_bwd))
 
 
 def _on_card(t: torch.Tensor) -> bool:

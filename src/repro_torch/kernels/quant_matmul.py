@@ -6,7 +6,9 @@ kernel — every weight projection and the head of an int8-resident
 Kernel: ``csrc/quant_matmul.cu`` (see its note on what bounds it).
 On CUDA tensors :func:`quant_matmul` launches that kernel or raises; on
 CPU tensors it computes :func:`plain` (the oracle
-:func:`repro_torch.kernels.ref.quant_matmul`).
+:func:`repro_torch.kernels.ref.quant_matmul`); on meta tensors it checks
+the call and returns the output's shape with the split's f32 partials
+allocated, launching nothing.  :func:`cost` counts a call's work.
 """
 from __future__ import annotations
 
@@ -75,14 +77,28 @@ def plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
     return out.reshape(lead + (w.shape[1],))
 
 
+def cost(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
+         out_dtype: Optional[torch.dtype] = None) -> tuple:
+    """(flops, bytes) of one call, from the shapes: 2 m k n; x, the int8
+    weight and its scale read once, the output written once (the split's
+    partials are scratch, not counted)."""
+    k, n = w.shape
+    m = x.numel() // k if k else 0
+    out_size = (out_dtype or x.dtype).itemsize
+    return 2 * m * k * n, (x.element_size() * m * k + w.numel()
+                           + scale.element_size() * n + out_size * m * n)
+
+
+@cuda_lib.accounted("quant_matmul", cost)
 def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: (..., k) float32 or bfloat16; w: (k, n) int8; scale: (n,)
     float32.  Leading axes of x collapse into the rows and come back on
     the output (..., n), in ``out_dtype`` (default x's dtype)."""
     if x.device.type == "cpu":
-        return plain(x, w, scale, out_dtype=out_dtype)
-    if x.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain(x, w, scale,
+                                            out_dtype=out_dtype))
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"quant_matmul: unsupported device {x.device}")
     out_dtype = out_dtype or x.dtype
     if w.dim() != 2 or w.dtype != torch.int8:
@@ -119,6 +135,8 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
             if x.dtype == torch.bfloat16 and ls.groups > 1:
                 part = torch.empty((ls.groups, m, n), dtype=torch.float32,
                                    device=x.device)
+            if x.device.type == "meta":     # shapes only: nothing launches
+                return out.reshape(lead + (n,))
             lib = cuda_lib.library()
             with torch.cuda.device(x.device):
                 rc = lib.repro_quant_matmul(

@@ -7,7 +7,9 @@ every step (B, S, W) in a's dtype and, on request, the state after step
 Kernel: ``csrc/rglru_scan.cu`` (see its note on what bounds it).  On CUDA
 tensors :func:`rglru_scan` launches that kernel or raises; on CPU tensors
 it computes :func:`plain`, the sequential definition
-(:func:`repro_torch.kernels.ref.rglru`).
+(:func:`repro_torch.kernels.ref.rglru`); on meta tensors it checks the
+call and returns the outputs' shapes, launching nothing (the backward
+too).  :func:`cost` and :func:`cost_bwd` count a call's work.
 
 Training goes through :class:`RGLRUScan`, whose backward is
 :func:`rglru_scan_bwd` (``repro_rglru_scan_bwd`` of the same source on
@@ -61,6 +63,33 @@ def plain(a: torch.Tensor, b: torch.Tensor, *,
     return (y, hn) if return_state else y
 
 
+def cost(a: torch.Tensor, b: torch.Tensor, *,
+         h0: Optional[torch.Tensor] = None, return_state: bool = False,
+         n_valid: Optional[int] = None) -> tuple:
+    """(flops, bytes) of one call, from the shapes: a multiply and an add
+    a step and lane; a and b (and h0) read once, h at every step (and the
+    final state) written once."""
+    Bsz, S, W = a.shape
+    state = 4 * Bsz * W
+    return 2 * Bsz * S * W, (3 * a.element_size() * a.numel()
+                             + (state if h0 is not None else 0)
+                             + (state if return_state else 0))
+
+
+def cost_bwd(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor, *,
+             h0: Optional[torch.Tensor] = None,
+             want_dh0: bool = False) -> tuple:
+    """(flops, bytes) of one backward call, from the shapes: three
+    operations a step and lane (dh's multiply-add, da's product); a, y
+    and g (and h0) read once, da and db (and dh0) written once."""
+    Bsz, S, W = a.shape
+    state = 4 * Bsz * W
+    return 3 * Bsz * S * W, (5 * a.element_size() * a.numel()
+                             + (state if h0 is not None else 0)
+                             + (state if want_dh0 else 0))
+
+
+@cuda_lib.accounted("rglru_scan", cost)
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
                h0: Optional[torch.Tensor] = None, return_state: bool = False,
                n_valid: Optional[int] = None):
@@ -68,9 +97,10 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
     ``return_state``, h the state after step ``n_valid - 1`` (default S
     - 1)."""
     if a.device.type == "cpu":
-        return plain(a, b, h0=h0, return_state=return_state,
-                     n_valid=n_valid)
-    if a.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain(a, b, h0=h0,
+                                            return_state=return_state,
+                                            n_valid=n_valid))
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
     if a.dim() != 3 or a.dtype not in _DTYPE or b.shape != a.shape or \
             b.dtype != a.dtype:
@@ -97,6 +127,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
     if a.numel() == 0:                  # nothing to scan: the state is h0
         if hS is not None:
             hS.copy_(h0 if h0 is not None else torch.zeros_like(hS))
+        return (y, hS) if return_state else y
+    if a.device.type == "meta":             # shapes only: nothing launches
         return (y, hS) if return_state else y
     p = plan()
     lib = cuda_lib.library()
@@ -136,6 +168,7 @@ def plain_bwd(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor, *,
     return da.to(a.dtype), db.to(a.dtype), dh0
 
 
+@cuda_lib.accounted("rglru_scan_bwd", cost_bwd)
 def rglru_scan_bwd(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor, *,
                    h0: Optional[torch.Tensor] = None,
                    want_dh0: bool = False):
@@ -145,8 +178,8 @@ def rglru_scan_bwd(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor, *,
     f32."""
     if a.device.type == "cpu":
         da, db, dh0 = plain_bwd(a, y, g, h0=h0)
-        return da, db, dh0 if want_dh0 else None
-    if a.device.type != "cuda":
+        return cuda_lib.kernel_layout((da, db, dh0 if want_dh0 else None))
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan_bwd: unsupported device {a.device}")
     if a.dim() != 3 or any(t.shape != a.shape or t.dtype != torch.float32
                            or t.device != a.device for t in (a, y, g)):
@@ -176,7 +209,9 @@ def rglru_scan_bwd(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor, *,
 def _launch_bwd(a, y, g, h0, da, db, dh0):
     """One launch of the backward on the current stream; raises if the
     library reports an error, and counts the call only when it
-    launched."""
+    launched.  On meta tensors nothing launches."""
+    if a.device.type == "meta":
+        return
     Bsz, S, W = a.shape
     lib = cuda_lib.library()
     with torch.cuda.device(a.device):

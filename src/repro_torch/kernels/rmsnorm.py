@@ -119,13 +119,31 @@ def plain(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(dt)
 
 
+def cost(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tuple:
+    """(flops, bytes) of one call, from the shapes: four operations an
+    element (square, sum, scale, weight); x and the scale read once, the
+    output written once."""
+    return 4 * x.numel(), (2 * x.element_size() * x.numel()
+                           + scale.element_size() * scale.numel())
+
+
+def cost_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+             eps: float = 1e-6) -> tuple:
+    """(flops, bytes) of one backward call, from the shapes: ten
+    operations an element; x, g and the scale read once, dx and dscale
+    written once."""
+    return 10 * x.numel(), (3 * x.element_size() * x.numel()
+                            + 2 * scale.element_size() * scale.numel())
+
+
+@cuda_lib.accounted("rmsnorm", cost)
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., d) float32 or bfloat16; scale: (d,) float32 or bfloat16.
     Returns x's shape and dtype."""
     if x.device.type == "cpu":
-        return plain(x, scale, eps)
-    if x.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain(x, scale, eps))
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
     d = x.shape[-1] if x.dim() else 0
     if x.dtype not in _KIND or scale.dtype not in _KIND or \
@@ -140,6 +158,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if rows == 0:
         return y
     p = plan(d, x.dtype, sc.dtype)
+    if x.device.type == "meta":             # shapes only: nothing launches
+        return y
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):
         rc = lib.repro_rmsnorm(x.data_ptr(), sc.data_ptr(), y.data_ptr(),
@@ -166,13 +186,14 @@ def plain_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
+@cuda_lib.accounted("rmsnorm_bwd", cost_bwd)
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                 eps: float = 1e-6):
     """x, g: (..., d) in one dtype; scale (d,).  Returns (dx like x,
     dscale like scale)."""
     if x.device.type == "cpu":
-        return plain_bwd(x, scale, g, eps)
-    if x.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain_bwd(x, scale, g, eps))
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm_bwd: unsupported device {x.device}")
     d = x.shape[-1] if x.dim() else 0
     if x.dtype not in _KIND or scale.dtype not in _KIND or \
@@ -201,7 +222,9 @@ def _launch_bwd(x, scale, g, dx, partial, dscale, rows: int, d: int,
                 eps: float):
     """One call of the backward's two kernels on the current stream, by
     :func:`plan`; raises if the library reports an error, and counts the
-    call only when it launched."""
+    call only when it launched.  On meta tensors nothing launches."""
+    if x.device.type == "meta":
+        return
     p = plan(d, x.dtype, scale.dtype)
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):

@@ -6,7 +6,11 @@
 Kernel: ``csrc/ssd_scan.cu`` (see its note on what bounds it).  On CUDA
 tensors :func:`ssd_scan` launches that kernel or raises; on CPU tensors
 it computes :func:`plain`, the sequential definition
-(:func:`repro_torch.kernels.ref.ssd`).
+(:func:`repro_torch.kernels.ref.ssd`); on meta tensors it checks the call
+and returns the outputs' shapes, launching nothing (the backward too,
+with its scratch allocated).  :func:`cost` and :func:`cost_bwd` count a
+call's work as the chunked form does it, not as the sequential
+definition.
 
 Training goes through :class:`SSDScan`, whose backward is
 :func:`ssd_scan_bwd` (``csrc/ssd_scan_bwd.cu`` on CUDA tensors,
@@ -75,14 +79,78 @@ def plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return ref.ssd(x, dt, A, B, C, h0=h0, return_state=return_state)
 
 
+def fwd_products(b: int, nh: int, S: int, dp: int, N: int, L: int,
+                 cols: Optional[int] = None) -> int:
+    """Multiply-adds of the chunked SSD forward in chunks of L steps: C B^T
+    once a batch row and chunk (the same for every head; with ``cols``,
+    once in each of a (batch, head)'s dp / cols blocks, as the kernel's
+    design recomputes it), then a (batch, head) and chunk the intra product
+    (C B^T o L)(dt x) L^2 dp, the state update (w dt x)^T B in three bf16
+    pieces 3 L dp N and the inter term C h^T in two 2 L N dp."""
+    nc = -(-S // L)
+    per_head = b * nh * nc * (L * L * dp + 3 * L * dp * N + 2 * L * N * dp)
+    shared = b * nc * L * L * N
+    if cols is not None:
+        shared = b * nh * (dp // cols) * nc * L * L * N
+    return shared + per_head
+
+
+def bwd_products(b: int, nh: int, S: int, dp: int, N: int, Q: int) -> int:
+    """Multiply-adds of the chunked SSD backward in chunks of Q steps:
+    a (batch, head) and chunk dy x^T and its product with dy for dx (2 Q^2
+    dp), the two with B and C (2 Q^2 N) and five of the state terms (5 Q
+    dp N); C B^T once a batch row and chunk."""
+    nc = -(-S // Q)
+    return b * nh * nc * (2 * Q * Q * dp + 2 * Q * Q * N
+                          + 5 * Q * dp * N) + b * nc * Q * Q * N
+
+
+BWD_COST_CHUNKS = (16, 32, 64, 128)     # the chunks cost_bwd takes the least
+
+
+def cost(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+         B: torch.Tensor, C: torch.Tensor, *,
+         h0: Optional[torch.Tensor] = None, return_state: bool = False
+         ) -> tuple:
+    """(flops, bytes) of one call, from the shapes: 2 :func:`fwd_products`
+    at the plan's chunk; x, dt, A, B, C (and h0) read once, y (and the
+    final state) written once."""
+    b, nh, S, dp = x.shape
+    N = B.shape[-1]
+    L = plan(dp, N, x.dtype).chunk
+    state = 4 * b * nh * dp * N
+    nbytes = 2 * x.element_size() * x.numel() + 4 * (
+        b * nh * S + nh + 2 * b * S * N) + (state if h0 is not None else 0) \
+        + (state if return_state else 0)
+    return 2 * fwd_products(b, nh, S, dp, N, L), nbytes
+
+
+def cost_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor, *,
+             h0: Optional[torch.Tensor] = None) -> tuple:
+    """(flops, bytes) of one backward call, from the shapes: 2
+    :func:`bwd_products` at the chunk of :data:`BWD_COST_CHUNKS` that needs
+    the fewest; x, dy, dt, B, C (and h0) read once, dx, ddt, dB, dC written
+    once."""
+    b, nh, S, dp = x.shape
+    N = B.shape[-1]
+    macs = min(bwd_products(b, nh, S, dp, N, Q) for Q in BWD_COST_CHUNKS)
+    nbytes = 3 * x.element_size() * x.numel() + 4 * (
+        2 * b * nh * S + 4 * b * S * N) + (
+        4 * b * nh * dp * N if h0 is not None else 0)
+    return 2 * macs, nbytes
+
+
+@cuda_lib.accounted("ssd_scan", cost)
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *,
              h0: Optional[torch.Tensor] = None, return_state: bool = False):
     """Shapes as in :func:`repro_torch.kernels.ref.ssd`.  Returns y, or
     (y, h_S) with ``return_state``."""
     if x.device.type == "cpu":
-        return plain(x, dt, A, B, C, h0=h0, return_state=return_state)
-    if x.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain(x, dt, A, B, C, h0=h0,
+                                            return_state=return_state))
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     if x.dim() != 4 or x.dtype not in _DTYPE:
         raise ValueError(f"ssd_scan: x must be (b, nh, S, dp) float32 or "
@@ -111,6 +179,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.numel() == 0:                  # nothing to scan: the state is h0
         if hS is not None:
             hS.copy_(h0 if h0 is not None else torch.zeros_like(hS))
+        return (y, hS) if return_state else y
+    if x.device.type == "meta":             # shapes only: nothing launches
         return (y, hS) if return_state else y
     p = plan(dp, N, x.dtype)
     lib = cuda_lib.library()
@@ -232,6 +302,7 @@ def plain_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return dx.to(x.dtype), ddt, dA, dB_h.sum(1), dC_h.sum(1)
 
 
+@cuda_lib.accounted("ssd_scan_bwd", cost_bwd)
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor, *,
                  h0: Optional[torch.Tensor] = None):
@@ -239,8 +310,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Returns (dx like x, ddt (b, nh, S), dA (nh,), dB, dC (b, S, N)), all
     but dx in f32."""
     if x.device.type == "cpu":
-        return plain_bwd(x, dt, A, B, C, dy, h0=h0)
-    if x.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain_bwd(x, dt, A, B, C, dy, h0=h0))
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan_bwd: unsupported device {x.device}")
     if x.dim() != 4 or x.dtype not in _DTYPE or dy.shape != x.shape or \
             dy.dtype != x.dtype:
@@ -293,7 +364,9 @@ def _launch_bwd(x, dt, A, B, C, h0, dy, dx, ddt, dA, dB, dC, dB_h, dC_h,
                 dA_h, *, rows: int):
     """One call of the f32 backward's two kernels on the current stream;
     raises if the library reports an error, and counts the call only when
-    it launched."""
+    it launched.  On meta tensors nothing launches."""
+    if x.device.type == "meta":
+        return
     b, nh, S, dp = x.shape
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):
@@ -312,7 +385,10 @@ def _launch_bwd_tc(x, dt, A, B, C, h0, dy, dx, ddt, dA, dB, dC, hs, gs,
                    dtc, rs, vs, *, plan: BwdPlan):
     """One call of the bf16 backward's three kernels on the current stream
     (scratch from :func:`bwd_scratch`); raises if the library reports an
-    error, and counts the call once, only when it launched."""
+    error, and counts the call once, only when it launched.  On meta
+    tensors nothing launches."""
+    if x.device.type == "meta":
+        return
     b, nh, S, dp = x.shape
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):

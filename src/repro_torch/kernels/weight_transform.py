@@ -9,7 +9,9 @@ to the vector width), holds their V scales in registers and walks about
 four rows' chunks of the extent grid-stride; the cast takes one tile of
 float4 units a block.
 On a CUDA tensor :func:`weight_transform` launches that kernel or raises;
-on a CPU tensor it computes :func:`plain`, the same function in PyTorch.
+on a CPU tensor it computes :func:`plain`, the same function in PyTorch;
+on a meta tensor it checks the call and returns the output's shape,
+launching nothing.  :func:`cost` counts a call's work.
 """
 from __future__ import annotations
 
@@ -98,6 +100,20 @@ def plain(w: torch.Tensor, scale: Optional[torch.Tensor] = None, *,
     return ref.weight_transform(w, scale, out_dtype)
 
 
+def cost(w: torch.Tensor, scale: Optional[torch.Tensor] = None, *,
+         out_dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """(flops, bytes) of one call, from the shapes: one multiply an
+    element for the dequant (none for the cast); w (and the scale) read
+    once, the output written once."""
+    n = w.numel()
+    out = n * out_dtype.itemsize
+    if scale is None:
+        return 0, w.element_size() * n + out
+    return n, w.element_size() * n + scale.element_size() * scale.numel() \
+        + out
+
+
+@cuda_lib.accounted("weight_transform", cost)
 def weight_transform(w: torch.Tensor, scale: Optional[torch.Tensor] = None,
                      *, out_dtype: torch.dtype = torch.bfloat16
                      ) -> torch.Tensor:
@@ -107,8 +123,8 @@ def weight_transform(w: torch.Tensor, scale: Optional[torch.Tensor] = None,
         if scale is not None and scale.device.type != "cpu":
             raise ValueError("weight_transform: w on the CPU, scale on "
                              f"{scale.device}")
-        return plain(w, scale, out_dtype=out_dtype)
-    if w.device.type != "cuda":
+        return cuda_lib.kernel_layout(plain(w, scale, out_dtype=out_dtype))
+    if w.device.type not in ("cuda", "meta"):
         raise ValueError(f"weight_transform: unsupported device {w.device}")
     if w.dim() != 2 or not w.is_contiguous():
         raise ValueError(f"weight_transform: w must be a contiguous (n, m) "
@@ -132,7 +148,7 @@ def weight_transform(w: torch.Tensor, scale: Optional[torch.Tensor] = None,
         raise ValueError(f"weight_transform: cast takes float32, "
                          f"got {w.dtype}")
     out = torch.empty((n, m), dtype=out_dtype, device=w.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or w.device.type == "meta":   # meta: no launch
         return out
     with torch.cuda.device(w.device):
         p = plan(n, m, out_dtype, w.data_ptr(),

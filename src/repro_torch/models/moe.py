@@ -77,15 +77,20 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-# rows of the router's logits computed at once (see _router_logits)
+# bytes of the (rows, n, E) f32 products the router's logits take at once
+# (see _router_logits): 2 GiB, at least 64 rows
+ROUTER_BYTES = 2 << 30
 ROUTER_ROWS = 64
 
 
 def _router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in f32 (x (..., d), w (d, E)) whose rows never depend on
     the batch: elementwise products, summed over d as a pairwise tree of
-    elementwise adds (d zero-padded to a power of two), ROUTER_ROWS rows
-    at a time.  A cuBLAS product picks its f32 algorithm by the row
+    elementwise adds (d zero-padded to a power of two), as many rows at a
+    time as ``ROUTER_BYTES`` of products hold (at least ``ROUTER_ROWS``):
+    a row's adds are its own, so its bits do not depend on the rows beside
+    it.  (A fixed 64 rows made a step over 131072 rows of mixtral-8x7b 2048
+    chunks a layer.)  A cuBLAS product picks its f32 algorithm by the row
     count, and at mixtral's width a row's logits at M = 4 differed in
     their last bits from the same row at M = 1 (the rows probe of
     ``kernels/ab.py``): enough to flip an expert choice at a near-tie
@@ -94,9 +99,10 @@ def _router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = 1 << (d - 1).bit_length()
     x2 = F.pad(x.reshape(-1, d), (0, n - d))
     w2 = F.pad(w, (0, 0, 0, n - d))
+    rows = max(ROUTER_ROWS, ROUTER_BYTES // (4 * n * w.shape[-1]))
     outs = []
-    for i in range(0, x2.shape[0], ROUTER_ROWS):
-        t = x2[i:i + ROUTER_ROWS, :, None] * w2              # (r, n, E)
+    for i in range(0, x2.shape[0], rows):
+        t = x2[i:i + rows, :, None] * w2                     # (r, n, E)
         while t.shape[1] > 1:
             h = t.shape[1] // 2
             t = t[:, :h] + t[:, h:]
@@ -115,7 +121,10 @@ def route(cfg, router_w, x: torch.Tensor
     probs = torch.softmax(logits, dim=-1)
     vals, eidx = top_k(probs, cfg.top_k)                     # (B, S, k)
     vals = vals / vals.sum(dim=-1, keepdim=True)             # renormalize
-    oh = F.one_hot(eidx, cfg.n_experts).float()              # (B, S, k, E)
+    # one-hot by comparison (F.one_hot checks the indices' range on the
+    # CPU alone: a step's ops would differ by device)
+    oh = (eidx[..., None] == torch.arange(
+        cfg.n_experts, device=eidx.device)).float()          # (B, S, k, E)
     w_te = torch.einsum("bsk,bske->bse", vals, oh)           # sparse weights
     mask = oh.sum(dim=2)                                     # (B, S, E) 0/1
     return w_te, probs, mask
@@ -156,7 +165,9 @@ def moe_block(cfg, p: PyTree, x: torch.Tensor, *, with_aux: bool = True
     # per (row, expert) the top-C tokens by weight
     g, idx = top_k(w_te.transpose(1, 2), C)                  # (B, E, C)
     rows = torch.arange(B, device=x.device)[:, None, None]
-    x_e = x[rows, idx]                                       # (B, E, C, d)
+    # a contiguous index: the gather's layout is then the same on every
+    # device (meta's differs from TensorIterator's for a strided one)
+    x_e = x[rows, idx.contiguous()]                          # (B, E, C, d)
 
     y_e = _swiglu_experts(cfg, p["experts"], x_e)
     y_e = y_e * g[..., None].to(cd)                          # 0 if unassigned

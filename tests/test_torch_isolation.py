@@ -23,7 +23,7 @@ from repro_torch.serving import (DecodeScheduler, GenerateSpec,
 from repro_torch.serving.decode import reference_generate
 from repro_torch.store.store import WeightStore, deploy_model
 from torch_testlib import (PORT, ROOT, assert_imports_no_jax_and_no_reference,
-                           path_id, port_files)
+                           elsewhere, path_id, port_files)
 
 torch.set_num_threads(2)
 HERE = ("", "analysis", "configs", "distributed", "launch", "store",
@@ -85,8 +85,8 @@ print("OK")
 
 
 def test_training_modules_import_with_jax_and_reference_blocked():
-    """The training path imports in a process where importing ``jax`` or
-    ``repro`` raises."""
+    """The training path and the dry run's modules import in a process
+    where importing ``jax`` or ``repro`` raises."""
     import os
     import subprocess
     import sys
@@ -96,7 +96,8 @@ def test_training_modules_import_with_jax_and_reference_blocked():
             "repro_torch.distributed.compression",
             "repro_torch.distributed.resilience",
             "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
-            "repro_torch.launch.train"]
+            "repro_torch.launch.train", "repro_torch.launch.cost_analysis",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", BLOCKED, *mods], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -236,12 +237,14 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(tmp_path):
 
 
 def test_wrappers_refuse_other_devices():
-    meta = torch.empty((4, 4), dtype=torch.int8, device="meta")
+    """A device other than the CPU, CUDA or meta is refused."""
+    w8 = elsewhere(4, 4, dtype=torch.int8)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.weight_transform(meta, None)
+        ops.weight_transform(w8, None)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.quant_matmul(meta.float(), meta, meta[0].float())
-    q = torch.empty((1, 4, 64), device="meta")
+        ops.quant_matmul(elsewhere(4, 4), w8, elsewhere(4))
+    q, pools = elsewhere(1, 4, 64), elsewhere(1, 1, 4, 64)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.decode_attention_paged(q, q[None], q[None],
-                                   meta[:1].int(), meta[0, :1].int())
+        ops.decode_attention_paged(q, pools, pools,
+                                   elsewhere(1, 1, dtype=torch.int32),
+                                   elsewhere(1, dtype=torch.int32))

@@ -21,6 +21,7 @@ from repro_torch.kernels import cuda_lib, ops
 from repro_torch.kernels import flash_attention as fmod
 from repro_torch.kernels import flash_attention_bwd as bmod
 from repro_torch.kernels import rmsnorm as nmod
+from torch_testlib import elsewhere
 
 torch.set_num_threads(2)
 TOL = 1e-5          # of each gradient's max |g|, f32 against f32
@@ -162,11 +163,11 @@ def test_failing_launch_raises(monkeypatch):
                          torch.zeros(16), 4, 16, 1e-6)
     snap = ops.registry.dispatch_snapshot()
     assert snap["flash_attention_bwd"] == 0 and snap["rmsnorm_bwd"] == 0
-    meta = torch.empty((1, 4, 2, 16), device="meta")
+    t = elsewhere(1, 4, 2, 16)
     with pytest.raises(ValueError, match="unsupported device"):
-        bmod.flash_attention_bwd(meta, meta, meta, meta, meta[:, 0], meta)
+        bmod.flash_attention_bwd(t, t, t, t, elsewhere(1, 2, 16), t)
     with pytest.raises(ValueError, match="unsupported device"):
-        nmod.rmsnorm_bwd(meta, meta[0, 0, 0], meta)
+        nmod.rmsnorm_bwd(t, elsewhere(16), t)
 
 
 def test_registry_holds_the_backward_kernels():

@@ -21,6 +21,7 @@ from repro.kernels.ops import _xla_rglru, _xla_ssd
 from repro_torch.kernels import cuda_lib, ops, ref
 from repro_torch.kernels import rglru_scan as rmod
 from repro_torch.kernels import ssd_scan as smod
+from torch_testlib import elsewhere
 
 torch.set_num_threads(2)
 TOL = 1e-4          # of each gradient's max |g|, f32 against f32
@@ -189,12 +190,13 @@ def test_failing_launch_raises(monkeypatch):
         rmod._launch_bwd(a, a, a, None, a.clone(), a.clone(), None)
     snap = ops.registry.dispatch_snapshot()
     assert snap["ssd_scan_bwd"] == 0 and snap["rglru_scan_bwd"] == 0
-    meta = torch.empty((1, 2, 8, 4), device="meta")
+    t = elsewhere(1, 2, 8, 4)
     with pytest.raises(ValueError, match="unsupported device"):
-        smod.ssd_scan_bwd(meta, meta[..., 0], meta[0, :, 0, 0],
-                          meta[0], meta[0], meta)
+        smod.ssd_scan_bwd(t, elsewhere(1, 2, 8), elsewhere(2),
+                          elsewhere(2, 8, 4), elsewhere(2, 8, 4), t)
+    r = elsewhere(2, 8, 4)
     with pytest.raises(ValueError, match="unsupported device"):
-        rmod.rglru_scan_bwd(meta[0], meta[0], meta[0])
+        rmod.rglru_scan_bwd(r, r, r)
 
 
 def test_forward_only_kernels_raise_where_a_gradient_is_wanted(monkeypatch):

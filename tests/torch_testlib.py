@@ -41,6 +41,24 @@ def port_files(*packages):
     return out
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that claims a device the port does not run on (no CPU, CUDA
+    or meta): shape and dtype only, and any op on it raises."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype,
+                                                   device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a tensor of another device")
+
+
+def elsewhere(*shape, dtype=torch.float32) -> torch.Tensor:
+    return _Elsewhere(shape, dtype)
+
+
 def path_id(path):
     return str(path.relative_to(ROOT))
 
