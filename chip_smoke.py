@@ -23,7 +23,9 @@ an int8 store of the same seed-0 weights): the cold start held to phase
 6's rule against an f32 oracle, and the slotted and paged schedulers on
 its params, with exact ``quant_matmul`` and ``weight_transform``
 launches.  Last, the serverless platform serves both smollm-360m
-and recurrentgemma-2b from their int8 stores with a shared WeightCache:
+and recurrentgemma-2b (at full width, 4 and 5 of their layers: the
+platform's checks do not depend on depth) from their int8 stores with a
+shared WeightCache:
 a 16-invocation Azure-like trace replayed serially (its keep-alive
 re-triggers cold starts, which read nothing from the store) and at
 concurrency 4 (generation requests join live instances), then
@@ -37,7 +39,8 @@ int8 stores (one ``weight_transform`` launch per int8 leaf), each held
 against the CPU, and served one-shot through the platform from their int8
 stores (cold flags as the TTL implies, re-cold-starts read nothing, every
 response equal to a standalone load's logits, memory returned).  Last,
-the autoscaled platform: smollm-360m from its int8 store with no cache,
+the autoscaled platform: smollm-360m (4 layers) from its int8 store with
+no cache,
 fed a trickle and then a 10x burst open-loop, once without and once with
 the SLO autoscaler, under the instrumented lock probe: prewarms only with
 the autoscaler, loads = cold-served responses + prewarms with one store
@@ -57,7 +60,8 @@ encoder layers, dh 80, non-causal) from an int8 store, a one-shot frame
 batch, and 4 layers against the CPU; internvl2-76b at 2 of its 80 layers
 from an int8 store, image rows ahead of the tokens, greedy generation,
 and the card against the CPU.  Last, the multi-node cluster on this one
-card: smollm-360m from its int8 store served by simulated nodes with
+card: smollm-360m (4 layers) from its int8 store served by simulated
+nodes with
 per-node WeightCaches, a 2000 MB/s origin shared by all and a 10000 MB/s
 link a node, under the lock probe: a second node's cold start streams
 every unit from its peer (no origin read), a four-node cold burst pays
@@ -96,6 +100,14 @@ cache leaf) and 16 greedy decode steps from each cache; smollm-360m at
 bf16, the greedy token equal and the logits moved no more than bf16 moves
 them from f32; ms and peak memory chunked and unchunked, exact launches;
 ``flash_attention`` at the last chunk's shape against plain and SDPA.
+Last, the dense configs at full width and depth, one after another:
+yi-9b, codeqwen1.5-7b and h2o-danube-3-4b, each from an int8 store
+deployed one unit at a time from weights drawn on the card (the peak of
+the process's resident memory bounded), cicada with bf16 at A and
+int8-resident, greedy generation, the slotted and paged schedulers with
+exact launches, h2o-danube's ring wrapped by a request 1024 tokens past
+its 4096-token window and held in f32 to the windowed forward, and a few
+layers on the card against the CPU.
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
 seven TPU kernels' counterparts, ``rmsnorm`` and the four backward
 kernels), holds each against its
@@ -117,9 +129,9 @@ forward, prefill and decode step for the recurrent families), that the
 scheduler's tokens equal ``reference_generate``'s and the paged run's the
 slotted run's, and that no op of a recurrent decode step depends on the
 batch (``kernels/ab.py``'s rows probe); it checks the card against the CPU
-end to end (each family, and h2o-danube-3-4b's head dim 120 with a window,
-at 4 layers, f32), and prints one JSON line of kernel numbers and, last,
-one JSON line ``{"ok": true, "device": {...}}``.  Any failed phase exits
+end to end (each family at 4 layers, yi-9b and codeqwen1.5-7b at 2 and
+h2o-danube-3-4b's head dim 120 with a window at 4, f32), and prints one
+JSON line of kernel numbers and, last, one JSON line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero.
 
 Without a CUDA device, or without the repository's ``src/repro_torch``
@@ -584,7 +596,12 @@ def check_kernels(dev, report: dict):
         # the MoE and stub paths: mixtral's window, hubert non-causal at
         # dh 80 (the dh-128 instance), internvl2's 64 query heads over 8
         (1, 32, 8, 128, 128, 128, True, 4096),
-        (1, 16, 16, 256, 256, 80, False, 0), (1, 64, 8, 64, 64, 128, True, 0)]
+        (1, 16, 16, 256, 256, 80, False, 0), (1, 64, 8, 64, 64, 128, True, 0),
+        # the dense configs: yi-9b's rep 8 and codeqwen1.5-7b's rep 1 at dh
+        # 128, h2o-danube-3-4b's dh 120 with its window past 4096 rows
+        (1, 32, 4, 128, 128, 128, True, 0),
+        (1, 32, 32, 128, 128, 128, True, 0),
+        (1, 32, 8, 5120, 5120, 120, True, 4096)]
     for (B, H, K, S, T, dh, causal, win) in flash_cases:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
@@ -774,6 +791,16 @@ def rel_err(got, want) -> float:
 # (2560, 2560), wk and wv (2560, 256), the GeGLU MLP's wg and wu (2560,
 # 7680) and wd (7680, 2560)
 RG_PRODUCTS = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560))
+# codeqwen1.5-7b's untied head in a 4-slot decode step: (m, k, n)
+CODEQWEN_HEAD = (4, 4096, 92416)
+# phase 31's distinct int8-resident products (k, n): yi-9b's q/o, k/v,
+# gate/up, down and untied head; codeqwen1.5-7b's gate/up, down and head
+# (its q/o and k/v are yi-9b's q/o); h2o-danube-3-4b's q/o, k/v, gate/up,
+# down and head
+DENSE_PRODUCTS = ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
+                  (4096, 64000), (4096, 13440), (13440, 4096), (4096, 92416),
+                  (3840, 3840), (3840, 960), (3840, 10240), (10240, 3840),
+                  (3840, 32000))
 
 
 def check_quant_matmul(dev, report: dict, randn, g):
@@ -788,7 +815,8 @@ def check_quant_matmul(dev, report: dict, randn, g):
     err = 0.0                               # max abs error
     cases = [(4, 960, 49152), (128, 960, 2560), (1, 960, 960),
              (4, 2560, 960), (100, 70, 33), (17, 300, 5), (5, 64, 8192)] + [
-        (4, k, n) for k, n in RG_PRODUCTS]
+        (4, k, n) for k, n in RG_PRODUCTS] + [
+        (m, k, n) for m in (4, 128) for k, n in DENSE_PRODUCTS]
     for (m, k, n) in cases:
         w, s = qweight(k, n)
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
@@ -819,7 +847,7 @@ def check_quant_matmul(dev, report: dict, randn, g):
     # row independence: each row of an M-row product equals the M=1
     # product of that row, bit for bit (the scheduler steps at B = n_slots)
     for (k, n) in ((960, 49152), (960, 320), (2560, 960), (4096, 14336),
-                   (14336, 4096), *RG_PRODUCTS):
+                   (14336, 4096), *RG_PRODUCTS, *DENSE_PRODUCTS):
         w, s = qweight(k, n)
         x = randn(64, k, dtype=torch.bfloat16)
         rows = torch.cat([qmod.quant_matmul(x[i:i + 1], w, s)
@@ -848,13 +876,13 @@ def check_quant_matmul(dev, report: dict, randn, g):
         bound_ms=b_ms, bound_by=b_by,
         shape="bf16 x (4,960) . int8 head (960,49152) + f32 scale")
     # every distinct smollm-360m projection (q/o, k/v, gate/up, down) at a
-    # 4-slot decode step and at a 128-token prefill, and mixtral-8x7b's
-    # expert products (gate/up, down) at a 4-slot decode step
+    # 4-slot decode step and at a 128-token prefill, mixtral-8x7b's expert
+    # products (gate/up, down) and codeqwen1.5-7b's head at a 4-slot step
     for (m, k, n) in [(mm, kk, nn) for mm in (4, 128)
                       for (kk, nn) in ((960, 960), (960, 320), (960, 2560),
                                        (2560, 960))] + [
             (4, 4096, 14336), (4, 14336, 4096)] + [
-            (4, k, n) for k, n in RG_PRODUCTS]:
+            (4, k, n) for k, n in RG_PRODUCTS] + [CODEQWEN_HEAD]:
         w, s = qweight(k, n)
         x = randn(m, k, dtype=torch.bfloat16)
         wd = (w.float() * s).to(torch.bfloat16)
@@ -883,7 +911,9 @@ def check_paged(dev, report: dict, randn, g):
 
     for pos, dims in (((37, 80, 123, 159), (15, 5, 64)),
                       ((0, 15, 16, 255), (15, 5, 64)),
-                      ((37, 80, 123, 159), (10, 1, 256))):
+                      ((37, 80, 123, 159), (10, 1, 256)),
+                      ((37, 80, 123, 159), (32, 4, 128)),      # yi-9b
+                      ((0, 15, 16, 255), (32, 32, 128))):      # codeqwen
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
             H, K, dh = dims
@@ -1084,7 +1114,8 @@ def check_head_dims(dev, randn):
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     pos = (5, 37, 159, 255)
-    for dh, H, K in ((20, 3, 1), (80, 16, 16), (120, 32, 8), (128, 32, 4)):
+    for dh, H, K in ((20, 3, 1), (80, 16, 16), (120, 32, 8), (128, 32, 4),
+                     (128, 32, 32)):
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
             errs = []
@@ -1131,11 +1162,12 @@ def check_head_dims(dev, randn):
             for what, e in errs:
                 need(math.isfinite(e) and e <= tol,
                      f"{what} at dh {dh} {dt}: err {e}")
-    # one decode step (B = 1, pos 159 of a 256-row cache) at yi-9b's and
-    # h2o-danube-3-4b's heads: the dh-128 split, and dh 120 padded to 128
+    # one decode step (B = 1, pos 159 of a 256-row cache) at yi-9b's,
+    # h2o-danube-3-4b's and codeqwen1.5-7b's heads: the dh-128 split at
+    # rep 8 and rep 1, and dh 120 padded to 128
     t = 159
     p = torch.tensor([t], dtype=torch.int32, device=dev)
-    for H, K, dh in ((32, 4, 128), (32, 8, 120)):
+    for H, K, dh in ((32, 4, 128), (32, 8, 120), (32, 32, 128)):
         q = randn(1, H, dh, dtype=torch.bfloat16)
         kc = randn(1, K, 256, dh, dtype=torch.bfloat16)
         vc = randn(1, K, 256, dh, dtype=torch.bfloat16)
@@ -1150,6 +1182,31 @@ def check_head_dims(dev, randn):
                        enable_gqa=True),
                    decode_bound((t,), H, K, dh),
                    library="SDPA over the valid rows, enable_gqa")
+    # h2o-danube-3-4b's decode step past its window: position 5119 over
+    # the 4096-slot ring, every slot in the window (phase 31's request)
+    H, K, dh, W, t = 32, 8, 120, 4096, 5119
+    p = torch.tensor([t], dtype=torch.int32, device=dev)
+    for dt, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
+        q = randn(1, H, dh, dtype=dt)            # bf16 last: timed below
+        kc = randn(1, K, W, dh, dtype=dt)
+        vc = randn(1, K, W, dh, dtype=dt)
+        got = dmod.decode_attention(q, kc, vc, p, window=W)
+        want = dmod.plain(q, kc, vc, p, window=W)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        print(f"  decode_attention H={H} K={K} dh={dh} ring {W} pos {t} "
+              f"window {W} {str(dt)[6:]}: max abs err {e:.3e} (tol {tol})")
+        need(math.isfinite(e) and e <= tol,
+             f"decode_attention over the {W}-slot ring {dt} err {e}")
+    q4 = q[:, :, None]
+    extra_line("decode_attention", f"bf16 q (1,{H},{dh}), ring "
+               f"(1,{K},{W},{dh}), pos {t}, window {W}",
+               lambda: dmod.decode_attention(q, kc, vc, p, window=W),
+               lambda: dmod.plain(q, kc, vc, p, window=W),
+               lambda: F.scaled_dot_product_attention(q4, kc, vc,
+                                                      enable_gqa=True),
+               decode_bound((W - 1,), H, K, dh),
+               library="SDPA over the whole ring, enable_gqa")
 
 
 def ssd_fwd_bounds(b: int, nh: int, S: int, dp: int, N: int) -> tuple:
@@ -1441,11 +1498,12 @@ def deploy_smollm(workdir: str):
     deploy_model(store, cpu_model, "smollm", params_by_unit=units)
     deploy_model(store, cpu_model, "smollm-int8", quant="int8",
                  params_by_unit=units)
+    plat = deploy_platform_store(workdir, "smollm-360m", units)
     del units
     print(f"  deployed smollm-360m ({cfg.param_count() / 1e6:.1f} M params) "
           f"f32 {store.model_nbytes('smollm') / 1e9:.3f} GB, int8 "
-          f"{store.model_nbytes('smollm-int8') / 1e9:.3f} GB in "
-          f"{time.perf_counter() - t0:.1f} s (set-up)")
+          f"{store.model_nbytes('smollm-int8') / 1e9:.3f} GB, and {plat} "
+          f"in {time.perf_counter() - t0:.1f} s (set-up)")
     return store
 
 
@@ -1825,41 +1883,45 @@ def scheduler_paged(cs: dict, params_q, first, slotted: dict):
 
 
 def run_scheduler(model, params, prompts, first, per_fwd, per_step,
-                  label: str, pages=None) -> dict:
+                  label: str, pages=None, extra=(), cache_len: int = 256
+                  ) -> dict:
     """Four requests through the scheduler, slotted or with ``pages``-token
-    pages (prompt 37 alone first, then all four together, the 128-token
-    one resuming from the load's in-pipeline first token), with exact
-    launch counts; a paged run leaves no page pinned and its pool's
-    invariants hold.  Returns the tokens, the launches and the ms per
-    step."""
+    pages (prompt 37 alone first, its tokens then equal at occupancy 4;
+    then all four together, the 128-token one resuming from
+    the load's in-pipeline first token, beside the ``extra`` specs, which
+    join as slots free), with exact launch counts; a paged run leaves no
+    page pinned and its pool's invariants hold.  Returns the tokens (the
+    four's, then the extras'), the launches and the ms per step."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving import DecodeScheduler, GenerateSpec
-    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts]
-    sched = DecodeScheduler(model, params, n_slots=4, cache_len=256,
+    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts] + list(extra)
+    sched = DecodeScheduler(model, params, n_slots=4, cache_len=cache_len,
                             kv_page_tokens=pages)
     need(set(sched.kernel_modes().values()) == {"cuda"},
          f"scheduler kernel modes {sched.kernel_modes()}")
     before = ops.registry.dispatch_snapshot()
     t1 = time.perf_counter()
-    solo = sched.generate(specs[0])
+    alone = sched.generate(specs[0])
     t2 = time.perf_counter()
     results = run_concurrent(sched, specs, {3: first})
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     st = sched.stats()
     got = delta(before)
-    want = {k: 5 * per_fwd.get(k, 0) + st["steps"] * per_step.get(k, 0)
+    want = {k: (1 + len(specs)) * per_fwd.get(k, 0)
+            + st["steps"] * per_step.get(k, 0)
             for k in set(per_fwd) | set(per_step)}
     need_counts(got, want, f"{label} scheduler")
-    ms1, ms4 = step_ms([solo]), step_ms(results)
+    ms1, ms4 = step_ms([alone]), step_ms(results)
     kv = "" if pages is None else (
         f"; {pages}-token pages of {model.kv_page_bytes(pages)} B, "
         f"{st['kv_pages_used']} of {st['kv_pages_total']} used, "
         f"{st['kv_pages_pinned']} pinned, prefix hits "
         f"{st['kv_prefix_hits']}")
     print(f"  scheduler, {label}: one request alone 32 tokens in "
-          f"{(t2 - t1) * 1e3:.1f} ms; four concurrent {(t3 - t2) * 1e3:.1f} "
+          f"{(t2 - t1) * 1e3:.1f} ms; {len(specs)} concurrent "
+          f"{(t3 - t2) * 1e3:.1f} "
           f"ms; {st['steps']} steps, max occupancy {st['max_occupancy']}; "
           f"ms per step by occupancy (host clock, median): alone {ms1}, "
           f"concurrent {ms4}; launches {nonzero(got)}{kv}")
@@ -1871,10 +1933,10 @@ def run_scheduler(model, params, prompts, first, per_fwd, per_step,
         sched.kvpool.check_invariants()
     need(results[3].tokens[0] == first[0],
          f"{label}: the resumed request did not keep its first token")
-    need(solo.tokens == results[0].tokens,
+    need(alone.tokens == results[0].tokens,
          f"{label}: prompt 37's tokens changed between occupancy 1 and 4 "
          f"(first difference at "
-         f"{first_diff(solo.tokens, results[0].tokens)})")
+         f"{first_diff(alone.tokens, results[0].tokens)})")
     return {"tokens": [r.tokens for r in results], "ms": (ms1, ms4),
             "launches": got}
 
@@ -1889,29 +1951,32 @@ RECURRENT = {"mamba2-780m": None, "recurrentgemma-2b": "int8"}
 
 
 def kernel_counts(cfg, *, quant: bool = False, paged: bool = False) -> tuple:
-    """Launches of the recurrent families' kernels per forward or prefill,
-    and per decode step, from the layer kinds.  A paged step runs
+    """Launches of an LM's kernels per forward or prefill, and per decode
+    step, from the layer kinds.  A paged step runs
     ``decode_attention_paged`` where a slotted one runs
-    ``decode_attention`` (and then none of the latter).  Int8-resident
-    params (``quant``) add a ``quant_matmul`` for every weight product, 6
-    an rglru layer (wx, wgate, wy and the GeGLU MLP's wg, wu, wd) and 7
-    an attention layer (wq, wk, wv, wo and the MLP), and a
-    ``weight_transform`` for every dequant at use: 2 an ssd layer
-    (in_proj, out_proj) and 1 for the tied head.  The keys a path must
-    not launch are kept at 0."""
+    ``decode_attention``, but for sliding-window layers, whose rings stay
+    slot-resident (h2o-danube-3-4b: every layer).  Int8-resident params
+    (``quant``) add a ``quant_matmul`` for every weight product, 6 an
+    rglru layer (wx, wgate, wy and the GeGLU MLP's wg, wu, wd), 7 an
+    attention layer (wq, wk, wv, wo and the MLP) and 1 for an untied
+    head, and a ``weight_transform`` for every dequant at use: 2 an ssd
+    layer (in_proj, out_proj) and 1 for a tied head.  The keys a path
+    must not launch are kept at 0."""
     kinds = cfg.layer_kinds()
     n = {k: kinds.count(k) for k in ("ssd", "rglru", "attn")}
+    ring = n["attn"] if cfg.sliding_window else 0
     norms = 2 * len(kinds) + 1         # two a layer, and the final norm
     per_forward = {"ssd_scan": n["ssd"], "rglru_scan": n["rglru"],
                    "flash_attention": n["attn"], "rmsnorm": norms}
-    per_step = {"decode_attention_paged" if paged else "decode_attention":
-                n["attn"], "rmsnorm": norms}
+    per_step = {"decode_attention": n["attn"], "rmsnorm": norms}
     keep = set()
     if paged:
-        per_step["decode_attention"] = 0
-        keep.add("decode_attention")
+        per_step["decode_attention_paged"] = n["attn"] - ring
+        per_step["decode_attention"] = ring
+        keep |= {"decode_attention", "decode_attention_paged"}
     if quant:
-        products = {"quant_matmul": 6 * n["rglru"] + 7 * n["attn"],
+        products = {"quant_matmul": 6 * n["rglru"] + 7 * n["attn"] + int(
+                        not cfg.tie_embeddings),
                     "weight_transform": 2 * n["ssd"] + int(
                         cfg.tie_embeddings)}
         per_forward.update(products)
@@ -1961,20 +2026,19 @@ def recurrent_family(dev, workdir: str, arch: str) -> dict:
     t0 = time.perf_counter()
     store = WeightStore(os.path.join(workdir, arch),
                         BandwidthModel(bandwidth_mbps=2000))
-    cpu_model = transformer.build(cfg, device="cpu")
-    units = {name: cpu_model.init_unit(name, torch.Generator().manual_seed(
-        transformer.unit_seed(0, i)))
-        for i, name in enumerate(cpu_model.unit_names())}
-    deploy_model(store, cpu_model, arch, quant=quant, params_by_unit=units)
+    # each store from the same seed-0 draw on the card, a unit at a time
+    deploy_model(store, model, arch, quant=quant,
+                 params_by_unit=card_units(model))
     if int8_name != arch:          # the int8-resident load's store
-        deploy_model(store, cpu_model, int8_name, quant="int8",
-                     params_by_unit=units)
-    del units
+        deploy_model(store, model, int8_name, quant="int8",
+                     params_by_unit=card_units(model))
+    plat = (f", {deploy_platform_store(workdir, arch, card_units(model))}"
+            if arch in PLATFORM_STORES else "")
     print(f"  deployed {arch} ({cfg.param_count() / 1e6:.1f} M params, "
           f"layers {''.join(k[0] for k in cfg.layer_kinds())}) "
           f"{quant or 'f32'} {store.model_nbytes(arch) / 1e9:.3f} GB"
           + ("" if int8_name == arch else
-             f" and int8 {store.model_nbytes(int8_name) / 1e9:.3f} GB")
+             f" and int8 {store.model_nbytes(int8_name) / 1e9:.3f} GB") + plat
           + f" from seed 0 in {time.perf_counter() - t0:.1f} s (set-up); "
           f"kernels per forward {per_fwd}, per decode step {per_step}")
 
@@ -2217,10 +2281,11 @@ def card_vs_cpu(dev, workdir: str):
              f"{label}: greedy tokens differ away from a near-tie")
 
 
-def card_vs_cpu_arch(dev, workdir: str, arch: str):
-    """``arch`` at 4 layers of full width in f32 (recurrentgemma: one
-    pattern unit and a one-layer tail), cicada cold start and 16 greedy
-    tokens on the card and on the CPU, from one store."""
+def card_vs_cpu_arch(dev, workdir: str, arch: str, layers: int = 4):
+    """``arch`` at ``layers`` layers of full width in f32 (recurrentgemma
+    at 4: one pattern unit and a one-layer tail), cicada cold start and
+    16 greedy tokens on the card and on the CPU, from one store of
+    card-drawn weights (seed 1), removed after."""
     import numpy as np
     import torch
     from repro_torch.core import ColdStartEngine
@@ -2229,29 +2294,34 @@ def card_vs_cpu_arch(dev, workdir: str, arch: str):
     from repro_torch.serving.decode import reference_generate
     from repro_torch.store.store import WeightStore, deploy_model
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=4,
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               compute_dtype=torch.float32)
     cpu_model = transformer.build(cfg, device="cpu")
     gpu_model = transformer.build(cfg)
-    store = WeightStore(os.path.join(workdir, arch + "4"))
-    deploy_model(store, cpu_model, "m4", seed=1)
+    root = os.path.join(workdir, f"{arch}{layers}")
+    store = WeightStore(root)
+    deploy_model(store, cpu_model, "m", params_by_unit=card_units(gpu_model,
+                                                                  seed=1))
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 64))
     got = {}
     for side, m, d in (("card", gpu_model, None), ("cpu", cpu_model, "cpu")):
-        res = ColdStartEngine(m, "m4", store, strategy="cicada",
+        res = ColdStartEngine(m, "m", store, strategy="cicada",
                               device=d).load({"tokens": torch.as_tensor(
                                   prompt)})
-        toks = reference_generate(m, res.params, prompt[0], n_new=16,
+        toks = reference_generate(m, res.params, prompt[0], n_new=CPU_TOKENS,
                                   device=d)
         got[side] = (res.logits.float().cpu(), toks, res.params)
+    shutil.rmtree(root)
     a, b = got["card"][0], got["cpu"][0]
     rel = ((a - b).abs().max() / b.abs().max()).item()
-    print(f"  {arch} 4 layers ({''.join(k[0] for k in cfg.layer_kinds())}) "
-          f"full width f32: card vs CPU logits max rel diff {rel:.3e} (tol "
-          f"2e-3)")
+    print(f"  {arch} {layers} layers "
+          f"({''.join(k[0] for k in cfg.layer_kinds())}) full width f32 "
+          f"({cfg.param_count() / 1e9:.3f} B params): card vs CPU logits "
+          f"max rel diff {rel:.3e} (tol 2e-3)")
     need(rel <= 2e-3, f"{arch}: card and CPU logits differ by {rel}")
     ta, tb = got["card"][1], got["cpu"][1]
-    print(f"  16 greedy tokens card {ta}\n                      cpu  {tb}")
+    print(f"  {CPU_TOKENS} greedy tokens card {ta}\n"
+          f"                      cpu  {tb}")
     need(margin_ok(cpu_model, got["cpu"][2], prompt[0], tb, ta, 2e-3,
                    f"{arch} card vs CPU"),
          f"{arch}: greedy tokens differ away from a near-tie")
@@ -2263,9 +2333,41 @@ def card_vs_cpu_arch(dev, workdir: str, arch: str):
 
 # the int8 stores the platform serves, as earlier phases deployed them:
 # model name -> (directory under the work dir, store's model name)
-PLATFORM_STORES = {"smollm-360m": ("store", "smollm-int8"),
-                   "recurrentgemma-2b": ("recurrentgemma-2b",
+PLATFORM_STORES = {"smollm-360m": ("platform-smollm", "smollm-int8"),
+                   "recurrentgemma-2b": ("platform-recurrentgemma",
                                          "recurrentgemma-2b")}
+# the platform phases (15, 19, 25) serve each model at full width and
+# this many of its layers, the first of phases 4 and 11's weights
+# (recurrentgemma-2b: one (rglru, rglru, attn) unit and a two-layer
+# tail): their checks (cold flags, reads, launches, tokens, locks,
+# peers) do not depend on depth
+PLATFORM_LAYERS = {"smollm-360m": 4, "recurrentgemma-2b": 5}
+
+
+def platform_config(arch: str):
+    """The config the platform phases serve ``arch`` at."""
+    from repro_torch.models.api import get_config
+    return dataclasses.replace(get_config(arch),
+                               n_layers=PLATFORM_LAYERS[arch])
+
+
+def deploy_platform_store(workdir: str, arch: str, units) -> str:
+    """The platform phases' int8 store of ``arch`` (:data:`PLATFORM_STORES`)
+    from the first :data:`PLATFORM_LAYERS` layers of ``units`` (the full
+    model's, a dict or ``(unit, tree)`` pairs in order) with its
+    embedding and head; returns what it deployed, for the phase's set-up
+    line."""
+    from repro_torch.models import transformer
+    from repro_torch.store.store import WeightStore, deploy_model
+    where, name = PLATFORM_STORES[arch]
+    shallow = transformer.build(platform_config(arch), device="cpu")
+    keep = set(shallow.unit_names())
+    pairs = units.items() if isinstance(units, dict) else units
+    store = WeightStore(os.path.join(workdir, where))
+    deploy_model(store, shallow, name, quant="int8",
+                 params_by_unit=((n, t) for n, t in pairs if n in keep))
+    return (f"its first {PLATFORM_LAYERS[arch]} layers int8 for the platform "
+            f"phases {store.model_nbytes(name) / 1e9:.3f} GB")
 PLATFORM_PROMPT, PLATFORM_NEW = 64, 16
 PLATFORM_KEEP_ALIVE_S = 60.0
 # memory_allocated after the final sweep may exceed its value before the
@@ -2361,8 +2463,9 @@ def print_responses(label: str, responses):
 
 
 def serverless_platform(dev, workdir: str) -> dict:
-    """Platform A serves smollm-360m and recurrentgemma-2b from their int8
-    stores (dequantized at A) with a shared unbounded WeightCache: a
+    """Platform A serves smollm-360m and recurrentgemma-2b at full width
+    and :data:`PLATFORM_LAYERS` layers from their int8 stores
+    (dequantized at A) with a shared unbounded WeightCache: a
     serial replay of a 16-invocation trace whose TTL forces re-cold
     starts, then the same trace at concurrency 4.  Platform B serves
     smollm-360m int8-resident (``compute_quant``) with 16-token pages,
@@ -2375,13 +2478,12 @@ def serverless_platform(dev, workdir: str) -> dict:
     from repro_torch.core import ColdStartEngine
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    from repro_torch.models.api import get_config
     from repro_torch.serving import ServerlessPlatform, reference_generate
     from repro_torch.serving.trace import azure_like_trace, summarize
 
     archs = list(PLATFORM_STORES)
     store = platform_store(workdir)
-    models = {a: transformer.build(get_config(a)) for a in archs}
+    models = {a: transformer.build(platform_config(a)) for a in archs}
     units = {a: len(models[a].unit_names()) for a in archs}
     example = {a: {"tokens": torch.as_tensor(np.random.default_rng(3)
                                              .integers(0, models[a].cfg
@@ -2939,8 +3041,9 @@ def lock_hotspots(report: dict, n: int = 5):
 
 
 def autoscaled_platform(dev, workdir: str) -> dict:
-    """smollm-360m at full width from phase 4's int8 store (dequantized at
-    A), read at 2000 MB/s with no WeightCache, so every load reads the
+    """smollm-360m at full width and :data:`PLATFORM_LAYERS` layers from
+    the platform's int8 store (dequantized at A), read at 2000 MB/s with
+    no WeightCache, so every load reads the
     store: a pool of up to 4 instances with 2 generation slots each and
     no keep-alive eviction, fed the reference's SLO schedule (3 s at 1.5
     rps, then 2 s at 15 rps) open-loop through an 8-worker router, once
@@ -2955,7 +3058,6 @@ def autoscaled_platform(dev, workdir: str) -> dict:
     from repro_torch.core import ColdStartEngine
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    from repro_torch.models.api import get_config
     from repro_torch.serving import (Request, ServerlessPlatform,
                                      reference_generate)
     from repro_torch.serving import pool as pool_mod
@@ -2969,7 +3071,7 @@ def autoscaled_platform(dev, workdir: str) -> dict:
     try:
         store = platform_store(workdir, {a: PLATFORM_STORES[a]},
                                "autoscale")
-        model = transformer.build(get_config(a))
+        model = transformer.build(platform_config(a))
         vocab = model.cfg.vocab_size
         n_units = len(model.unit_names())
         leaves = int8_leaves(store, a)
@@ -3205,8 +3307,9 @@ CLUSTER_TRACE_SEED = 0            # three cold starts at a 60 s keep-alive
 
 
 def cluster_platform(dev, workdir: str) -> dict:
-    """smollm-360m at full width from phase 4's int8 store (dequantized at
-    A), served by simulated cluster nodes that all run on this card, with
+    """smollm-360m at full width and :data:`PLATFORM_LAYERS` layers from
+    the platform's int8 store (dequantized at A), served by simulated
+    cluster nodes that all run on this card, with
     unbounded per-node WeightCaches, the origin at 2000 MB/s on one
     shared channel and the cluster link at 10000 MB/s a node, all under
     the lock probe: (a) node0 then node1 cold-start on pinned
@@ -3226,7 +3329,6 @@ def cluster_platform(dev, workdir: str) -> dict:
     from repro_torch.core import ColdStartEngine
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    from repro_torch.models.api import get_config
     from repro_torch.serving import Request, reference_generate
     from repro_torch.serving import pool as pool_mod
     from repro_torch.serving.trace import azure_like_trace, summarize
@@ -3257,7 +3359,7 @@ def cluster_platform(dev, workdir: str) -> dict:
         store = platform_store(workdir, {a: PLATFORM_STORES[a]}, "cluster")
         need((store.device.bandwidth_mbps, store.device.channels) ==
              (CLUSTER_ORIGIN_MBPS, 1), f"origin {store.device}")
-        model = transformer.build(get_config(a))
+        model = transformer.build(platform_config(a))
         keys = len(model.unit_names())
         leaves = int8_leaves(store, a)
         batch = {"tokens": torch.as_tensor(np.random.default_rng(3).integers(
@@ -3893,41 +3995,129 @@ ROUTE_TIE = 2e-3
 # the greedy tokens each side generates in the card/CPU phases of the
 # billion-parameter models (every CPU step reads all their f32 weights)
 CPU_TOKENS = 16
+# a unit-at-a-time deploy holds at most this many times the largest
+# unit's f32 bytes (a dict of every unit's f32 would hold the model's)
+DEPLOY_RSS_UNITS = 8
 
 
-def card_units(model, seed: int = 0) -> dict:
+def card_units(model, seed: int = 0):
     """The model's units initialised on the card (one CUDA generator per
-    unit, seeded as ``deploy_model`` seeds its CPU ones) and copied to
-    the host: random weights from a seed, made on the card because a CPU
-    init of billions of normals would dominate the set-up."""
+    unit, seeded as ``deploy_model`` seeds its CPU ones): random weights
+    from a seed, made on the card because a CPU init of billions of
+    normals would dominate the set-up.  ``(unit, tree)`` pairs in
+    ``unit_names()`` order, each drawn only when the store's deploy
+    reaches it; the store quantizes an int8 leaf on the card and moves
+    the int8 values (an f32 leaf: its f32) to the host, so the host holds
+    one unit at a time."""
     import torch
-    from repro_torch import tree as tree_util
     from repro_torch.models import transformer
-    units = {}
     for i, name in enumerate(model.unit_names()):
         gen = torch.Generator(device=model.device).manual_seed(
             transformer.unit_seed(seed, i))
-        units[name] = tree_util.tree_map(lambda t: t.cpu(),
-                                         model.init_unit(name, gen))
-    return units
+        yield name, model.init_unit(name, gen)
+
+
+def check_card_quantization(model, store, name: str, unit: str):
+    """One unit of a store deployed from :func:`card_units` (seed 0),
+    quantized on the card, against the host's quantization of the same
+    draw (numpy's formula in torch's CPU ops): every int8 value and scale
+    bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.store import store as store_mod
+    gen = torch.Generator(device=model.device).manual_seed(
+        transformer.unit_seed(0, model.unit_names().index(unit)))
+    tree = model.init_unit(unit, gen)
+    stored = store.read_and_deserialize(name, unit)
+    n = 0
+    for path, leaf in store_mod.flatten_unit(tree):
+        if leaf.ndim < 2:
+            continue
+        q, s = store_mod.quantize_int8(leaf.cpu().numpy())
+        got_q, got_s = stored[path]
+        need(np.array_equal(got_q.numpy(), q) and
+             np.array_equal(got_s.numpy(), s),
+             f"{name}/{unit}/{path}: the card's int8 differs from the host's")
+        n += q.size
+    print(f"  {unit}: the card's quantization at deploy bit-equal to the "
+          f"host's ({n / 1e6:.1f} M values)")
+
+
+def rss_bytes() -> int:
+    """The process's resident memory now (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise Failure("no VmRSS in /proc/self/status")
+
+
+@contextlib.contextmanager
+def rss_peak(period_s: float = 0.005):
+    """The peak of the process's resident memory while the block runs,
+    above its value on entry (``out["bytes"]``), sampled from
+    ``/proc/self/status`` on a thread every ``period_s``: ``ru_maxrss``
+    is the peak of the whole run, so earlier phases would hide it."""
+    import threading
+    out = {"base": rss_bytes()}
+    out["peak"] = out["base"]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out["peak"] = max(out["peak"], rss_bytes())
+            stop.wait(period_s)
+
+    t = threading.Thread(target=sample, name="rss_sampler", daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+        out["peak"] = max(out["peak"], rss_bytes())
+        out["bytes"] = out["peak"] - out["base"]
+
+
+def unit_f32_bytes(model) -> int:
+    """The largest unit's bytes at f32, from its abstract tree."""
+    from repro_torch import tree as tree_util
+    return max(sum(4 * t.numel()
+                   for t in tree_util.leaves(model.abstract_unit(n)))
+               for n in model.unit_names())
 
 
 def deploy_int8(model, workdir: str, name: str):
-    """An int8 store of ``model`` at 2000 MB/s; prints its sizes."""
+    """An int8 store of ``model`` at 2000 MB/s, deployed one unit at a
+    time from card-drawn weights; prints its sizes and the peak of the
+    process's resident memory during the deploy, which
+    :data:`DEPLOY_RSS_UNITS` bounds in units of the largest unit's f32
+    bytes."""
     from repro_torch.store.store import (BandwidthModel, WeightStore,
                                          deploy_model)
     cfg = model.cfg
     t0 = time.perf_counter()
     store = WeightStore(os.path.join(workdir, name),
                         BandwidthModel(bandwidth_mbps=2000))
-    deploy_model(store, model, name, quant="int8",
-                 params_by_unit=card_units(model))
+    with rss_peak() as rss:
+        deploy_model(store, model, name, quant="int8",
+                     params_by_unit=card_units(model))
     nb = store.model_nbytes(name)
+    unit = unit_f32_bytes(model)
     print(f"  deployed {cfg.name} at {cfg.n_layers} layers "
           f"({cfg.param_count() / 1e9:.3f} B params, "
           f"{cfg.active_param_count() / 1e9:.3f} B active a token), int8 "
           f"{nb / 1e9:.3f} GB (I/O floor {nb / 2000e3:.0f} ms at 2000 "
-          f"MB/s) in {time.perf_counter() - t0:.1f} s (set-up)")
+          f"MB/s) in {time.perf_counter() - t0:.1f} s (set-up); peak "
+          f"resident memory during the deploy {rss['bytes'] / 1e9:.3f} GB "
+          f"above its {rss['base'] / 1e9:.3f} GB before "
+          f"({rss['bytes'] / unit:.2f}x the largest unit's f32 "
+          f"{unit / 1e9:.3f} GB)")
+    need(rss["bytes"] <= DEPLOY_RSS_UNITS * unit,
+         f"{cfg.name}: the deploy's resident memory rose "
+         f"{rss['bytes'] / 1e9:.3f} GB, beyond {DEPLOY_RSS_UNITS} x the "
+         f"largest unit's f32 {unit / 1e9:.3f} GB")
     return store
 
 
@@ -5956,6 +6146,254 @@ def dryrun_phase(dev) -> dict:
                         "rmsnorm_bwd")}
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the dense configs at full width and depth
+# ---------------------------------------------------------------------------
+
+# (arch, the layers of full width the card runs against the CPU)
+DENSE_FULL = (("yi-9b", 2), ("codeqwen1.5-7b", 2), ("h2o-danube-3-4b", 4))
+# the request past a sliding window (h2o-danube-3-4b's 4096 tokens): its
+# prompt and its greedy tokens
+WINDOW_PROMPT, WINDOW_NEW = 5120, 64
+# the windowed forward against the decode steps, of max |logit|: between
+# the sound ring's reading, 1.9e-5 on an H100, and the controls', 0.14
+# and 0.16 (a window one key long and one key short)
+WINDOW_TOL = 2e-3
+# the controls: the forward with a window one key short and one key long
+WINDOW_CONTROLS = (-1, 1)
+
+
+def window_against_forward(model32, p32, prompt, cache_len: int):
+    """The ring against the window, in f32, on ``p32`` (the int8 store
+    loaded with f32 at A): ``reference_generate``'s greedy tokens past the
+    window (each step's logits recorded as it runs), then one ``forward``
+    over the prompt and those tokens (flash attention with the window): at
+    every generated position its logits agree with the decode step's
+    within :data:`WINDOW_TOL` of max |logit|, and its argmax is the step's
+    token but at a near-tie.  The same forward with a window one key short
+    and one key long (:data:`WINDOW_CONTROLS`) must differ from the decode
+    steps by more than the limit, so that the limit tells a ring that keeps
+    one key too few or too many.  A check: it runs outside the path's
+    count."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serving import reference_generate
+    rec = []
+    real = {"prefill": model32.prefill, "decode_step": model32.decode_step}
+
+    def recording(kind):
+        def call(*a, **kw):
+            lg, cache = real[kind](*a, **kw)
+            rec.append(lg[0, -1].float())
+            return lg, cache
+        return call
+
+    for kind in real:
+        setattr(model32, kind, recording(kind))
+    try:
+        t0 = time.perf_counter()
+        toks = reference_generate(model32, p32, prompt, n_new=WINDOW_NEW,
+                                  cache_len=cache_len)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    finally:
+        for kind in real:
+            delattr(model32, kind)
+    S, W = len(prompt), model32.cfg.sliding_window
+    seq = torch.as_tensor(np.concatenate([prompt, toks]),
+                          device=model32.device)[None]
+    steps = torch.stack(rec)
+
+    def against_steps(model):
+        lg, _ = model.forward(p32, {"tokens": seq})
+        return lg[0, S - 1:S - 1 + len(toks)].float()
+
+    t0 = time.perf_counter()
+    fwd = against_steps(model32)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    scale = fwd.abs().max().item()
+    diff = (fwd - steps).abs().max().item()
+    control = {W + d: (against_steps(transformer.build(
+        dataclasses.replace(model32.cfg, sliding_window=W + d),
+        device=model32.device)) - steps).abs().max().item()
+        for d in WINDOW_CONTROLS}
+    top = torch.topk(fwd, 2, dim=-1)
+    margin = (top.values[:, 0] - top.values[:, 1]).tolist()
+    arg = top.indices[:, 0].tolist()
+    differ = [i for i, t in enumerate(toks) if arg[i] != t]
+    ties = [i for i in differ if margin[i] <= WINDOW_TOL * scale]
+    print(f"  window check, f32: {len(toks)} greedy tokens from a {S}-token "
+          f"prompt ({S - W} past the {W}-token window, a "
+          f"{min(cache_len, W)}-slot ring) in {gen_s:.1f} s; forward over "
+          f"{seq.shape[1]} positions in {fwd_s:.1f} s (host clock); logits "
+          f"at the {len(toks)} generated positions max abs diff {diff:.3e} "
+          f"({diff / scale:.3e} of max |logit| {scale:.3f}, limit "
+          f"{WINDOW_TOL}); the forward with window "
+          + ", ".join(f"{w}: {c:.3e} ({c / scale:.3e})"
+                      for w, c in control.items())
+          + f"; argmax differs at {differ} (near-ties {ties})")
+    need(len(rec) == len(toks) == WINDOW_NEW,
+         f"window check: {len(rec)} steps recorded for {len(toks)} tokens")
+    need(diff <= WINDOW_TOL * scale,
+         f"window check: the windowed forward differs from the decode "
+         f"steps by {diff:.3e} (max |logit| {scale:.3f})")
+    for w, c in control.items():
+        need(c > WINDOW_TOL * scale,
+             f"window check: the forward with window {w} is within the "
+             f"limit of the decode steps ({c:.3e}, max |logit| "
+             f"{scale:.3f}): the limit does not tell a wrong window")
+    need(differ == ties, f"window check: argmax differs from the decode "
+         f"step's token away from a near-tie at "
+         f"{sorted(set(differ) - set(ties))}")
+
+
+def dense_family(dev, workdir: str, arch: str, cpu_layers: int) -> dict:
+    """Phase 31 for one dense config at full width and depth: an int8
+    store deployed one unit at a time from card-drawn weights (the peak
+    of the process's resident memory bounded); the cicada cold start with
+    bf16 at A and the int8-resident one (``7 L + 1`` ``quant_matmul`` a
+    forward), held as phase 6 holds smollm to the f32 oracle, a load of
+    the same store with f32 at A (the window check reuses it); 32 greedy
+    tokens on the int8-resident params, and the slotted scheduler there
+    (a sliding window's model adds a request past its window) and the
+    paged one, with exact launches, tokens equal to
+    ``reference_generate``'s and paged equal to slotted; a window's ring
+    held to the windowed forward in f32; the card's memory returned; then
+    ``cpu_layers`` layers of full width on the card against the CPU.
+    Returns its path's launch counts
+    (zeroed before the loads, read after the schedulers) and the kernels
+    it must have launched."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import GenerateSpec, reference_generate
+
+    cfg = get_config(arch)
+    model = transformer.build(cfg)
+    name = f"{arch}-int8"
+    store = deploy_int8(model, workdir, name)
+    check_card_quantization(model, store, name, "block_000")
+    floor_ms = store.model_nbytes(name) / 2000e3
+    n_q, n_other = leaf_counts(store, name)
+    per_fwd, per_step = kernel_counts(cfg)
+    fwd_q, step_q = kernel_counts(cfg, quant=True)
+    fwd_qp, step_qp = kernel_counts(cfg, quant=True, paged=True)
+    print(f"  kernels per forward {per_fwd}, per decode step {per_step}; "
+          f"int8-resident per forward {fwd_q}, per slotted step {step_q}, "
+          f"per paged step {step_qp}; bf16 at A: weight_transform "
+          f"{n_q + n_other} per load ({n_q} int8 leaves, {n_other} f32 "
+          f"leaves cast)")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 128))
+    batch = {"tokens": torch.as_tensor(prompt)}
+    prompts = [prompt[0][:n] for n in (37, 64, 100, 128)]
+    extra, cache_len = (), 256
+    if cfg.sliding_window:
+        long = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                                 (WINDOW_PROMPT,))
+        extra = (GenerateSpec(prompt=long, n_new=WINDOW_NEW),)
+        cache_len = max(cache_len, WINDOW_PROMPT + WINDOW_NEW)
+    mem0 = settled_memory()
+
+    ops.registry.reset_counts()
+    cast = cicada_load(model, store, name, batch, "cicada, bf16 at A",
+                       apply_dtype=torch.bfloat16)
+    need_counts(cast["load"], {**per_fwd, "weight_transform": n_q + n_other,
+                               "quant_matmul": 0}, f"{arch} bf16-at-A load")
+    need_counts(cast["forward"], {**per_fwd, "quant_matmul": 0},
+                f"{arch} bf16 warm forward")
+    quant = cicada_load(model, store, name, batch,
+                        "cicada, int8-resident (compute_quant)",
+                        compute_quant=True)
+    need_counts(quant["load"], fwd_q, f"{arch} int8-resident load")
+    need_counts(quant["forward"], fwd_q, f"{arch} int8-resident warm forward")
+    pb, pq = cast["res"].params, quant["res"].params
+    print(f"  loads against the I/O floor {floor_ms:.0f} ms: bf16 at A "
+          f"{cast['res'].trace.total_time() * 1e3 / floor_ms:.2f}x, "
+          f"int8-resident "
+          f"{quant['res'].trace.total_time() * 1e3 / floor_ms:.2f}x; "
+          f"resident params bf16 {param_bytes(pb) / 1e9:.3f} GB, "
+          f"int8-resident {param_bytes(pq) / 1e9:.3f} GB")
+    deq = cast["res"].logits.float()       # the oracle rule's floor
+    del cast, pb
+    before = ops.registry.dispatch_snapshot()
+    t0 = time.perf_counter()
+    toks = reference_generate(model, pq, prompt[0], n_new=32)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    need_counts(delta(before), {k: fwd_q.get(k, 0) + 31 * step_q.get(
+        k, 0) for k in set(fwd_q) | set(step_q)},
+                f"{arch} reference_generate")
+    need(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+         f"{arch}: bad tokens {toks}")
+    print(f"  reference_generate, int8-resident, prompt 128: 32 greedy "
+          f"tokens in {gen_ms:.1f} ms (host clock, prefill + 31 decode "
+          f"steps): {toks}")
+    runs = {pages: run_scheduler(
+        model, pq, prompts, quant["first"],
+        fwd_q if pages is None else fwd_qp,
+        step_q if pages is None else step_qp,
+        f"{arch} int8-resident {'slotted' if pages is None else 'paged'}",
+        pages=pages, extra=extra if pages is None else (),
+        cache_len=cache_len) for pages in (None, 16)}
+    path = ops.registry.dispatch_snapshot()
+    kernels = tuple(sorted({"weight_transform"}.union(*(
+        nonzero(d) for d in (per_fwd, per_step, fwd_q, step_q, step_qp)))))
+
+    check_tokens(f"{arch} int8-resident slotted", prompts,
+                 runs[None]["tokens"][:4],
+                 [toks if len(p) == 128 else
+                  reference_generate(model, pq, p, n_new=32)
+                  for p in prompts])
+    check_tokens(f"{arch} int8-resident paged", prompts, runs[16]["tokens"],
+                 runs[None]["tokens"][:4], "the slotted run's")
+    for spec, got in zip(extra, runs[None]["tokens"][4:]):
+        want = reference_generate(model, pq, spec.prompt, n_new=spec.n_new,
+                                  cache_len=cache_len)
+        print(f"  {arch} int8-resident slotted prompt {len(spec.prompt)}: "
+              f"{'equal to' if got == want else 'DIFFERS from'} "
+              f"reference_generate: {got}")
+        need(len(got) == spec.n_new and got == want,
+             f"{arch} prompt {len(spec.prompt)} differs from "
+             f"reference_generate at token {first_diff(want, got)}")
+    logits_q, first_q = quant["res"].logits.float(), quant["first"][0]
+    del quant, pq, runs
+    torch.cuda.empty_cache()
+    model32 = transformer.build(dataclasses.replace(
+        cfg, compute_dtype=torch.float32))
+    f32 = cicada_load(model32, store, name, batch,
+                      "cicada, f32 at A (the f32 oracle)")
+    hold_to_oracle(f"{arch} int8-resident", logits_q, deq,
+                   f32["res"].logits.float(), first_q)
+    del deq, logits_q
+    if extra:
+        window_against_forward(model32, f32["res"].params, long, cache_len)
+    del model32, f32
+    shutil.rmtree(store.root)
+    mem1 = settled_memory()
+    print(f"  memory_allocated {mem1 / 1e6:.1f} MB after the model against "
+          f"{mem0 / 1e6:.1f} MB before its loads; store removed")
+    need(mem1 <= mem0 + PLATFORM_MEM_MARGIN,
+         f"{arch}: {(mem1 - mem0) / 1e6:.1f} MB not returned")
+    torch.cuda.empty_cache()
+    card_vs_cpu_arch(dev, workdir, arch, layers=cpu_layers)
+    return {arch: (path, kernels)}
+
+
+def dense_configs(dev, workdir: str) -> dict:
+    """Phase 31: :func:`dense_family` for each of :data:`DENSE_FULL`, one
+    after another.  Returns each model's path."""
+    paths = {}
+    for arch, cpu_layers in DENSE_FULL:
+        t0 = time.perf_counter()
+        paths.update(dense_family(dev, workdir, arch, cpu_layers))
+        print(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6031,14 +6469,14 @@ def main() -> int:
                   f"requests); int8-resident cold start, slotted and paged")
             paths.update(recurrent_family(dev, wd, arch))
             torch.cuda.empty_cache()
-        for i, arch in enumerate((*RECURRENT, "h2o-danube-3-4b")):
+        for i, arch in enumerate(RECURRENT):
             phase(f"[{12 + i}] card against CPU, {arch} at 4 layers of full "
                   f"width, f32")
             card_vs_cpu_arch(dev, wd, arch)
-        phase("[15] serverless platform, full width: smollm-360m and "
-              "recurrentgemma-2b int8 stores, a 16-invocation trace "
-              "replayed serially and at concurrency 4; smollm-360m "
-              "int8-resident, paged against slotted")
+        phase("[15] serverless platform, full width: smollm-360m (4 "
+              "layers) and recurrentgemma-2b (5 layers) int8 stores, a "
+              "16-invocation trace replayed serially and at concurrency 4;"
+              " smollm-360m int8-resident, paged against slotted")
         plat = serverless_platform(dev, wd)
         paths["serverless platform"] = (plat["launches"], plat["kernels"])
         phase("[16] the paper's trio at full width (resnet50, vgg16, "
@@ -6055,8 +6493,8 @@ def main() -> int:
               "16-invocation trace replayed serially")
         vplat = vision_platform(dev, wd)
         paths["vision platform"] = (vplat["launches"], ("weight_transform",))
-        phase("[19] the autoscaled platform: smollm-360m int8 store, no "
-              "cache, a 10x burst open-loop, without and with the "
+        phase("[19] the autoscaled platform: smollm-360m (4 layers) int8 "
+              "store, no cache, a 10x burst open-loop, without and with the "
               "autoscaler, under the lock probe")
         auto = autoscaled_platform(dev, wd)
         paths["autoscaled platform"] = (
@@ -6091,8 +6529,8 @@ def main() -> int:
         vlm = internvl_family(dev, wd)
         paths["internvl2-76b"] = (vlm["launches"], vlm["kernels"])
         torch.cuda.empty_cache()
-        phase(f"[25] the cluster on one card: smollm-360m int8 store, "
-              f"{CLUSTER_NODES} nodes, peer exchange over a "
+        phase(f"[25] the cluster on one card: smollm-360m (4 layers) int8 "
+              f"store, {CLUSTER_NODES} nodes, peer exchange over a "
               f"{CLUSTER_LINK_MBPS:.0f} MB/s link: pinned cold starts, a "
               f"cold burst with and without peers, a trace through the "
               f"front end, under the lock probe")
@@ -6147,6 +6585,14 @@ def main() -> int:
               "depth (batch cut) traced on meta and run on the card")
         dry = dryrun_phase(dev)
         paths["dry run cells"] = (dry["launches"], dry["kernels"])
+        torch.cuda.empty_cache()
+        phase("[31] the dense configs at full width and depth (yi-9b, "
+              "codeqwen1.5-7b, h2o-danube-3-4b): int8 stores deployed one "
+              "unit at a time, cicada with bf16 at A and int8-resident, "
+              "greedy generation, slotted and paged DecodeScheduler, "
+              f"danube {WINDOW_PROMPT - 4096} tokens past its window; card "
+              "against CPU")
+        paths.update(dense_configs(dev, wd))
         for path, (counts, kernels) in paths.items():
             print(f"    launches on {path}: {counts}")
             for name in kernels:

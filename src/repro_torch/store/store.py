@@ -35,7 +35,8 @@ import os
 import threading
 import time
 import zlib
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -142,19 +143,33 @@ def leaf_path_name(path) -> str:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu()
-        if leaf.dtype == torch.bfloat16:
-            raise ValueError("deploying bfloat16 leaves is not supported; "
-                             "deploy float32 and cast with apply_dtype")
-        return leaf.numpy()
+        return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
-def flatten_unit(tree: PyTree) -> List[Tuple[str, np.ndarray]]:
+def flatten_unit(tree: PyTree) -> List[Tuple[str, Any]]:
     """Stable (path, leaf) list for a unit's param tree (sorted keys, as
-    the reference flattens it)."""
-    return [(leaf_path_name(path), _to_numpy(leaf))
+    the reference flattens it).  Tensors stay where they lie; other
+    leaves become numpy arrays."""
+    return [(leaf_path_name(path), leaf if isinstance(leaf, torch.Tensor)
+             else np.asarray(leaf))
             for path, leaf in tree_util.leaves_with_path(tree)]
+
+
+def _dtype_name(leaf) -> str:
+    """The manifest's dtype of a leaf: numpy's name for it."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            raise ValueError("deploying bfloat16 leaves is not supported; "
+                             "deploy float32 and cast with apply_dtype")
+        return str(torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+    return str(leaf.dtype)
+
+
+def _floating(leaf) -> bool:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype.is_floating_point
+    return np.issubdtype(leaf.dtype, np.floating)
 
 
 def unflatten_unit(abstract: PyTree, leaves: Dict[str, Any]) -> PyTree:
@@ -210,18 +225,25 @@ def slice_byte_runs(shape: Tuple[int, ...], itemsize: int,
     return runs
 
 
-def quantize_int8(leaf: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+def quantize_int8(leaf) -> Tuple[np.ndarray, np.ndarray]:
     """Per-column int8 of a float leaf over its last axis, as the
     reference's store computes it in numpy: f32 scales amax / 127 (1 for
     an all-zero column), values rounded half to even and clipped to
     +-127.  In torch's threaded CPU ops, bit-equal to numpy's and several
-    times faster on a multi-GB leaf."""
-    w = torch.from_numpy(np.require(leaf, requirements="W"))
-    w2 = w.reshape(-1, leaf.shape[-1]).float()
-    amax = w2.abs().amax(dim=0)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    q = torch.clamp(torch.round(w2 / scale), -127, 127).to(torch.int8)
-    return q.numpy(), scale.numpy()
+    times faster on a multi-GB leaf.  A tensor is quantized on its own
+    device (the same correctly rounded f32 division and rounding, so the
+    same bytes) and only the int8 values and the scales come to the
+    host."""
+    w = leaf.detach() if isinstance(leaf, torch.Tensor) else \
+        torch.from_numpy(np.require(leaf, requirements="W"))
+    w2 = w.reshape(-1, w.shape[-1]).float()
+    amax = torch.maximum(w2.amax(dim=0), -w2.amin(dim=0))
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python
+    # scalar one, which can round the scale differently from numpy
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = (w2 / scale).round_().clamp_(-127, 127).to(torch.int8)
+    return q.cpu().numpy(), scale.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -247,10 +269,15 @@ class WeightStore:
         return os.path.join(self._dir(model), f"{unit}.bin")
 
     # --------------------------------------------------------------- deploy
-    def deploy(self, model_name: str, units: Dict[str, PyTree], *,
+    def deploy(self, model_name: str,
+               units: Union[Mapping[str, PyTree],
+                            Iterable[Tuple[str, PyTree]]], *,
                quant: Optional[str] = None) -> dict:
         """Write per-unit extents + manifest.  ``units``: unit -> tree of
-        tensors or arrays.
+        tensors or arrays, as a mapping or as an iterable of ``(unit,
+        tree)`` pairs consumed once, in order.  Each unit is written and
+        dropped before the next is taken, so a lazy source keeps one
+        unit on the host at a time.
 
         quant: None (store native dtype) | "int8" (2-D+ float leaves
         quantized per output channel, scales stored f32 alongside).
@@ -259,37 +286,48 @@ class WeightStore:
         os.makedirs(d, exist_ok=True)
         manifest = {"model": model_name, "version": 1,
                     "quant": quant or "none", "units": {}}
-        for unit, tree in units.items():
-            entries = []
-            blob = bytearray()
-            for name, leaf in flatten_unit(tree):
-                rec: Dict[str, Any] = {"path": name,
-                                       "shape": list(leaf.shape),
-                                       "dtype": str(leaf.dtype)}
-                if quant == "int8" and leaf.ndim >= 2 and \
-                        np.issubdtype(leaf.dtype, np.floating):
-                    q, scale = quantize_int8(leaf)
-                    payload = q.tobytes() + scale.tobytes()
-                    rec["quant"] = "int8"
-                    rec["scale_nbytes"] = scale.nbytes
-                else:
-                    payload = np.ascontiguousarray(leaf).tobytes()
-                    rec["quant"] = "none"
-                pad = (-len(blob)) % ALIGN
-                blob.extend(b"\0" * pad)
-                rec["offset"] = len(blob)
-                rec["nbytes"] = len(payload)
-                rec["crc32"] = zlib.crc32(payload) & 0xFFFFFFFF
-                blob.extend(payload)
-                entries.append(rec)
-            with open(self._unit_path(model_name, unit), "wb") as f:
-                f.write(bytes(blob))
-            manifest["units"][unit] = {"extents": entries,
-                                       "nbytes": len(blob)}
+        pairs = units.items() if isinstance(units, Mapping) else units
+        for unit, tree in pairs:
+            manifest["units"][unit] = self._write_unit(model_name, unit,
+                                                       tree, quant)
+            del tree            # before a lazy source draws the next unit
         with open(os.path.join(d, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         self._manifests[model_name] = manifest
         return manifest
+
+    def _write_unit(self, model_name: str, unit: str, tree: PyTree,
+                    quant: Optional[str]) -> dict:
+        """Write one unit's ``.bin``, leaf by leaf (no copy of the unit's
+        bytes is assembled); returns its manifest entry."""
+        entries = []
+        offset = 0
+        with open(self._unit_path(model_name, unit), "wb") as f:
+            for name, leaf in flatten_unit(tree):
+                rec: Dict[str, Any] = {"path": name,
+                                       "shape": list(leaf.shape),
+                                       "dtype": _dtype_name(leaf)}
+                if quant == "int8" and leaf.ndim >= 2 and _floating(leaf):
+                    parts = quantize_int8(leaf)
+                    rec["quant"] = "int8"
+                    rec["scale_nbytes"] = parts[1].nbytes
+                else:
+                    parts = (np.ascontiguousarray(_to_numpy(leaf)),)
+                    rec["quant"] = "none"
+                pad = (-offset) % ALIGN
+                f.write(b"\0" * pad)
+                offset += pad
+                rec["offset"] = offset
+                rec["nbytes"] = sum(p.nbytes for p in parts)
+                crc = 0
+                for p in parts:
+                    view = memoryview(p).cast("B")
+                    crc = zlib.crc32(view, crc)
+                    f.write(view)
+                rec["crc32"] = crc & 0xFFFFFFFF
+                offset += rec["nbytes"]
+                entries.append(rec)
+        return {"extents": entries, "nbytes": offset}
 
     def manifest(self, model_name: str) -> dict:
         if model_name not in self._manifests:
@@ -522,15 +560,19 @@ class WeightStore:
 
 def deploy_model(store: WeightStore, model, model_name: str,
                  seed: int = 0, *, quant: Optional[str] = None,
-                 params_by_unit: Optional[Dict[str, PyTree]] = None) -> dict:
+                 params_by_unit: Optional[
+                     Union[Mapping[str, PyTree],
+                           Iterable[Tuple[str, PyTree]]]] = None) -> dict:
     """Deploy a model (streaming view) with freshly initialized or
     provided per-unit parameters — the platform's "publish model
-    artifact" step.  Fresh parameters come from one CPU
-    ``torch.Generator`` per unit, seeded from ``seed``."""
+    artifact" step.  ``params_by_unit`` is what :meth:`WeightStore.deploy`
+    takes.  Fresh parameters come from one CPU ``torch.Generator`` per
+    unit, seeded from ``seed``, each unit drawn when the store reaches it
+    (the host holds one unit at a time)."""
     from repro_torch.models.transformer import unit_seed
     if params_by_unit is None:
-        params_by_unit = {}
-        for i, name in enumerate(model.unit_names()):
-            gen = torch.Generator().manual_seed(unit_seed(seed, i))
-            params_by_unit[name] = model.init_unit(name, gen)
+        params_by_unit = (
+            (name, model.init_unit(name, torch.Generator().manual_seed(
+                unit_seed(seed, i))))
+            for i, name in enumerate(model.unit_names()))
     return store.deploy(model_name, params_by_unit, quant=quant)
