@@ -3,7 +3,15 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Drives the port's paths once each, at the full width of smollm-360m:
+Drives the port's paths once each.  First, right after the kernels, the
+MoE configs at full size, their int8 stores in ``/dev/shm``:
+mixtral-8x7b at all 32 layers int8-resident (cicada, greedy generation,
+the slotted and paged schedulers with a request past its window, the
+logits held to a streamed f32 oracle, a step's costs) and one
+arctic-480b layer (bf16 at A, int8-resident, f32 at A, both schedulers
+with prefix reuse, its chunked prefill past its capacity drops), with
+the dry run's meta table beside them.  Then, at the full width of
+smollm-360m:
   * cold starts through the Cicada pipeline (cicada with the cast kernel,
     cicada with the dequant kernel, pisel), then greedy generation on the
     assembled params;
@@ -12,11 +20,12 @@ Drives the port's paths once each, at the full width of smollm-360m:
     continuous-batching ``DecodeScheduler`` on the int8-resident params,
     slotted, then paged with prefix reuse, one request resuming from the
     cold start's in-pipeline first token;
-and at the full width of the two recurrent families, mamba2-780m (48 SSD
-layers, f32 store cast to bf16 at A) and recurrentgemma-2b (8 x (rglru,
-rglru, attn) + 2 rglru, int8 store dequantized to bf16 at A): a cicada
+and at the full width of the two recurrent families, mamba2-780m (6 of
+its 48 SSD layers, f32 store cast to bf16 at A) and recurrentgemma-2b (5
+of its 26 layers: (rglru, rglru, attn) + 2 rglru, int8 store dequantized
+to bf16 at A): a cicada
 cold start, greedy generation, and four concurrent requests through the
-slotted scheduler and through the paged one (recurrentgemma's 8 attn
+slotted scheduler and through the paged one (recurrentgemma's attn
 layers in 16-token pages, the recurrent states slot-resident; mamba2 pages
 nothing); then each family int8-resident (``compute_quant``, mamba2 from
 an int8 store of the same seed-0 weights): the cold start held to phase
@@ -57,7 +66,7 @@ card against the CPU with the routers' expert choices compared;
 arctic-480b smoke (the dense residual) on the card against the CPU and
 through the paged scheduler with prefix reuse; hubert-xlarge (all 48
 encoder layers, dh 80, non-causal) from an int8 store, a one-shot frame
-batch, and 4 layers against the CPU; internvl2-76b at 2 of its 80 layers
+batch, and 4 layers against the CPU; internvl2-76b at 1 of its 80 layers
 from an int8 store, image rows ahead of the tokens, greedy generation,
 and the card against the CPU.  Last, the multi-node cluster on this one
 card: smollm-360m (4 layers) from its int8 store served by simulated
@@ -82,7 +91,7 @@ experts two to a device.
 Last, training on the card: the backward kernels of attention and
 rmsnorm (``flash_attention_bwd``, ``rmsnorm_bwd``) against the autograd
 of their plain versions, the card's loss and gradients against the CPU's
-at 4 layers, then full-width smollm-360m trained for 30 steps through
+at 2 layers, then full-width smollm-360m trained for 15 steps through
 ``launch/train.py`` (int8 error-feedback compression, a checkpoint) with
 exact launches a step, a falling loss, a bit-equal repeated step and a
 resume equal to the straight run.  Last, training every other family:
@@ -96,11 +105,11 @@ arctic-480b smoke, each step repeated bit-equal.  Last, chunked prefill
 (``LM.prefill_chunked``, 2048-token chunks) at full width: smollm-360m f32
 at B 2 and 8192 tokens against the unchunked prefill (logits and every
 cache leaf) and 16 greedy decode steps from each cache; smollm-360m at
-32768 tokens and internvl2-76b (2 layers, 256 image rows, 8192 rows) in
+32768 tokens and internvl2-76b (1 layer, 256 image rows, 8192 rows) in
 bf16, the greedy token equal and the logits moved no more than bf16 moves
 them from f32; ms and peak memory chunked and unchunked, exact launches;
 ``flash_attention`` at the last chunk's shape against plain and SDPA.
-Last, the dense configs at full width and depth, one after another:
+Last, the dense configs at full width (2 layers each), one after another:
 yi-9b, codeqwen1.5-7b and h2o-danube-3-4b, each from an int8 store
 deployed one unit at a time from weights drawn on the card (the peak of
 the process's resident memory bounded), cicada with bf16 at A and
@@ -129,8 +138,8 @@ forward, prefill and decode step for the recurrent families), that the
 scheduler's tokens equal ``reference_generate``'s and the paged run's the
 slotted run's, and that no op of a recurrent decode step depends on the
 batch (``kernels/ab.py``'s rows probe); it checks the card against the CPU
-end to end (each family at 4 layers, yi-9b and codeqwen1.5-7b at 2 and
-h2o-danube-3-4b's head dim 120 with a window at 4, f32), and prints one
+end to end (the recurrent families at 4 layers, yi-9b, codeqwen1.5-7b
+and h2o-danube-3-4b's head dim 120 with a window at 2, f32), and prints one
 JSON line of kernel numbers and, last, one JSON line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero.
 
@@ -174,7 +183,24 @@ def need(cond: bool, what: str):
 
 
 def phase(title: str):
-    print(f"{title} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
+    print(f"{title} (at {time.perf_counter() - T_START:.1f} s; host memory "
+          f"{mem_available() / 1e9:.1f} GB available, "
+          f"{meminfo('Shmem') / 1e9:.1f} GB in /dev/shm, this process "
+          f"{rss_bytes() / 1e9:.1f} GB resident)", flush=True)
+
+
+def meminfo(key: str) -> int:
+    """A field of ``/proc/meminfo`` in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise Failure(f"no {key} in /proc/meminfo")
+
+
+def mem_available() -> int:
+    """The host's ``MemAvailable`` in bytes."""
+    return meminfo("MemAvailable")
 
 
 def card_line() -> str:
@@ -318,6 +344,9 @@ WT_WIDTHS = (8, 64, 120, 504, 960, 1000, 14336)
 WT_ROWS = (1, 17, 5003)
 # a leaf of more than 2^31 elements at arctic-480b's expert width
 WT_HUGE = (450000, 4864)
+# arctic-480b's expert leaf (128, 7168, 4864) as A applies it, (E * d, f)
+# int8 rows: 4.46 G values, past 2^32
+WT_EXPERT = (128 * 7168, 4864)
 # the leaves dequantized whole at each use on the int8-resident recurrent
 # paths
 WT_AT_USE = (((1536, 6448), "mamba2 in_proj"),
@@ -396,6 +425,29 @@ def check_weight_transform(dev, report: dict, g):
           f"2^31 elements)->bfloat16: {'exact' if same else 'MISMATCH'}")
     need(same, f"weight_transform {WT_HUGE} differs from its plain version")
     del w, s, got
+    torch.cuda.empty_cache()
+    n, m = WT_EXPERT
+    w = torch.randint(-127, 128, (n, m), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(m, generator=g, device=dev) * 0.05
+    got = wmod.weight_transform(w, s, out_dtype=torch.bfloat16)
+    same = torch.equal(got, wmod.plain(w, s, out_dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    print(f"  weight_transform dequant {WT_EXPERT} ({n * m / 2 ** 32:.2f} x "
+          f"2^32 elements, arctic-480b's expert leaf)->bfloat16: "
+          f"{'exact' if same else 'MISMATCH'}")
+    need(same, f"weight_transform {WT_EXPERT} differs from its plain version")
+    del got
+    torch.cuda.empty_cache()
+    extra_line("weight_transform", f"arctic-480b expert leaf int8 ({n},{m}) "
+               f"-> bf16",
+               lambda: wmod.weight_transform(w, s, out_dtype=torch.bfloat16),
+               lambda: wmod.plain(w, s, out_dtype=torch.bfloat16),
+               lambda: (w.float() * s).to(torch.bfloat16),
+               cost_bound("weight_transform", w, s, out_dtype=torch.bfloat16,
+                          peak=torch.float32),
+               "(w.float() * s).to(dt)")
+    del w, s
     torch.cuda.empty_cache()
     # main-path timing shape: the largest leaf, tok (49152, 960) int8 -> f32
     n, m = 49152, 960
@@ -573,6 +625,7 @@ def transform_share(store, name: str, out_dtype, work_a: float,
 def check_kernels(dev, report: dict):
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
 
@@ -601,7 +654,11 @@ def check_kernels(dev, report: dict):
         # 128, h2o-danube-3-4b's dh 120 with its window past 4096 rows
         (1, 32, 4, 128, 128, 128, True, 0),
         (1, 32, 32, 128, 128, 128, True, 0),
-        (1, 32, 8, 5120, 5120, 120, True, 4096)]
+        (1, 32, 8, 5120, 5120, 120, True, 4096),
+        # arctic-480b's 56 query heads over 8 (rep 7) at dh 128: a prompt,
+        # and its chunked prefill's last 2048 queries over T 8192
+        (1, 56, 8, 128, 128, 128, True, 0),
+        (1, 56, 8, CHUNK, CHUNK_PROMPT, 128, True, 0)]
     for (B, H, K, S, T, dh, causal, win) in flash_cases:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
@@ -662,6 +719,36 @@ def check_kernels(dev, report: dict):
                    qt, kt, vt, is_causal=True, enable_gqa=True),
                cost_bound("flash_attention", q, k, v, peak=torch.bfloat16))
 
+    # arctic-480b's heads (rep 7, dh 128): a 128-token prompt, and the last
+    # chunk of its chunked prefill (2048 queries over T 8192)
+    for S, T in ((128, 128), (CHUNK, CHUNK_PROMPT)):
+        H, K, dh = 56, 8, 128
+        q = randn(1, S, H, dh, dtype=torch.bfloat16)
+        k = randn(1, T, K, dh, dtype=torch.bfloat16)
+        v = randn(1, T, K, dh, dtype=torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if S == T:
+            lib = "SDPA, is_causal, enable_gqa"
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:           # the bottom-right mask needs the kv heads repeated
+            lib = "SDPA, causal_lower_right, kv heads repeated"
+            mask = causal_lower_right(S, T)
+            kt, vt = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        extra_line("flash_attention", f"bf16 q (1,{S},{H},{dh}), k/v "
+                   f"(1,{T},{K},{dh}), causal (arctic-480b's heads)",
+                   lambda: fmod.flash_attention(q, k, v, causal=True),
+                   lambda: fmod.plain(q, k, v, causal=True), library,
+                   cost_bound("flash_attention", q, k, v, peak=torch.bfloat16),
+                   lib)
+    del q, k, v, qt, kt, vt
+
     # --- decode_attention ---------------------------------------------------
     de_err = 0.0
     for (S_max, pos, win, H, K, dh) in [
@@ -671,7 +758,9 @@ def check_kernels(dev, report: dict):
             (64, (5, 63, 100, 300), 64, 8, 2, 256),
             # mixtral's ring (window 4096 over a 256-slot cache), internvl2
             (256, (0, 37, 159, 255), 4096, 32, 8, 128),
-            (256, (0, 37, 159, 255), 0, 64, 8, 128)]:
+            (256, (0, 37, 159, 255), 0, 64, 8, 128),
+            # arctic-480b: 56 query heads over 8 (rep 7)
+            (256, (0, 37, 159, 255), 0, 56, 8, 128)]:
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
             B = 4
@@ -803,6 +892,16 @@ DENSE_PRODUCTS = ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
                   (3840, 32000))
 
 
+# phase 32's distinct int8-resident products (k, n) that phase 3 lacked:
+# arctic-480b's q/o (7168, 7168), k/v (7168, 1024), experts' and dense
+# residual's gate/up (7168, 4864) and down (4864, 7168), head (7168,
+# 32000); mixtral-8x7b's k/v (4096, 1024), experts (4096, 14336) and
+# (14336, 4096) (at m 4 only before) and head (4096, 32000)
+MOE_PRODUCTS = ((7168, 7168), (7168, 1024), (7168, 4864), (4864, 7168),
+                (7168, 32000), (4096, 1024), (4096, 14336), (14336, 4096),
+                (4096, 32000))
+
+
 def check_quant_matmul(dev, report: dict, randn, g):
     import torch
     from repro_torch.kernels import quant_matmul as qmod
@@ -816,7 +915,7 @@ def check_quant_matmul(dev, report: dict, randn, g):
     cases = [(4, 960, 49152), (128, 960, 2560), (1, 960, 960),
              (4, 2560, 960), (100, 70, 33), (17, 300, 5), (5, 64, 8192)] + [
         (4, k, n) for k, n in RG_PRODUCTS] + [
-        (m, k, n) for m in (4, 128) for k, n in DENSE_PRODUCTS]
+        (m, k, n) for m in (4, 128) for k, n in DENSE_PRODUCTS + MOE_PRODUCTS]
     for (m, k, n) in cases:
         w, s = qweight(k, n)
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
@@ -846,8 +945,8 @@ def check_quant_matmul(dev, report: dict, randn, g):
     err = max(err, (got - want).abs().max().item())
     # row independence: each row of an M-row product equals the M=1
     # product of that row, bit for bit (the scheduler steps at B = n_slots)
-    for (k, n) in ((960, 49152), (960, 320), (2560, 960), (4096, 14336),
-                   (14336, 4096), *RG_PRODUCTS, *DENSE_PRODUCTS):
+    for (k, n) in ((960, 49152), (960, 320), (2560, 960), *RG_PRODUCTS,
+                   *DENSE_PRODUCTS, *MOE_PRODUCTS):
         w, s = qweight(k, n)
         x = randn(64, k, dtype=torch.bfloat16)
         rows = torch.cat([qmod.quant_matmul(x[i:i + 1], w, s)
@@ -882,7 +981,8 @@ def check_quant_matmul(dev, report: dict, randn, g):
                       for (kk, nn) in ((960, 960), (960, 320), (960, 2560),
                                        (2560, 960))] + [
             (4, 4096, 14336), (4, 14336, 4096)] + [
-            (4, k, n) for k, n in RG_PRODUCTS] + [CODEQWEN_HEAD]:
+            (4, k, n) for k, n in RG_PRODUCTS] + [CODEQWEN_HEAD] + [
+            (4, k, n) for k, n in MOE_PRODUCTS[:5]]:
         w, s = qweight(k, n)
         x = randn(m, k, dtype=torch.bfloat16)
         wd = (w.float() * s).to(torch.bfloat16)
@@ -913,7 +1013,8 @@ def check_paged(dev, report: dict, randn, g):
                       ((0, 15, 16, 255), (15, 5, 64)),
                       ((37, 80, 123, 159), (10, 1, 256)),
                       ((37, 80, 123, 159), (32, 4, 128)),      # yi-9b
-                      ((0, 15, 16, 255), (32, 32, 128))):      # codeqwen
+                      ((0, 15, 16, 255), (32, 32, 128)),       # codeqwen
+                      ((37, 80, 123, 159), (56, 8, 128))):     # arctic
         for dt, tol in ((torch.bfloat16, BF16_ATOL),
                         (torch.float32, F32_ATOL)):
             H, K, dh = dims
@@ -960,6 +1061,22 @@ def check_paged(dev, report: dict, randn, g):
     q4 = q[:, :, None]
     extra_line("decode_attention_paged", "bf16 q (4,10,256), pools "
                "(65,1,16,256) shuffled, tables (4,16), pos 37/80/123/159",
+               lambda: dmod.decode_attention_paged(q, kp, vp, tb, p),
+               lambda: dmod.plain_paged(q, kp, vp, tb, p),
+               lambda: F.scaled_dot_product_attention(
+                   q4, kg, vg, attn_mask=valid, enable_gqa=True),
+               decode_bound(pos, H, K, dh, NP=NP),
+               "SDPA over the gathered rows")
+    # arctic-480b's paged step: 56 query heads over 8 kv heads at dh 128
+    H, K, dh = 56, 8, 128
+    q, kp, vp, tb, p = make(pos, torch.bfloat16, 3)
+    idx = tb.long()
+    kg = kp[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)
+    vg = vp[idx].transpose(1, 2).reshape(B, K, NP * pt, dh)
+    q4 = q[:, :, None]
+    extra_line("decode_attention_paged", "bf16 q (4,56,128), pools "
+               "(65,8,16,128) shuffled, tables (4,16), pos 37/80/123/159 "
+               "(arctic-480b's heads)",
                lambda: dmod.decode_attention_paged(q, kp, vp, tb, p),
                lambda: dmod.plain_paged(q, kp, vp, tb, p),
                lambda: F.scaled_dot_product_attention(
@@ -1167,7 +1284,8 @@ def check_head_dims(dev, randn):
     # rep 8 and rep 1, and dh 120 padded to 128
     t = 159
     p = torch.tensor([t], dtype=torch.int32, device=dev)
-    for H, K, dh in ((32, 4, 128), (32, 8, 120), (32, 32, 128)):
+    for H, K, dh in ((32, 4, 128), (32, 8, 120), (32, 32, 128),
+                     (56, 8, 128)):
         q = randn(1, H, dh, dtype=torch.bfloat16)
         kc = randn(1, K, 256, dh, dtype=torch.bfloat16)
         vc = randn(1, K, 256, dh, dtype=torch.bfloat16)
@@ -1182,31 +1300,36 @@ def check_head_dims(dev, randn):
                        enable_gqa=True),
                    decode_bound((t,), H, K, dh),
                    library="SDPA over the valid rows, enable_gqa")
-    # h2o-danube-3-4b's decode step past its window: position 5119 over
-    # the 4096-slot ring, every slot in the window (phase 31's request)
-    H, K, dh, W, t = 32, 8, 120, 4096, 5119
+    # the decode step past a 4096-token window: position 5119 over the
+    # 4096-slot ring, every slot in the window (h2o-danube-3-4b's request
+    # in phase 31 at dh 120, mixtral-8x7b's in phase 32 at dh 128)
+    W, t = 4096, 5119
     p = torch.tensor([t], dtype=torch.int32, device=dev)
-    for dt, tol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
-        q = randn(1, H, dh, dtype=dt)            # bf16 last: timed below
-        kc = randn(1, K, W, dh, dtype=dt)
-        vc = randn(1, K, W, dh, dtype=dt)
-        got = dmod.decode_attention(q, kc, vc, p, window=W)
-        want = dmod.plain(q, kc, vc, p, window=W)
-        torch.cuda.synchronize()
-        e = (got.float() - want.float()).abs().max().item()
-        print(f"  decode_attention H={H} K={K} dh={dh} ring {W} pos {t} "
-              f"window {W} {str(dt)[6:]}: max abs err {e:.3e} (tol {tol})")
-        need(math.isfinite(e) and e <= tol,
-             f"decode_attention over the {W}-slot ring {dt} err {e}")
-    q4 = q[:, :, None]
-    extra_line("decode_attention", f"bf16 q (1,{H},{dh}), ring "
-               f"(1,{K},{W},{dh}), pos {t}, window {W}",
-               lambda: dmod.decode_attention(q, kc, vc, p, window=W),
-               lambda: dmod.plain(q, kc, vc, p, window=W),
-               lambda: F.scaled_dot_product_attention(q4, kc, vc,
-                                                      enable_gqa=True),
-               decode_bound((W - 1,), H, K, dh),
-               library="SDPA over the whole ring, enable_gqa")
+    for H, K, dh in ((32, 8, 120), (32, 8, 128)):
+        for dt, tol in ((torch.float32, F32_ATOL),
+                        (torch.bfloat16, BF16_ATOL)):
+            q = randn(1, H, dh, dtype=dt)        # bf16 last: timed below
+            kc = randn(1, K, W, dh, dtype=dt)
+            vc = randn(1, K, W, dh, dtype=dt)
+            got = dmod.decode_attention(q, kc, vc, p, window=W)
+            want = dmod.plain(q, kc, vc, p, window=W)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            print(f"  decode_attention H={H} K={K} dh={dh} ring {W} pos {t} "
+                  f"window {W} {str(dt)[6:]}: max abs err {e:.3e} (tol "
+                  f"{tol})")
+            need(math.isfinite(e) and e <= tol,
+                 f"decode_attention over the {W}-slot ring dh {dh} {dt} "
+                 f"err {e}")
+        q4 = q[:, :, None]
+        extra_line("decode_attention", f"bf16 q (1,{H},{dh}), ring "
+                   f"(1,{K},{W},{dh}), pos {t}, window {W}",
+                   lambda: dmod.decode_attention(q, kc, vc, p, window=W),
+                   lambda: dmod.plain(q, kc, vc, p, window=W),
+                   lambda: F.scaled_dot_product_attention(q4, kc, vc,
+                                                          enable_gqa=True),
+                   decode_bound((W - 1,), H, K, dh),
+                   library="SDPA over the whole ring, enable_gqa")
 
 
 def ssd_fwd_bounds(b: int, nh: int, S: int, dp: int, N: int) -> tuple:
@@ -1633,7 +1756,8 @@ def param_bytes(params) -> int:
 # phase 6: the int8-resident cold start
 # ---------------------------------------------------------------------------
 
-def hold_to_oracle(label: str, logits, deq, oracle, first: int):
+def hold_to_oracle(label: str, logits, deq, oracle, first: int,
+                   deq_label: str = "dequant-at-A"):
     """An int8-resident load's logits against the f32 oracle of its int8
     store, beside the dequant-at-A load's.  bf16 compute drifts from f32
     with depth (the residual stream is rounded after every block; the JAX
@@ -1652,16 +1776,16 @@ def hold_to_oracle(label: str, logits, deq, oracle, first: int):
     margin = (top.values[0] - top.values[1]).item()
     n = oracle.shape[1]
     agree = {k: int((v.argmax(-1) == oracle.argmax(-1)).sum())
-             for k, v in ((label, logits), ("dequant-at-A", deq))}
+             for k, v in ((label, logits), (deq_label, deq))}
     print(f"  logits against the f32 oracle (max |logit| {scale:.3f}): "
-          f"{label} {e_q:.3e}, dequant-at-A {e_deq:.3e} relative (limit "
-          f"1.1 x {e_deq:.3e}); {label} vs dequant-at-A max abs diff "
+          f"{label} {e_q:.3e}, {deq_label} {e_deq:.3e} relative (limit "
+          f"1.1 x {e_deq:.3e}); {label} vs {deq_label} max abs diff "
           f"{d:.3e}; argmax equal to the oracle's at {agree} of {n} "
           f"positions; first token {first}, oracle {int(top.indices[0])} "
           f"(top-two margin {margin:.3e})")
     need(e_q <= 1.1 * e_deq,
          f"{label} logits {e_q:.3e} from the f32 oracle, beyond 1.1 x the "
-         f"dequant-at-A load's {e_deq:.3e}")
+         f"{deq_label}'s {e_deq:.3e}")
     need(first == int(top.indices[0]) or margin <= 2 * e_deq * scale,
          f"{label} first token {first} is not the oracle's "
          f"{int(top.indices[0])}, whose margin {margin:.3e} is beyond the "
@@ -1883,19 +2007,21 @@ def scheduler_paged(cs: dict, params_q, first, slotted: dict):
 
 
 def run_scheduler(model, params, prompts, first, per_fwd, per_step,
-                  label: str, pages=None, extra=(), cache_len: int = 256
-                  ) -> dict:
+                  label: str, pages=None, extra=(), cache_len: int = 256,
+                  n_new: int = 32) -> dict:
     """Four requests through the scheduler, slotted or with ``pages``-token
     pages (prompt 37 alone first, its tokens then equal at occupancy 4;
     then all four together, the 128-token one resuming from
     the load's in-pipeline first token, beside the ``extra`` specs, which
-    join as slots free), with exact launch counts; a paged run leaves no
+    join as slots free), ``n_new`` tokens each, with exact launch counts;
+    a paged run leaves no
     page pinned and its pool's invariants hold.  Returns the tokens (the
     four's, then the extras'), the launches and the ms per step."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving import DecodeScheduler, GenerateSpec
-    specs = [GenerateSpec(prompt=p, n_new=32) for p in prompts] + list(extra)
+    specs = [GenerateSpec(prompt=p, n_new=n_new) for p in prompts] + list(
+        extra)
     sched = DecodeScheduler(model, params, n_slots=4, cache_len=cache_len,
                             kv_page_tokens=pages)
     need(set(sched.kernel_modes().values()) == {"cuda"},
@@ -1919,7 +2045,7 @@ def run_scheduler(model, params, prompts, first, per_fwd, per_step,
         f"{st['kv_pages_used']} of {st['kv_pages_total']} used, "
         f"{st['kv_pages_pinned']} pinned, prefix hits "
         f"{st['kv_prefix_hits']}")
-    print(f"  scheduler, {label}: one request alone 32 tokens in "
+    print(f"  scheduler, {label}: one request alone {n_new} tokens in "
           f"{(t2 - t1) * 1e3:.1f} ms; {len(specs)} concurrent "
           f"{(t3 - t2) * 1e3:.1f} "
           f"ms; {st['steps']} steps, max occupancy {st['max_occupancy']}; "
@@ -1938,7 +2064,7 @@ def run_scheduler(model, params, prompts, first, per_fwd, per_step,
          f"(first difference at "
          f"{first_diff(alone.tokens, results[0].tokens)})")
     return {"tokens": [r.tokens for r in results], "ms": (ms1, ms4),
-            "launches": got}
+            "launches": got, "stats": st}
 
 
 # ---------------------------------------------------------------------------
@@ -1948,6 +2074,9 @@ def run_scheduler(model, params, prompts, first, per_fwd, per_step,
 # arch -> the store the cold start reads (None: f32, cast to bf16 at A;
 # "int8": dequantized to bf16 at A)
 RECURRENT = {"mamba2-780m": None, "recurrentgemma-2b": "int8"}
+# the layers phases 10-11 run of each (48 and 26 at full depth until PR
+# 33; phase 28 trains both at full depth): a cut that pays for phase 32
+RECURRENT_LAYERS = {"mamba2-780m": 6, "recurrentgemma-2b": 5}
 
 
 def kernel_counts(cfg, *, quant: bool = False, paged: bool = False) -> tuple:
@@ -1955,28 +2084,32 @@ def kernel_counts(cfg, *, quant: bool = False, paged: bool = False) -> tuple:
     step, from the layer kinds.  A paged step runs
     ``decode_attention_paged`` where a slotted one runs
     ``decode_attention``, but for sliding-window layers, whose rings stay
-    slot-resident (h2o-danube-3-4b: every layer).  Int8-resident params
-    (``quant``) add a ``quant_matmul`` for every weight product, 6 an
-    rglru layer (wx, wgate, wy and the GeGLU MLP's wg, wu, wd), 7 an
-    attention layer (wq, wk, wv, wo and the MLP) and 1 for an untied
-    head, and a ``weight_transform`` for every dequant at use: 2 an ssd
-    layer (in_proj, out_proj) and 1 for a tied head.  The keys a path
-    must not launch are kept at 0."""
+    slot-resident (h2o-danube-3-4b and mixtral-8x7b: every layer).
+    Int8-resident params (``quant``) add a ``quant_matmul`` for every
+    weight product, 6 an rglru layer (wx, wgate, wy and the GeGLU MLP's
+    wg, wu, wd), 7 an attention layer (wq, wk, wv, wo and the MLP), an MoE
+    layer 4 and 3 an expert (:func:`quant_products`: the router is
+    dequantized) and 3 for a dense residual, and 1 for an untied head,
+    and a ``weight_transform`` for every dequant at use: 2 an ssd layer
+    (in_proj, out_proj) and 1 for a tied head.  The keys a path must not
+    launch are kept at 0."""
     kinds = cfg.layer_kinds()
-    n = {k: kinds.count(k) for k in ("ssd", "rglru", "attn")}
-    ring = n["attn"] if cfg.sliding_window else 0
+    n = {k: kinds.count(k) for k in ("ssd", "rglru", "attn", "moe")}
+    attn = n["attn"] + n["moe"]        # layers with one attention each
+    ring = attn if cfg.sliding_window else 0
     norms = 2 * len(kinds) + 1         # two a layer, and the final norm
     per_forward = {"ssd_scan": n["ssd"], "rglru_scan": n["rglru"],
-                   "flash_attention": n["attn"], "rmsnorm": norms}
-    per_step = {"decode_attention": n["attn"], "rmsnorm": norms}
+                   "flash_attention": attn, "rmsnorm": norms}
+    per_step = {"decode_attention": attn, "rmsnorm": norms}
     keep = set()
     if paged:
-        per_step["decode_attention_paged"] = n["attn"] - ring
+        per_step["decode_attention_paged"] = attn - ring
         per_step["decode_attention"] = ring
         keep |= {"decode_attention", "decode_attention_paged"}
     if quant:
-        products = {"quant_matmul": 6 * n["rglru"] + 7 * n["attn"] + int(
-                        not cfg.tie_embeddings),
+        moe_layer = 4 + 3 * cfg.n_experts + 3 * int(cfg.dense_residual)
+        products = {"quant_matmul": 6 * n["rglru"] + 7 * n["attn"]
+                    + moe_layer * n["moe"] + int(not cfg.tie_embeddings),
                     "weight_transform": 2 * n["ssd"] + int(
                         cfg.tie_embeddings)}
         per_forward.update(products)
@@ -1998,9 +2131,10 @@ def delta(before: dict) -> dict:
 
 
 def recurrent_family(dev, workdir: str, arch: str) -> dict:
-    """Full-width cicada cold start of ``arch`` (first token inside the
-    final E), warm forward against the in-pipeline logits, greedy
-    generation, then four concurrent requests through the slotted
+    """Full-width cicada cold start of ``arch`` at RECURRENT_LAYERS of its
+    layers (first token inside the final E), warm forward against the
+    in-pipeline logits, greedy generation, then four concurrent requests
+    through the slotted
     scheduler and the rows probe; then the same four through the paged
     scheduler (16-token pages), and the int8-resident load and its
     schedulers (:func:`recurrent_int8`).  Returns each path's launch
@@ -2018,7 +2152,8 @@ def recurrent_family(dev, workdir: str, arch: str) -> dict:
     from repro_torch.store.store import (BandwidthModel, WeightStore,
                                          deploy_model)
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=RECURRENT_LAYERS[arch])
     quant = RECURRENT[arch]
     int8_name = arch if quant == "int8" else f"{arch}-int8"
     per_fwd, per_step = kernel_counts(cfg)
@@ -2137,13 +2272,13 @@ def recurrent_family(dev, workdir: str, arch: str) -> dict:
 
 
 def check_tokens(label: str, prompts, got, want,
-                 what: str = "reference_generate"):
-    """Each request's 32 tokens equal ``want``'s."""
+                 what: str = "reference_generate", n: int = 32):
+    """Each request's ``n`` tokens equal ``want``'s."""
     for p, g, w in zip(prompts, got, want):
         same = g == w
         print(f"  {label} prompt {len(p)}: "
               f"{'equal to' if same else 'DIFFERS from'} {what}: {g}")
-        need(len(g) == 32 and same,
+        need(len(g) == n and same,
              f"{label} prompt {len(p)} differs from {what} at token "
              f"{first_diff(w, g)}")
 
@@ -3987,7 +4122,8 @@ def sharded_cold_starts(dev, workdir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 MIXTRAL_LAYERS = 2          # of mixtral-8x7b's 32, at full width
-INTERNVL_LAYERS = 2         # of internvl2-76b's 80, at full width
+INTERNVL_LAYERS = 1         # of internvl2-76b's 80, at full width (cut
+                            # from 2 to pay for phase 32)
 HUBERT_FRAMES = 256         # one (1, 256, 512) frame batch
 # a card/CPU difference in an expert choice is a near-tie when the
 # routing weights it swaps differ by at most this much
@@ -4017,11 +4153,12 @@ def card_units(model, seed: int = 0):
         yield name, model.init_unit(name, gen)
 
 
-def check_card_quantization(model, store, name: str, unit: str):
+def check_card_quantization(model, store, name: str, unit: str,
+                            skip=()):
     """One unit of a store deployed from :func:`card_units` (seed 0),
     quantized on the card, against the host's quantization of the same
     draw (numpy's formula in torch's CPU ops): every int8 value and scale
-    bit-equal."""
+    bit-equal, but for the leaves in ``skip``."""
     import numpy as np
     import torch
     from repro_torch.models import transformer
@@ -4029,13 +4166,15 @@ def check_card_quantization(model, store, name: str, unit: str):
     gen = torch.Generator(device=model.device).manual_seed(
         transformer.unit_seed(0, model.unit_names().index(unit)))
     tree = model.init_unit(unit, gen)
-    stored = store.read_and_deserialize(name, unit)
+    # the same files without the simulated device's 2000 MB/s
+    stored = store_mod.WeightStore(store.root).read_and_deserialize(name,
+                                                                    unit)
     n = 0
     for path, leaf in store_mod.flatten_unit(tree):
-        if leaf.ndim < 2:
+        if leaf.ndim < 2 or path in skip:
             continue
         q, s = store_mod.quantize_int8(leaf.cpu().numpy())
-        got_q, got_s = stored[path]
+        got_q, got_s = stored.pop(path)
         need(np.array_equal(got_q.numpy(), q) and
              np.array_equal(got_s.numpy(), s),
              f"{name}/{unit}/{path}: the card's int8 differs from the host's")
@@ -4088,15 +4227,63 @@ def unit_f32_bytes(model) -> int:
                for n in model.unit_names())
 
 
+# a deploy needs this many times its store's bytes free on the disk
+DISK_MARGIN = 1.1
+# phase 32's stores lie in host memory: the card's machine takes at most
+# 45 GiB of writes to its disk in a run, and mixtral-8x7b's int8 store
+# alone is 43.5 GiB; the host memory a store there leaves to the process
+# (its pinned read buffers, a unit's int8 in a deploy)
+SHM = "/dev/shm"
+HOST_RESERVE = 12 << 30
+
+
+def int8_store_bytes(model) -> int:
+    """The bytes of ``model``'s int8 store, from its abstract units (at
+    most 63 more a leaf than the store's: each leaf counted 64-byte
+    aligned): a byte a value and an f32 scale a column of each 2-D+ float
+    leaf, the other leaves at their dtype."""
+    from repro_torch import tree as tree_util
+    total = 0
+    for n in model.unit_names():
+        for t in tree_util.leaves(model.abstract_unit(n)):
+            nb = (t.numel() + 4 * t.shape[-1]
+                  if t.dim() >= 2 and t.dtype.is_floating_point
+                  else t.numel() * t.element_size())
+            total += nb + (-nb) % 64
+    return total
+
+
+def disk_free(path: str, when: str) -> int:
+    """Prints and returns the bytes free on ``path``'s file system; for a
+    directory in host memory (:data:`SHM`) the host memory available
+    beyond :data:`HOST_RESERVE`, where that is less."""
+    u = shutil.disk_usage(path)
+    free, mem = u.free, ""
+    if os.path.realpath(path).startswith(SHM + os.sep):
+        avail = mem_available()
+        free = min(free, avail - HOST_RESERVE)
+        mem = (f" (in host memory: {avail / 1e9:.1f} GB available, "
+               f"{HOST_RESERVE / 1e9:.0f} GB of it kept for the process)")
+    print(f"  disk at {path} {when}: {u.free / 1e9:.1f} GB free of "
+          f"{u.total / 1e9:.1f} GB{mem}")
+    return free
+
+
 def deploy_int8(model, workdir: str, name: str):
     """An int8 store of ``model`` at 2000 MB/s, deployed one unit at a
-    time from card-drawn weights; prints its sizes and the peak of the
-    process's resident memory during the deploy, which
+    time from card-drawn weights, once the disk holds
+    :data:`DISK_MARGIN` x its bytes free; prints its sizes and the peak
+    of the process's resident memory during the deploy, which
     :data:`DEPLOY_RSS_UNITS` bounds in units of the largest unit's f32
     bytes."""
     from repro_torch.store.store import (BandwidthModel, WeightStore,
                                          deploy_model)
     cfg = model.cfg
+    want = int8_store_bytes(model)
+    free = disk_free(workdir, f"before {name}'s deploy")
+    need(free >= DISK_MARGIN * want,
+         f"{name}: {free / 1e9:.1f} GB free at {workdir}, under "
+         f"{DISK_MARGIN} x its store's {want / 1e9:.1f} GB")
     t0 = time.perf_counter()
     store = WeightStore(os.path.join(workdir, name),
                         BandwidthModel(bandwidth_mbps=2000))
@@ -4187,15 +4374,18 @@ def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def check_expert_transform(store, name: str, unit: str, leaf: str):
+def check_expert_transform(store, name: str, unit: str, leaf: str,
+                           timed: bool = True):
     """``weight_transform`` on one 3-D expert leaf as A applies it (the
     int8 (E, d, f) values as (E * d, f) rows, one scale over f), against
     its plain version, bit for bit, and timed (outside every path's
-    count)."""
+    count; not where phase 3 times the shape)."""
     import torch
     from repro_torch.kernels import weight_transform as wmod
-    leaves = store.read_and_deserialize(name, unit)
-    q, s = (t.cuda() for t in leaves[leaf])
+    from repro_torch.store.store import WeightStore
+    # the leaf alone, without the simulated device's 2000 MB/s
+    q, s = (t.cuda() for t in WeightStore(store.root).read_leaf_slice(
+        name, unit, leaf, None))
     got = wmod.weight_transform(q, s, out_dtype=torch.bfloat16)
     same = torch.equal(got, wmod.plain(q, s, out_dtype=torch.bfloat16))
     print(f"  weight_transform on {unit}/{leaf} int8 {tuple(q.shape)} "
@@ -4203,14 +4393,16 @@ def check_expert_transform(store, name: str, unit: str, leaf: str):
     need(same, f"weight_transform {leaf} differs from its plain version")
     del got
     n, m = q.shape
-    extra_line("weight_transform", f"expert leaf int8 ({n},{m}) -> bf16",
-               lambda: wmod.weight_transform(q, s, out_dtype=torch.bfloat16),
-               lambda: wmod.plain(q, s, out_dtype=torch.bfloat16),
-               lambda: (q.float() * s).to(torch.bfloat16),
-               cost_bound("weight_transform", q, s,
-                          out_dtype=torch.bfloat16, peak=torch.float32),
-               "(w.float() * s).to(dt)")
-    del q, s, leaves
+    if timed:
+        extra_line("weight_transform", f"expert leaf int8 ({n},{m}) -> bf16",
+                   lambda: wmod.weight_transform(q, s,
+                                                 out_dtype=torch.bfloat16),
+                   lambda: wmod.plain(q, s, out_dtype=torch.bfloat16),
+                   lambda: (q.float() * s).to(torch.bfloat16),
+                   cost_bound("weight_transform", q, s,
+                              out_dtype=torch.bfloat16, peak=torch.float32),
+                   "(w.float() * s).to(dt)")
+    del q, s
     torch.cuda.empty_cache()
 
 
@@ -4265,24 +4457,28 @@ def kernel_profile(fn, calls: int = 3) -> tuple:
     return (sum(r[2] for r in rows), sum(r[1] for r in rows), rows)
 
 
-def mixtral_costs(model, pb, pq):
-    """What a mixtral step and a long prefill spend: one decode step at
-    B = 4 (positions 37/64/100/128 of a 256-slot cache) on bf16-resident
-    and on int8-resident weights, its host ms per eager call beside its
-    device ms and launches from a profiler trace, with the kernels that
-    take most of the device time; then the router's fixed-order tree
-    against one ``x @ w`` over a 4096-token prompt at mixtral's width
-    (d 4096, 8 experts) and at arctic-480b's (d 7168, 128 experts, its
-    peak memory), and one 4096-token prefill forward of the bf16 model.
-    Measurements only: their launches are outside every path's count."""
+def mixtral_costs(model, steps: dict, prefill=None, floor_ms=None):
+    """What an MoE step and a long prefill spend: one decode step at B = 4
+    (positions 37/64/100/128 of a 256-slot cache) on each of ``steps``'
+    params (label -> params), its host ms per eager call beside its device
+    ms and launches from a profiler trace, with the kernels that take most
+    of the device time (and ``floor_ms``, the step's byte floor, beside
+    them); then, given ``prefill`` params, the router's fixed-order tree
+    against one ``x @ w`` over a 4096-token prompt at mixtral's width (d
+    4096, 8 experts) and at arctic-480b's (d 7168, 128 experts, its peak
+    memory), and one 4096-token prefill forward on them.  Measurements
+    only: their launches are outside every path's count."""
     import torch
     from repro_torch.models import moe
     cfg = model.cfg
     dev = model.device
     tok = torch.zeros((4, 1), dtype=torch.int64, device=dev)
     pos = torch.tensor([37, 64, 100, 128], dtype=torch.int32, device=dev)
+    floor = "" if floor_ms is None else (
+        f"; the byte floor (every weight read once at 3.35 TB/s) "
+        f"{floor_ms:.3f} ms")
     with torch.no_grad():
-        for label, params in (("bf16", pb), ("int8-resident", pq)):
+        for label, params in steps.items():
             cache = model.init_cache(4, 256)
 
             def step():
@@ -4291,12 +4487,16 @@ def mixtral_costs(model, pb, pq):
             dev_ms, n, rows = kernel_profile(step)
             top = "; ".join(f"{k[:48]} x{c:g} {t:.3f} ms"
                             for k, c, t in rows[:6])
-            print(f"  decode step at B=4, {label}: {host:.3f} ms per eager "
-                  f"call (CUDA events), device {dev_ms:.3f} ms in {n:g} "
-                  f"launches (profiler); most device time: {top}")
-            need(dev_ms > 0, f"mixtral {label}: the profiler saw no device "
-                 f"time")
+            print(f"  decode step at B=4, {cfg.n_layers} layers, {label}: "
+                  f"{host:.3f} ms per eager call (CUDA events), device "
+                  f"{dev_ms:.3f} ms in {n:g} launches (profiler){floor}; "
+                  f"most device time: {top}")
+            need(dev_ms > 0, f"{cfg.name} {label}: the profiler saw no "
+                 f"device time")
             del cache
+        if prefill is None:
+            torch.cuda.empty_cache()
+            return
         g = torch.Generator(device=dev).manual_seed(3)
         for d, E in ((cfg.d_model, cfg.n_experts), (7168, 128)):
             x = torch.randn(1, 4096, d, generator=g, device=dev)
@@ -4316,19 +4516,172 @@ def mixtral_costs(model, pb, pq):
             del x, w
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 4096),
                                          generator=g, device=dev)}
-        fwd = call_ms(lambda: model.forward(pb, batch), iters=2, warm=1)
+        fwd = call_ms(lambda: model.forward(prefill, batch), iters=2, warm=1)
         print(f"  prefill forward of 4096 tokens, bf16, {cfg.n_layers} "
               f"layers: {fwd:.1f} ms per eager call")
+    torch.cuda.empty_cache()
+
+
+def streamed_logits(model, params, batch, forced=None) -> dict:
+    """The f32 and the bf16 forward of int8-resident ``params`` over
+    ``batch`` where no whole load at either dtype fits the card: a unit
+    at a time, in ``unit_names()`` order, each unit dequantized from
+    ``params`` at f32 and at bf16 (``QuantLeaf.astype``, the plain
+    ``weight_transform``; other leaves cast, as ``apply_dtype`` casts
+    them), applied with ``LM.unit_apply`` to that dtype's hidden state,
+    then freed: what a load of the store at that dtype would answer.
+    Returns {dtype: logits}.  ``forced``: a list that gets, block by
+    block, :func:`forced_reading` of the bf16 unit and of the
+    int8-resident one (``params``' own, through ``model``) applied to the
+    f32 forward's input of that block, against its f32 output.  A check:
+    its launches are outside every path's count."""
+    import torch
+    from repro_torch import quant
+    from repro_torch import tree as tree_util
+    from repro_torch.models import transformer
+    blocks = [p for _, p in model._layers(params["blocks"])]
+    f32, bf16 = torch.float32, torch.bfloat16
+    runs = {}
+    for dt in (f32, bf16):
+        runs[dt] = (transformer.build(dataclasses.replace(
+            model.cfg, compute_dtype=dt), device=model.device),
+            {"batch": batch_dev(batch, model.device)})
+    for name in model.unit_names():
+        up = (params[name] if name in ("embed", "final")
+              else blocks[int(name.split("_")[1])])
+        units = {dt: tree_util.unflatten(up, {
+            "/".join(path): (leaf.astype(dt) if quant.is_quant(leaf)
+                             else leaf.to(dt))
+            for path, leaf in tree_util.leaves_with_path(up)})
+            for dt in runs}
+        if forced is not None and name.startswith("block_"):
+            (m32, s32), (m16, _) = runs[f32], runs[bf16]
+            teacher = dict(s32, x=s32["x"].to(bf16))
+            outs, weights = {}, {}
+            for key, (m, unit, state) in {
+                    "f32": (m32, units[f32], s32),
+                    "bf16": (m16, units[bf16], teacher),
+                    "int8": (model, up, teacher)}.items():
+                with route_spy() as spy:
+                    outs[key] = m.unit_apply(name, unit, state)
+                weights[key] = spy.weights
+            forced.append(forced_reading(model.cfg, name, outs, weights))
+            runs[f32] = (m32, outs.pop("f32"))
+            del outs, teacher
+            runs[bf16] = (m16, m16.unit_apply(name, units[bf16],
+                                              runs[bf16][1]))
+        else:
+            for dt, (m, state) in runs.items():
+                runs[dt] = (m, m.unit_apply(name, units[dt], state))
+        del units
+    return {dt: state["logits"] for dt, (_, state) in runs.items()}
+
+
+def forced_reading(cfg, name: str, outs: dict, weights: dict) -> dict:
+    """One block of :func:`streamed_logits`' teacher-forced comparison:
+    the bf16 and the int8-resident outputs against the f32 one, at the
+    tokens whose experts every router call of the three kept alike
+    (:func:`keep_pattern`; a token another kept differently carries other
+    experts' outputs, whatever the arithmetic): their count, and each
+    output's largest and root-mean-square distance there."""
+    import torch
+    kept = {k: torch.cat([keep_pattern(cfg, w) for w in ws], dim=1)
+            for k, ws in weights.items()}
+    agree = ((kept["f32"] == kept["bf16"]) &
+             (kept["f32"] == kept["int8"])).all(dim=-1)          # (B, S)
+    y32 = outs["f32"]["x"]
+    mask = agree.to(y32.device)
+    out = {"block": name, "agree": int(agree.sum()),
+           "tokens": agree.numel()}
+    for k in ("bf16", "int8"):
+        d = (outs[k]["x"].float() - y32)[mask]
+        out[k] = ((d.abs().max().item(), d.pow(2).mean().sqrt().item())
+                  if d.numel() else (float("nan"), float("nan")))
+    return out
+
+
+# the share of a block's tokens whose kept experts the f32, bf16 and
+# int8-resident router calls must share in the teacher-forced comparison
+FORCED_AGREE = 0.5
+
+
+def hold_layers(label: str, readings: list):
+    """:func:`streamed_logits`' teacher-forced readings held block by
+    block: at least FORCED_AGREE of the tokens keep the same experts in
+    all three runs, and there the int8-resident output's root-mean-square
+    distance from the f32 one is at most 1.1x the bf16 unit's (its weights
+    are not rounded to bf16).  The largest distances are printed, not
+    held: a maximum over one block's elements swings by a tenth either
+    way (at smoke size on the CPU, 0.7x-1.1x block by block), the root
+    mean square does not."""
+    agree = min(r["agree"] / r["tokens"] for r in readings)
+    ratio = max(r["int8"][1] / r["bf16"][1] for r in readings)
+    worst = max(readings, key=lambda r: r["int8"][1] / r["bf16"][1])
+    e_q = max(r["int8"][0] for r in readings)
+    e_16 = max(r["bf16"][0] for r in readings)
+    print(f"  {label}, block by block from the f32 forward's input "
+          f"({len(readings)} blocks, tokens whose kept experts all three "
+          f"share: at least {agree:.3f} of each block's): int8-resident "
+          f"rms distance at most {ratio:.3f}x the bf16 unit's (at "
+          f"{worst['block']}: {worst['int8'][1]:.3e} against "
+          f"{worst['bf16'][1]:.3e}); largest distance int8-resident "
+          f"{e_q:.3e}, bf16 {e_16:.3e}")
+    for r in readings:
+        need(r["agree"] >= FORCED_AGREE * r["tokens"],
+             f"{label} {r['block']}: {r['agree']} of {r['tokens']} tokens "
+             f"keep the same experts in the f32, bf16 and int8 runs")
+        need(r["int8"][1] <= 1.1 * r["bf16"][1],
+             f"{label} {r['block']}: int8-resident rms distance "
+             f"{r['int8'][1]:.3e} beyond 1.1x the bf16 unit's "
+             f"{r['bf16'][1]:.3e}")
+
+
+# the streamed f32 forward against the f32-at-A load of the same store, of
+# max |logit|, where the two are not bit-equal
+STREAMED_TOL = 1e-6
+
+
+def check_streamed(model, params_q, store, name: str, batch):
+    """The streamed oracle (:func:`streamed_logits`) held to the cicada
+    load of the same int8 store with f32 at A: its f32 logits bit-equal
+    (the same dequantized values through the same units), or within
+    STREAMED_TOL of max |logit|."""
+    import torch
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    streamed = streamed_logits(model, params_q, batch)[torch.float32]
+    torch.cuda.synchronize()
+    s_ms = (time.perf_counter() - t0) * 1e3
+    model32 = transformer.build(dataclasses.replace(
+        model.cfg, compute_dtype=torch.float32))
+    f32 = cicada_load(model32, store, name, batch,
+                      "cicada, f32 at A (the streamed oracle's check)")
+    want = f32["res"].logits
+    del f32
+    same = torch.equal(streamed, want)
+    d = (streamed - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"  streamed f32 forward ({s_ms:.1f} ms, host clock) against the "
+          f"f32-at-A load of {name}: "
+          + ("bit-equal" if same else
+             f"NOT bit-equal, max abs diff {d:.3e} ({d / scale:.3e} of "
+             f"max |logit| {scale:.3f}; limit {STREAMED_TOL})"))
+    need(same or d <= STREAMED_TOL * scale,
+         f"{name}: the streamed f32 logits differ from the f32-at-A load's "
+         f"by {d:.3e}")
+    del streamed, want
     torch.cuda.empty_cache()
 
 
 def mixtral_family(dev, workdir: str) -> dict:
     """Phase 20: mixtral-8x7b at full width, MIXTRAL_LAYERS layers, from
     an int8 store: the cicada cold start with bf16 at A and the
-    int8-resident one, 32 greedy tokens, the slotted scheduler on both
-    residencies (tokens equal ``reference_generate``'s), the rows probe
-    on a decode step of each, what a step and a long prefill spend
-    (:func:`mixtral_costs`), and the card's memory returned."""
+    int8-resident one, 32 greedy tokens, the slotted scheduler on the bf16
+    params (tokens equal ``reference_generate``'s; the int8-resident one
+    runs at 32 layers in phase 32), the rows probe on a decode step of
+    each, what a step and a long prefill spend (:func:`mixtral_costs`),
+    the streamed oracle held to an f32-at-A load (:func:`check_streamed`)
+    and the card's memory returned."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -4385,23 +4738,21 @@ def mixtral_family(dev, workdir: str) -> dict:
          f"mixtral: bad tokens {toks}")
     print(f"  reference_generate, bf16, prompt 128: 32 greedy tokens in "
           f"{gen_ms:.1f} ms (host clock, prefill + 31 decode steps): {toks}")
-    step_q = {**per_step, "quant_matmul": n_qm}
-    fwd_q = {**per_fwd, "quant_matmul": n_qm}
-    runs = {"bf16": run_scheduler(model, pb, prompts, cast["first"],
-                                  per_fwd, per_step, "mixtral bf16"),
-            "int8": run_scheduler(model, pq, prompts, quant["first"],
-                                  fwd_q, step_q, "mixtral int8-resident")}
+    # the int8-resident scheduler runs at 32 layers in phase 32
+    run = run_scheduler(model, pb, prompts, cast["first"], per_fwd,
+                        per_step, "mixtral bf16")
     path = ops.registry.dispatch_snapshot()
     transform_share(store, "mixtral-int8", torch.bfloat16,
                     cast["res"].trace.summary()["work_A"],
                     cast["load"]["weight_transform"])
+    check_tokens("mixtral bf16", prompts, run["tokens"],
+                 [toks if len(p) == 128 else
+                  reference_generate(model, pb, p, n_new=32)
+                  for p in prompts])
     for label, params in (("bf16", pb), ("int8", pq)):
-        check_tokens(f"mixtral {label}", prompts, runs[label]["tokens"],
-                     [toks if label == "bf16" and len(p) == 128 else
-                      reference_generate(model, params, p, n_new=32)
-                      for p in prompts])
         rows_probe(model, params, prompts, f"mixtral {label}")
-    mixtral_costs(model, pb, pq)
+    mixtral_costs(model, {"bf16": pb, "int8-resident": pq}, prefill=pb)
+    check_streamed(model, pq, store, "mixtral-int8", batch)
     out = {"launches": path,
            "kernels": ("flash_attention", "decode_attention", "quant_matmul",
                        "weight_transform", "rmsnorm"),
@@ -4417,20 +4768,45 @@ def mixtral_family(dev, workdir: str) -> dict:
 
 @contextlib.contextmanager
 def route_spy():
-    """Records every router's probabilities (B, S, E) while it is open, in
-    call order (one per MoE layer of a forward)."""
+    """Records every router call while it is open, in call order (one per
+    MoE layer of a forward or a prefill chunk), on the host: its
+    probabilities (B, S, E) in ``.probs`` and its sparse top-k weights
+    ``w_te`` (B, S, E) in ``.weights``."""
+    import types
     from repro_torch.models import moe
-    real, rec = moe.route, []
+    real, rec = moe.route, types.SimpleNamespace(probs=[], weights=[])
 
     def route(cfg, w, x):
         out = real(cfg, w, x)
-        rec.append(out[1].float().cpu())
+        rec.weights.append(out[0].float().cpu())
+        rec.probs.append(out[1].float().cpu())
         return out
     moe.route = route
     try:
         yield rec
     finally:
         moe.route = real
+
+
+def keep_pattern(cfg, w_te):
+    """The (token, expert) pairs one MoE call keeps, (B, S, E) bool, from
+    its sparse weights ``w_te`` (B, S, E) as ``moe.moe_block`` selects
+    them: per (row, expert) the top ``moe.capacity(cfg, S)`` tokens by
+    weight (``moe.top_k``, the lower index first among equal weights),
+    of which those with weight 0 (not chosen) carry nothing."""
+    import torch
+    from repro_torch.models import moe
+    B, S, E = w_te.shape
+    g, idx = moe.top_k(w_te.transpose(1, 2), moe.capacity(cfg, S))
+    kept = torch.zeros((B, E, S), dtype=torch.bool)
+    kept.scatter_(2, idx, g > 0)
+    return kept.transpose(1, 2)
+
+
+def dropped_tokens(w_te, kept) -> int:
+    """Tokens of which at least one chosen expert (weight > 0) was over
+    its capacity."""
+    return int(((w_te > 0) & ~kept).any(dim=-1).sum())
 
 
 def routing_agreement(card, cpu, k: int) -> tuple:
@@ -4477,13 +4853,14 @@ def mixtral_card_vs_cpu(workdir: str, mix: dict):
     for side, d in (("card", None), ("cpu", "cpu")):
         m = transformer.build(cfg, device=d)
         t0 = time.perf_counter()
-        with route_spy() as probs:
+        with route_spy() as spy:
             res = ColdStartEngine(m, "mixtral-int8", store, strategy="cicada",
                                   device=d).load({"tokens": torch.as_tensor(
                                       prompt)})
         toks = reference_generate(m, res.params, prompt[0],
                                   n_new=CPU_TOKENS, device=d)
-        got[side] = (res.logits.float().cpu(), toks, res.params, probs, m)
+        got[side] = (res.logits.float().cpu(), toks, res.params, spy.probs,
+                     m)
         print(f"  {side}: f32 load and {CPU_TOKENS} greedy tokens in "
               f"{time.perf_counter() - t0:.1f} s (host clock)")
     a, b = got["card"][0], got["cpu"][0]
@@ -4739,7 +5116,7 @@ BWD_CASES = (
     (2, 256, 32, 8, 128, True, 0, ("bfloat16", "float32")))
 # rmsnorm_bwd: smollm's training rows, a ragged row count, the widest d
 NORM_BWD_CASES = ((8, 512, 960), (3, 7, 3072), (2, 3, 20), (5, 8192))
-TRAIN_STEPS = 30            # the full-width run through launch/train.py
+TRAIN_STEPS = 15            # the full-width run through launch/train.py
 
 
 def sdpa_grads(q, k, v, do, causal: bool, window: int):
@@ -5276,7 +5653,7 @@ def training(dev, workdir: str, report: dict) -> dict:
     from repro_torch.training.train import make_train_step
     t0 = time.perf_counter()
     check_backward_kernels(dev, report)
-    train_card_vs_cpu(dev)
+    train_card_vs_cpu(dev, n_layers=2)
     t1 = time.perf_counter()
 
     cfg = get_config("smollm-360m")
@@ -5372,7 +5749,7 @@ def training(dev, workdir: str, report: dict) -> dict:
             tokens / med * 1e3, "peak_bytes": peak, "busy": busy / wall}
 
 
-TRAIN28_STEPS = 20          # each full-width run through launch/train.py
+TRAIN28_STEPS = 12          # each full-width run through launch/train.py
 TRAIN28_LR = "1e-3"         # its --lr
 # the full-width runs: (arch, depth; the config's); the card against the
 # CPU at f32: (arch, layers, batch, seq)
@@ -5960,7 +6337,9 @@ def chunked_prefill(dev) -> dict:
 # phase 30: the dry run against the card
 # ---------------------------------------------------------------------------
 
-DRYRUN_WORKERS = 8          # processes tracing the meta table (8 cores)
+# processes tracing the meta table, beside phase 32's mixtral deploy
+# (which keeps a core or two of the 8 busy)
+DRYRUN_WORKERS = 4
 # the cells run for real: (arch, shape, batch as cut from the published)
 DRYRUN_CARD = (("smollm-360m", "train_4k", 2),
                ("smollm-360m", "prefill_32k", 1),
@@ -5980,24 +6359,34 @@ def alloc_slack(nbytes: int) -> int:
     return 511 + (511 if nbytes <= 1 << 20 else 1 << 20)
 
 
-def dryrun_table() -> list:
+def meta_table() -> tuple:
     """``launch/dryrun.py --all --both-meshes`` on meta tensors, in
     :data:`DRYRUN_WORKERS` processes, the train cells (the longest)
-    first: every cell ok or skipped, the skips the 7 cells (x 2 meshes)
-    the reference skips, with its reasons (``configs.supported``, held to
-    the reference's by ``tests/test_torch_dryrun.py``)."""
-    from repro_torch.configs import SHAPES, supported
+    first.  CPU work: :func:`mixtral_full` runs it beside its deploy
+    (set-up, which waits on the card and on writes) and phase 30 reads
+    it (:func:`dryrun_table`).  Returns (records, s)."""
     from repro_torch.launch import dryrun
-    from repro_torch.models.api import get_config
     jobs = [(a, s, dict(multi_pod=mp, costs=not mp))
             for a, s in dryrun.iter_cells() for mp in (False, True)]
     jobs.sort(key=lambda j: j[1] != "train_4k")
     t0 = time.perf_counter()
     recs = list(dryrun.records(jobs, DRYRUN_WORKERS))
+    return recs, time.perf_counter() - t0
+
+
+def dryrun_table(table) -> list:
+    """The meta table of :func:`meta_table`: every cell ok or
+    skipped, the skips the 7 cells (x 2 meshes) the reference skips, with
+    its reasons (``configs.supported``, held to the reference's by
+    ``tests/test_torch_dryrun.py``)."""
+    from repro_torch.configs import SHAPES, supported
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import get_config
+    recs, secs = table
     for rec in recs:
         print("  " + dryrun.summary(rec))
-    print(f"  the table: {len(recs)} records in "
-          f"{time.perf_counter() - t0:.1f} s ({DRYRUN_WORKERS} workers, "
+    print(f"  the table: {len(recs)} records in {secs:.1f} s beside phase "
+          f"32's mixtral deploy ({DRYRUN_WORKERS} workers, "
           f"{sum(r.get('trace_s', 0) for r in recs):.1f} s of traces)")
     bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r.get('error')}"
            for r in recs if r["status"] not in ("ok", "skip")]
@@ -6129,11 +6518,12 @@ def dryrun_on_card(dev, arch: str, shape: str, batch: int) -> dict:
                                          for n in last}}
 
 
-def dryrun_phase(dev) -> dict:
-    """Phase 30: the meta table, then :data:`DRYRUN_CARD` on the card."""
+def dryrun_phase(dev, table) -> dict:
+    """Phase 30: the meta table (``table``, :func:`meta_table`'s), then
+    :data:`DRYRUN_CARD` on the card."""
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
-    dryrun_table()
+    dryrun_table(table)
     t1 = time.perf_counter()
     cells = [dryrun_on_card(dev, *c) for c in DRYRUN_CARD]
     launches = {n: sum(c["launches"][n] for c in cells)
@@ -6147,11 +6537,14 @@ def dryrun_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 31: the dense configs at full width and depth
+# phase 31: the dense configs at full width (their depth cut for phase 32)
 # ---------------------------------------------------------------------------
 
-# (arch, the layers of full width the card runs against the CPU)
-DENSE_FULL = (("yi-9b", 2), ("codeqwen1.5-7b", 2), ("h2o-danube-3-4b", 4))
+# (arch, the layers of full width phase 31 runs (cut from their full
+# depth, 48, 32 and 24, to pay for phase 32), those the card runs against
+# the CPU)
+DENSE_FULL = (("yi-9b", 2, 2), ("codeqwen1.5-7b", 2, 2),
+              ("h2o-danube-3-4b", 2, 2))
 # the request past a sliding window (h2o-danube-3-4b's 4096 tokens): its
 # prompt and its greedy tokens
 WINDOW_PROMPT, WINDOW_NEW = 5120, 64
@@ -6249,8 +6642,10 @@ def window_against_forward(model32, p32, prompt, cache_len: int):
          f"{sorted(set(differ) - set(ties))}")
 
 
-def dense_family(dev, workdir: str, arch: str, cpu_layers: int) -> dict:
-    """Phase 31 for one dense config at full width and depth: an int8
+def dense_family(dev, workdir: str, arch: str, layers: int,
+                 cpu_layers: int) -> dict:
+    """Phase 31 for one dense config at full width and ``layers`` of its
+    depth: an int8
     store deployed one unit at a time from card-drawn weights (the peak
     of the process's resident memory bounded); the cicada cold start with
     bf16 at A and the int8-resident one (``7 L + 1`` ``quant_matmul`` a
@@ -6272,7 +6667,7 @@ def dense_family(dev, workdir: str, arch: str, cpu_layers: int) -> dict:
     from repro_torch.models.api import get_config
     from repro_torch.serving import GenerateSpec, reference_generate
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     model = transformer.build(cfg)
     name = f"{arch}-int8"
     store = deploy_int8(model, workdir, name)
@@ -6387,11 +6782,611 @@ def dense_configs(dev, workdir: str) -> dict:
     """Phase 31: :func:`dense_family` for each of :data:`DENSE_FULL`, one
     after another.  Returns each model's path."""
     paths = {}
-    for arch, cpu_layers in DENSE_FULL:
+    for arch, layers, cpu_layers in DENSE_FULL:
         t0 = time.perf_counter()
-        paths.update(dense_family(dev, workdir, arch, cpu_layers))
+        paths.update(dense_family(dev, workdir, arch, layers, cpu_layers))
         print(f"  {arch}: {time.perf_counter() - t0:.1f} s")
     return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 32: the MoE configs at full size
+# ---------------------------------------------------------------------------
+
+# mixtral-8x7b's request past its 4096-token window: prompt, greedy tokens
+MIXTRAL_LONG_PROMPT, MIXTRAL_LONG_NEW = 5120, 32
+# the greedy tokens of each of the four scheduler requests of phase 32's
+# models (a 32-layer int8-resident mixtral step takes about 0.3 s on the
+# host)
+MOE_NEW = 8
+# arctic-480b's chunked prefill: the last chunk's logits against the
+# unchunked run's at the tokens whose keep pattern both runs share, of
+# max |logit| (f32)
+ARCTIC_CHUNK_REL = 1e-4
+
+
+def free_disk_after(workdir: str, free0: int, what: str):
+    """``workdir``'s file system back to within 1 GB of ``free0`` free
+    once a store is removed."""
+    disk_free(workdir, f"after {what}'s store was removed")
+    free1 = shutil.disk_usage(workdir).free
+    need(free1 >= free0 - (1 << 30),
+         f"{what}: {(free0 - free1) / 1e9:.1f} GB of disk not returned")
+
+
+def mixtral_full(dev, workdir: str) -> tuple:
+    """Phase 32, mixtral-8x7b at full width and its 32 layers (46.7 B
+    params), int8-resident (the one residency that fits the card): an int8
+    store deployed a unit at a time from card-drawn weights; the cicada
+    cold start with ``compute_quant`` (launches: ``lm_counts`` plus
+    ``quant_products``, phase 20's formula); 32 greedy tokens; the slotted
+    scheduler (4 requests of 37-128 tokens, MOE_NEW tokens each, and
+    one of 5120, 1024 past the window, 32 tokens) and the paged one,
+    tokens equal ``reference_generate``'s with exact launches; the
+    logits held to the streamed f32 oracle within 1.1x the streamed
+    bf16's distance, and each block from the f32 forward's input
+    (:func:`hold_layers`); one decode step's costs at occupancy 4 beside
+    its byte floor; memory and disk returned.  Phase 30's meta table
+    (:func:`meta_table`) runs beside the deploy.  Returns (the path, the
+    table)."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import GenerateSpec, reference_generate
+
+    cfg = get_config("mixtral-8x7b")
+    model = transformer.build(cfg)
+    name = "mixtral-8x7b-int8"
+    free0 = shutil.disk_usage(workdir).free
+    # phase 30's meta table beside the deploy only: set-up, whose seconds
+    # no later phase reads; the load, the steps and their costs run alone
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        meta = pool.submit(meta_table)
+        store = deploy_int8(model, workdir, name)
+        t0 = time.perf_counter()
+        table = meta.result()
+    print(f"  phase 30's meta table ran beside the deploy (its seconds are "
+          f"set-up, measured beside it); {time.perf_counter() - t0:.1f} s "
+          f"waited for the table after the deploy")
+    floor_ms = store.model_nbytes(name) / 2000e3
+    per_fwd, per_step = lm_counts(cfg)
+    fwd_q, step_q = kernel_counts(cfg, quant=True)
+    fwd_qp, step_qp = kernel_counts(cfg, quant=True, paged=True)
+    formula = {"quant_matmul": quant_products(cfg), "weight_transform": 0}
+    need(fwd_q == {**per_fwd, **formula} and
+         step_q == {**per_step, **formula} and step_qp == {
+             **step_q, "decode_attention_paged": 0},
+         f"mixtral: kernel_counts {fwd_q}, {step_q}, {step_qp} against "
+         f"lm_counts + quant_products")
+    print(f"  int8-resident: per forward {fwd_q}, per slotted step "
+          f"{step_q}, per paged step {step_qp} (the 4096-token rings stay "
+          f"slot-resident)")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 128))
+    batch = {"tokens": torch.as_tensor(prompt)}
+    prompts = [prompt[0][:n] for n in (37, 64, 100, 128)]
+    long = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                             (MIXTRAL_LONG_PROMPT,))
+    extra = (GenerateSpec(prompt=long, n_new=MIXTRAL_LONG_NEW),)
+    cache_len = MIXTRAL_LONG_PROMPT + MIXTRAL_LONG_NEW
+    mem0 = settled_memory()
+
+    ops.registry.reset_counts()
+    quant = cicada_load(model, store, name, batch,
+                        "cicada, int8-resident (compute_quant)",
+                        compute_quant=True)
+    need_counts(quant["load"], fwd_q, "mixtral int8-resident load")
+    need_counts(quant["forward"], fwd_q, "mixtral int8-resident warm forward")
+    pq = quant["res"].params
+    # the warm-up's and the units' freed blocks out of PyTorch's cache: a
+    # scheduler thread's cuBLAS handle allocates outside it
+    torch.cuda.empty_cache()
+    print(f"  load against the I/O floor {floor_ms:.0f} ms: "
+          f"{quant['res'].trace.total_time() * 1e3 / floor_ms:.2f}x; "
+          f"resident params {param_bytes(pq) / 1e9:.3f} GB")
+    before = ops.registry.dispatch_snapshot()
+    t0 = time.perf_counter()
+    toks = reference_generate(model, pq, prompt[0], n_new=32)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    need_counts(delta(before), {k: fwd_q.get(k, 0) + 31 * step_q.get(k, 0)
+                                for k in set(fwd_q) | set(step_q)},
+                "mixtral reference_generate")
+    need(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+         f"mixtral: bad tokens {toks}")
+    print(f"  reference_generate, int8-resident, prompt 128: 32 greedy "
+          f"tokens in {gen_ms:.1f} ms (host clock, prefill + 31 decode "
+          f"steps): {toks}")
+    runs = {pages: run_scheduler(
+        model, pq, prompts, quant["first"],
+        fwd_q if pages is None else fwd_qp,
+        step_q if pages is None else step_qp,
+        f"mixtral-8x7b int8-resident "
+        f"{'slotted' if pages is None else 'paged'}",
+        pages=pages, extra=extra if pages is None else (),
+        cache_len=cache_len, n_new=MOE_NEW) for pages in (None, 16)}
+    path = ops.registry.dispatch_snapshot()
+
+    # greedy: the first MOE_NEW of the 128-token prompt's 32 tokens
+    check_tokens("mixtral-8x7b int8-resident slotted", prompts,
+                 runs[None]["tokens"][:4],
+                 [toks[:MOE_NEW] if len(p) == 128 else
+                  reference_generate(model, pq, p, n_new=MOE_NEW)
+                  for p in prompts], n=MOE_NEW)
+    check_tokens("mixtral-8x7b int8-resident paged", prompts,
+                 runs[16]["tokens"], runs[None]["tokens"][:4],
+                 "the slotted run's", n=MOE_NEW)
+    got = runs[None]["tokens"][4]
+    want = reference_generate(model, pq, long, n_new=MIXTRAL_LONG_NEW,
+                              cache_len=cache_len)
+    print(f"  mixtral-8x7b int8-resident slotted prompt {len(long)} "
+          f"({len(long) - cfg.sliding_window} past the window): "
+          f"{'equal to' if got == want else 'DIFFERS from'} "
+          f"reference_generate: {got}")
+    need(len(got) == MIXTRAL_LONG_NEW and got == want,
+         f"mixtral prompt {len(long)} differs from reference_generate at "
+         f"token {first_diff(want, got)}")
+    forced = []
+    streamed = streamed_logits(model, pq, batch, forced=forced)
+    # at 32 layers the whole-forward rule cannot tell a faulty path: the
+    # streamed bf16 logits sit about as far from the f32 ones as
+    # unrelated logits would (expert choices flip and compound), so each
+    # block is also held from the f32 forward's own input
+    hold_to_oracle("mixtral-8x7b int8-resident",
+                   quant["res"].logits.float(),
+                   streamed[torch.bfloat16].float(),
+                   streamed[torch.float32].float(), quant["first"][0],
+                   deq_label="streamed bf16")
+    hold_layers("mixtral-8x7b int8-resident", forced)
+    del streamed
+    mixtral_costs(model, {"int8-resident": pq},
+                  floor_ms=param_bytes(pq) / HBM_BPS * 1e3)
+    del quant, pq, runs
+    shutil.rmtree(store.root)
+    mem1 = settled_memory()
+    print(f"  memory_allocated {mem1 / 1e6:.1f} MB after the model against "
+          f"{mem0 / 1e6:.1f} MB before its load; store removed")
+    need(mem1 <= mem0 + PLATFORM_MEM_MARGIN,
+         f"mixtral: {(mem1 - mem0) / 1e6:.1f} MB not returned")
+    free_disk_after(workdir, free0, name)
+    return {"mixtral-8x7b (32 layers)": (
+        path, ("flash_attention", "decode_attention", "quant_matmul",
+               "rmsnorm"))}, table
+
+
+def arctic_layer(dev, workdir: str) -> dict:
+    """Phase 32, one arctic-480b layer at full width (embed, block_000,
+    final: 14.07 B params, 128 experts and the dense residual): an int8
+    store drawn on the card, its block held to the host's quantization
+    and its (128, 7168, 4864) expert leaf transformed against plain;
+    cicada with bf16 at A, int8-resident and f32 at A (the oracle, loaded
+    alone), exact launches, the int8-resident logits within 1.1x the
+    bf16-at-A load's distance from it; 32 greedy tokens and both
+    schedulers (16-token pages, prefix reuse: :func:`prefix_paged`) on
+    the int8-resident params, tokens equal ``reference_generate``'s, and
+    one step's costs at occupancy 4 beside its byte floor; then the
+    chunked prefill on the f32 params (:func:`arctic_chunked`); memory and
+    disk returned."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import get_config
+    from repro_torch.serving import reference_generate
+
+    cfg = dataclasses.replace(get_config("arctic-480b"), n_layers=1)
+    model = transformer.build(cfg)
+    name = "arctic-480b-int8"
+    free0 = shutil.disk_usage(workdir).free
+    store = deploy_int8(model, workdir, name)
+    # the host's quantization of 13.6 G values took about a minute: its
+    # expert leaves wu and wd take the path of wg
+    check_card_quantization(model, store, name, "block_000",
+                            skip=("moe/experts/wu", "moe/experts/wd"))
+    check_expert_transform(store, name, "block_000", "moe/experts/wg",
+                           timed=False)
+    floor_ms = store.model_nbytes(name) / 2000e3
+    n_q, n_other = leaf_counts(store, name)
+    per_fwd, per_step = kernel_counts(cfg)
+    fwd_q, step_q = kernel_counts(cfg, quant=True)
+    fwd_qp, step_qp = kernel_counts(cfg, quant=True, paged=True)
+    print(f"  kernels per forward {per_fwd}, per decode step {per_step}; "
+          f"int8-resident per forward {fwd_q}, per slotted step {step_q}, "
+          f"per paged step {step_qp}; bf16 at A: weight_transform "
+          f"{n_q + n_other} per load ({n_q} int8 leaves, {n_other} f32 "
+          f"leaves cast)")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 128))
+    batch = {"tokens": torch.as_tensor(prompt)}
+    prompts = [prompt[0][:n] for n in (37, 64, 100, 128)]
+    mem0 = settled_memory()
+
+    ops.registry.reset_counts()
+    cast = cicada_load(model, store, name, batch, "cicada, bf16 at A",
+                       apply_dtype=torch.bfloat16)
+    need_counts(cast["load"], {**per_fwd, "weight_transform": n_q + n_other,
+                               "quant_matmul": 0}, "arctic bf16-at-A load")
+    need_counts(cast["forward"], {**per_fwd, "quant_matmul": 0},
+                "arctic bf16 warm forward")
+    work_a = (cast["res"].trace.summary()["work_A"],
+              cast["load"]["weight_transform"])
+    load_ms = {"bf16 at A": cast["res"].trace.total_time() * 1e3}
+    deq = cast["res"].logits.float()
+    del cast
+    torch.cuda.empty_cache()
+    quant = cicada_load(model, store, name, batch,
+                        "cicada, int8-resident (compute_quant)",
+                        compute_quant=True)
+    need_counts(quant["load"], fwd_q, "arctic int8-resident load")
+    need_counts(quant["forward"], fwd_q, "arctic int8-resident warm forward")
+    torch.cuda.empty_cache()
+    load_ms["int8-resident"] = quant["res"].trace.total_time() * 1e3
+    pq = quant["res"].params
+    before = ops.registry.dispatch_snapshot()
+    t0 = time.perf_counter()
+    toks = reference_generate(model, pq, prompt[0], n_new=32)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    need_counts(delta(before), {k: fwd_q.get(k, 0) + 31 * step_q.get(k, 0)
+                                for k in set(fwd_q) | set(step_q)},
+                "arctic reference_generate")
+    need(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+         f"arctic: bad tokens {toks}")
+    print(f"  reference_generate, int8-resident, prompt 128: 32 greedy "
+          f"tokens in {gen_ms:.1f} ms (host clock, prefill + 31 decode "
+          f"steps): {toks}")
+    slotted = run_scheduler(model, pq, prompts, quant["first"], fwd_q,
+                            step_q, "arctic-480b int8-resident slotted",
+                            n_new=MOE_NEW)
+    need(model.paged_kinds() == ["moe"] and model.supports_prefix_cache,
+         "arctic does not page its KV")
+    label = "arctic-480b int8-resident paged"
+    paged = prefix_paged(model, pq, prompts, fwd_qp, step_qp, label)
+    path = ops.registry.dispatch_snapshot()
+    transform_share(store, name, torch.bfloat16, *work_a)
+    refs = [toks[:MOE_NEW] if len(p) == 128 else
+            reference_generate(model, pq, p, n_new=MOE_NEW)
+            for p in prompts]
+    check_tokens("arctic-480b int8-resident slotted", prompts,
+                 slotted["tokens"], refs, n=MOE_NEW)
+    check_prefix_tokens(model, pq, prompts, paged, refs, label)
+    mixtral_costs(model, {"int8-resident": pq},
+                  floor_ms=param_bytes(pq) / HBM_BPS * 1e3)
+    logits_q, first_q = quant["res"].logits.float(), quant["first"][0]
+    del quant, pq, slotted
+    torch.cuda.empty_cache()
+    model32 = transformer.build(dataclasses.replace(
+        cfg, compute_dtype=torch.float32))
+    f32 = cicada_load(model32, store, name, batch,
+                      "cicada, f32 at A (the f32 oracle)")
+    load_ms["f32 at A"] = f32["res"].trace.total_time() * 1e3
+    print("  loads against the I/O floor "
+          f"{floor_ms:.0f} ms: " + ", ".join(
+              f"{k} {v:.1f} ms ({v / floor_ms:.2f}x)"
+              for k, v in load_ms.items())
+          + f"; f32 resident params "
+          f"{param_bytes(f32['res'].params) / 1e9:.3f} GB")
+    hold_to_oracle("arctic-480b int8-resident", logits_q, deq,
+                   f32["res"].logits.float(), first_q)
+    del deq, logits_q
+    params32 = f32["res"].params
+    del f32
+    chunked = arctic_chunked(model32, params32)
+    del params32
+    shutil.rmtree(store.root)
+    mem1 = settled_memory()
+    print(f"  memory_allocated {mem1 / 1e6:.1f} MB after the model against "
+          f"{mem0 / 1e6:.1f} MB before its loads; store removed")
+    need(mem1 <= mem0 + PLATFORM_MEM_MARGIN,
+         f"arctic: {(mem1 - mem0) / 1e6:.1f} MB not returned")
+    free_disk_after(workdir, free0, name)
+    return {"arctic-480b (1 layer)": (
+        path, ("flash_attention", "decode_attention",
+               "decode_attention_paged", "quant_matmul", "weight_transform",
+               "rmsnorm")),
+        "arctic-480b chunked prefill": (
+            chunked, ("flash_attention", "rmsnorm"))}
+
+
+def segmented_generate(model, params, prompt, off: int, n_new: int,
+                       cache_len: int = 256) -> list:
+    """``reference_generate`` (greedy, B 1, slotted) with the prompt's
+    prefill split where a paged request that reuses ``off`` tokens of
+    prefix pages splits it: ``prefill`` of ``prompt[:off]``, then
+    ``prefill_continue`` of the rest, then ``decode_step``s."""
+    import torch
+    from repro_torch.serving.decode import (GenerateSpec, sample_first,
+                                            sample_tokens)
+    dev = model.device
+    tok = torch.as_tensor(prompt, device=dev)[None]
+    S = tok.shape[1]
+    cache = model.init_cache(1, cache_len)
+    model.prefill(params, {"tokens": tok[:, :off]}, cache)
+    logits, cache = model.prefill_continue(params, {"tokens": tok[:, off:]},
+                                           cache, off=off)
+    out = [sample_first(logits, GenerateSpec(prompt=prompt, n_new=n_new), S)]
+    zero = torch.zeros(1, device=dev)
+    for t in range(S, S + n_new - 1):
+        pos = torch.tensor([t], dtype=torch.int32, device=dev)
+        logits, cache = model.decode_step(params, cache, torch.tensor(
+            [[out[-1]]], dtype=torch.int64, device=dev), pos)
+        out.append(int(sample_tokens(logits[:, -1, :], zero.long(), pos + 1,
+                                     zero)[0]))
+    return out
+
+
+# the paged scheduler's page size in phase 32's prefix reuse
+PREFIX_PAGE = 16
+
+
+def prefix_paged(model, params, prompts, per_fwd, per_step,
+                 label: str) -> list:
+    """The paged scheduler with prefix reuse, phase 22's pattern at full
+    width, MOE_NEW tokens a request: the longest prompt alone first
+    (nothing to reuse), then the others at once, each reusing the lead's
+    pages of its prefix (``(n -
+    1) // PREFIX_PAGE`` of them: a hit leaves a suffix to prefill), with
+    exact launches, every hit counted, no page pinned.  Returns each
+    request's tokens in ``prompts``' order (:func:`check_prefix_tokens`
+    holds them)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DecodeScheduler, GenerateSpec
+    pt = PREFIX_PAGE
+    sched = DecodeScheduler(model, params, n_slots=4, cache_len=256,
+                            kv_page_tokens=pt)
+    need(set(sched.kernel_modes().values()) == {"cuda"},
+         f"scheduler kernel modes {sched.kernel_modes()}")
+    before = ops.registry.dispatch_snapshot()
+    lead = sched.generate(GenerateSpec(prompt=prompts[-1], n_new=MOE_NEW))
+    rest = run_concurrent(sched, [GenerateSpec(prompt=p, n_new=MOE_NEW)
+                                  for p in prompts[:-1]], {})
+    torch.cuda.synchronize()
+    st = sched.stats()
+    got = delta(before)
+    need_counts(got, {k: len(prompts) * per_fwd.get(k, 0)
+                      + st["steps"] * per_step.get(k, 0)
+                      for k in set(per_fwd) | set(per_step)},
+                f"{label} scheduler")
+    hits = [(len(p) - 1) // pt for p in prompts[:-1]]
+    print(f"  scheduler, {label}: the {len(prompts[-1])}-token prompt "
+          f"alone, then {len(rest)} reusing its pages; {st['steps']} "
+          f"steps, prefix hits {st['kv_prefix_hits']} pages (expected "
+          f"{sum(hits)}), decode_attention_paged "
+          f"{got['decode_attention_paged']} launches "
+          f"({st['steps']} steps x {per_step['decode_attention_paged']}), "
+          f"{st['kv_pages_pinned']} pinned")
+    need(st["kv_prefix_hits"] == sum(hits) and st["kv_pages_pinned"] == 0,
+         f"{label}: prefix stats {st}")
+    sched.kvpool.check_invariants()
+    return [r.tokens for r in rest + [lead]]
+
+
+def check_prefix_tokens(model, params, prompts, results, refs, label: str):
+    """The tokens of :func:`prefix_paged`'s run: the lead's equal
+    ``reference_generate``'s (``refs``, MOE_NEW tokens each).  MoE
+    capacity is per call, so a request that prefills only its suffix may
+    keep other tokens than the whole prompt's prefill; the JAX package's
+    paged scheduler does the same (its tokens equal the port's on a
+    case with capacity drops: ``tests/test_torch_chunked_prefill.py``).
+    So each of the others is held to the same split through the slotted
+    model (:func:`segmented_generate`), which the pages, tables and
+    gathers must reproduce bit for bit, and ``refs`` are printed
+    beside."""
+    pt = PREFIX_PAGE
+    check_tokens(f"{label} alone", prompts[-1:], results[-1:], refs[-1:],
+                 n=MOE_NEW)
+    for p, r, ref in zip(prompts[:-1], results, refs):
+        h = (len(p) - 1) // pt
+        want = segmented_generate(model, params, p, h * pt, MOE_NEW)
+        print(f"  {label} prompt {len(p)} ({h * pt} tokens from prefix "
+              f"pages): {'equal to' if r == want else 'DIFFERS from'} the "
+              f"same split through the slotted model; "
+              f"{'equal to' if r == ref else 'differs from'} the whole "
+              f"prompt's reference_generate (first difference at "
+              f"{first_diff(ref, r)})")
+        need(r == want, f"{label} prompt {len(p)} differs from its split "
+             f"through the slotted model at token {first_diff(want, r)}")
+
+
+def arctic_chunked(model32, params32) -> dict:
+    """Arctic's chunked prefill past its capacity drops, on the f32 params
+    of one full-width layer: B 1, S CHUNK_PROMPT, ``prefill_chunked`` with
+    CHUNK rows against the unchunked ``prefill``, exact launches, ms and
+    peak memory (:func:`prefill_run`).  The capacity is per call (C 40 a
+    chunk of 2048, 160 for the prompt), so the tokens dropped differ; with
+    one layer attention precedes the MoE, so every cache leaf agrees
+    within CHUNK_TOL (each cache is its rows' K/V projection bit for bit,
+    :func:`kv_by_rows`, and the f32 K/V products of 2048 rows and of 8192
+    need not round alike), and the last chunk's logits
+    agree within ARCTIC_CHUNK_REL of max |logit| at every token whose
+    keep pattern (:func:`keep_pattern` of each router call's weights,
+    recorded by :func:`route_spy`) both runs share.  Some token must be
+    dropped.  Returns the launches of the two timed runs."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    cfg = model32.cfg
+    dev = model32.device
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, S = 1, CHUNK_PROMPT
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device=dev)}
+    ops.registry.reset_counts()
+    runs = {"unchunked": prefill_run(model32, params32, batch, S),
+            "chunked": prefill_run(model32, params32, batch, S, CHUNK)}
+    path = ops.registry.dispatch_snapshot()
+    need_exact(runs["unchunked"]["counts"], chunk_counts(cfg, 1),
+               "arctic unchunked prefill")
+    need_exact(runs["chunked"]["counts"], chunk_counts(cfg, S // CHUNK),
+               "arctic chunked prefill")
+    print_runs(f"arctic-480b 1 layer f32 B {B} S {S}", runs)
+    del runs
+    spied = {}
+    for side, chunk in (("unchunked", None), ("chunked", CHUNK)):
+        cache = model32.init_cache(B, S)
+        with route_spy() as spy:
+            if chunk:
+                lg, _ = model32.prefill_chunked(params32, batch, cache,
+                                                chunk=chunk)
+            else:
+                lg, _ = model32.prefill(params32, batch, cache)
+        w_te = torch.cat(spy.weights, dim=1)
+        kept = torch.cat([keep_pattern(cfg, w) for w in spy.weights], dim=1)
+        spied[side] = {"last": lg[:, -CHUNK:].clone(), "cache": cache,
+                       "calls": len(spy.weights), "w_te": w_te,
+                       "kept": kept, "drops": dropped_tokens(w_te, kept)}
+        del lg
+    u, c = spied["unchunked"], spied["chunked"]
+    need(u["calls"] == cfg.n_layers and
+         c["calls"] == cfg.n_layers * S // CHUNK,
+         f"arctic: {u['calls']} and {c['calls']} router calls recorded")
+    cache = [close_report(b, a, CHUNK_TOL) + (torch.equal(a, b),)
+             for a, b in zip(tree_util.leaves(u["cache"]),
+                             tree_util.leaves(c["cache"]))]
+    same_w = torch.equal(u["w_te"], c["w_te"])
+    tail = slice(S - CHUNK, S)
+    shared = (u["kept"][:, tail] == c["kept"][:, tail]).all(dim=-1)
+    diff = (u["last"] - c["last"]).abs().amax(dim=-1).cpu()     # (B, CHUNK)
+    scale = u["last"].abs().max().item()
+    n_cmp = int(shared.sum())
+    worst = diff[shared].max().item() if n_cmp else float("nan")
+    other = diff[~shared].max().item() if n_cmp < shared.numel() else 0.0
+    print(f"  arctic chunked against unchunked, {S} tokens, chunks of "
+          f"{CHUNK}: every cache leaf within {max(d for _, d, _ in cache):.3e}"
+          f" (tol {CHUNK_TOL}; "
+          f"{'all' if all(e for *_, e in cache) else 'not all'} bit-equal); "
+          f"routing weights {'bit-equal' if same_w else 'differ'}; tokens "
+          f"dropped "
+          f"(a chosen expert over capacity) unchunked {u['drops']} (C "
+          f"{moe.capacity(cfg, S)}), chunked {c['drops']} (C "
+          f"{moe.capacity(cfg, CHUNK)} a chunk); the last chunk's "
+          f"{CHUNK} tokens: {n_cmp} keep the same experts in both runs, "
+          f"their logits within {worst:.3e} ({worst / scale:.3e} of max "
+          f"|logit| {scale:.3f}, limit {ARCTIC_CHUNK_REL}); the "
+          f"{CHUNK - n_cmp} others up to {other:.3e}")
+    need(all(ok for ok, *_ in cache),
+         f"arctic: a cache leaf differs chunked against unchunked beyond "
+         f"{CHUNK_TOL}")
+    rebuilt, normed, products = kv_by_rows(model32, params32, batch,
+                                           u["cache"], c["cache"], CHUNK)
+    print(f"  the cause: each cache {'equals' if rebuilt else 'DIFFERS from'}"
+          f" bit for bit the K and V that qkv_project gives its rows (the "
+          f"prompt's {S} at once, unchunked; each chunk's {CHUNK} alone, "
+          f"chunked); the normed rows {'equal' if normed else 'DIFFER'} "
+          f"chunked and unchunked; the f32 K and V products of a chunk's "
+          f"rows alone against the same rows of the {S}-row product, "
+          f"chunk by chunk: max abs diff "
+          + ", ".join(f"{d:.3e}" for d in products))
+    need(rebuilt, "arctic: a cache is not the K/V of its rows' projection")
+    need(all(e for *_, e in cache) or max(products) > 0,
+         "arctic: the cache leaves differ, the K/V products by row count "
+         "do not")
+    need(max(u["drops"], c["drops"]) > 0,
+         "arctic: no token was dropped, the check sees no capacity drop")
+    need(n_cmp > 0 and worst <= ARCTIC_CHUNK_REL * scale,
+         f"arctic: the last chunk's logits differ by {worst:.3e} at tokens "
+         f"with the same keep pattern (max |logit| {scale:.3f})")
+    del spied, u, c
+    torch.cuda.empty_cache()
+    return path
+
+
+def kv_by_rows(model32, params32, batch, cache_whole, cache_chunked,
+               chunk: int) -> tuple:
+    """Where a one-layer prefill's cache comes from, chunked or not: its
+    K and V rebuilt with ``layers.qkv_project`` over the prompt's rows at
+    once (:func:`~repro_torch.models.transformer.block_prefill`'s call)
+    and over each ``chunk`` rows alone (``block_chunk``'s), held bit for bit
+    to ``cache_whole`` and ``cache_chunked``; and the K and V products
+    (``quant.einsum`` of the normed rows with ``wk``, ``wv``) of each
+    chunk's rows alone against the same rows of the whole prompt's.
+    Returns (both caches rebuilt exactly, each chunk's normed rows equal
+    to the same rows normed with the prompt's, the products' max abs
+    diff chunk by chunk)."""
+    import torch
+    from repro_torch import quant
+    from repro_torch.models import layers
+    cfg = model32.cfg
+    (_, p), = model32._layers(params32["blocks"])
+    (_, cu), = model32._layers(cache_whole)
+    (_, cc), = model32._layers(cache_chunked)
+    x = model32.embed(params32, batch)
+    S, dev = x.shape[1], x.device
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    _, k, v = layers.qkv_project(cfg, p["attn"], h,
+                                 torch.arange(S, device=dev)[None, :])
+    rebuilt = (torch.equal(cu["k"], k.transpose(1, 2).to(cu["k"].dtype))
+               and torch.equal(cu["v"], v.transpose(1, 2).to(cu["v"].dtype)))
+    whole = {n: quant.einsum(h, p["attn"][n], cfg.compute_dtype)
+             for n in ("wk", "wv")}
+    products, normed = [], True
+    for off in range(0, S, chunk):
+        rows = slice(off, off + chunk)
+        hc = layers.apply_norm(cfg, p["norm1"], x[:, rows])
+        normed = normed and torch.equal(hc, h[:, rows])
+        _, k, v = layers.qkv_project(
+            cfg, p["attn"], hc,
+            (off + torch.arange(chunk, device=dev))[None, :])
+        rebuilt = (rebuilt and torch.equal(
+            cc["k"][:, :, rows], k.transpose(1, 2).to(cc["k"].dtype))
+            and torch.equal(cc["v"][:, :, rows],
+                            v.transpose(1, 2).to(cc["v"].dtype)))
+        products.append(max(
+            (quant.einsum(hc, p["attn"][n], cfg.compute_dtype)
+             - w[:, rows]).abs().max().item() for n, w in whole.items()))
+    return rebuilt, normed, products
+
+
+def shm_workdir() -> str:
+    """Phase 32's store directory in host memory (:data:`SHM`), named
+    after this process's temporary directory: a run killed before its
+    clean-up leaves its stores in host memory after it is gone, so the
+    next run with the same ``TMPDIR`` removes them first."""
+    import hashlib
+    tag = hashlib.sha1(os.path.realpath(
+        tempfile.gettempdir()).encode()).hexdigest()[:12]
+    path = os.path.join(SHM, f"repro-smoke-{tag}")
+    if os.path.exists(path):
+        print(f"  removing {path}, left by a run that did not end: "
+              f"{sorted(os.listdir(path))}")
+        shutil.rmtree(path)
+    os.makedirs(path)
+    return path
+
+
+def moe_configs(dev) -> tuple:
+    """Phase 32: :func:`mixtral_full`, then :func:`arctic_layer`, their
+    stores in host memory (:func:`shm_workdir`).  Returns (their paths,
+    phase 30's meta table)."""
+    import ctypes
+    # the C heap's free pages back to the host before 47 GB of store go
+    # into its memory
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    workdir = shm_workdir()
+    try:
+        t0 = time.perf_counter()
+        paths, table = mixtral_full(dev, workdir)
+        print(f"  mixtral_full: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths.update(arctic_layer(dev, workdir))
+        print(f"  arctic_layer: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    # the pinned read buffers cached by PyTorch's host allocator (arctic's
+    # block: one of 16 GiB) back to the host for the later phases
+    import torch
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+    print(f"  host memory available after the phase "
+          f"{mem_available() / 1e9:.1f} GB, this process "
+          f"{rss_bytes() / 1e9:.1f} GB resident (the host allocator's "
+          f"cache {'emptied' if empty else 'kept: no _host_emptyCache'})")
+    return paths, table
 
 
 def main() -> int:
@@ -6429,6 +7424,18 @@ def main() -> int:
     # each path runs with the counts set to 0 just before it and read just
     # after; the kernels each must have launched
     paths = {}
+    # phase 32 runs first: its stores take 47 GB of host memory (SHM),
+    # which the later phases' caches (pinned read buffers, the C heap)
+    # would not leave it
+    phase("[32] the MoE configs at full size: mixtral-8x7b at 32 layers "
+          "int8-resident (greedy generation, slotted and paged "
+          "DecodeScheduler, a request past its window, the streamed "
+          "oracle, a step's costs); one arctic-480b layer at full width "
+          "(bf16 at A, int8-resident, f32 at A, both schedulers) and its "
+          "chunked prefill past its capacity drops")
+    moe_paths, table = moe_configs(dev)
+    paths.update(moe_paths)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as wd:
         phase("[4] full-width smollm-360m cold starts")
         ops.registry.reset_counts()
@@ -6463,7 +7470,8 @@ def main() -> int:
         phase("[9] card against CPU, 4 layers at full width, f32")
         card_vs_cpu(dev, wd)
         for i, arch in enumerate(RECURRENT):
-            phase(f"[{10 + i}] full-width {arch}: cicada cold start "
+            phase(f"[{10 + i}] full-width {arch} at "
+                  f"{RECURRENT_LAYERS[arch]} layers: cicada cold start "
                   f"({RECURRENT[arch] or 'f32'} store, bf16 at A), greedy "
                   f"generation, slotted and paged DecodeScheduler (4 "
                   f"requests); int8-resident cold start, slotted and paged")
@@ -6551,7 +7559,7 @@ def main() -> int:
             ("weight_transform", "flash_attention", "rmsnorm"))
         torch.cuda.empty_cache()
         phase(f"[27] training on the card: the backward kernels against "
-              f"plain, card against CPU at 4 layers, full-width "
+              f"plain, card against CPU at 2 layers, full-width "
               f"smollm-360m through launch/train.py ({TRAIN_STEPS} steps, "
               f"--compress-grads, a checkpoint), determinism and resume")
         train = training(dev, wd, report)
@@ -6583,11 +7591,12 @@ def main() -> int:
         phase("[30] the dry run against the card: every cell on meta on "
               "both production meshes, then five cells at full width and "
               "depth (batch cut) traced on meta and run on the card")
-        dry = dryrun_phase(dev)
+        dry = dryrun_phase(dev, table)
         paths["dry run cells"] = (dry["launches"], dry["kernels"])
         torch.cuda.empty_cache()
-        phase("[31] the dense configs at full width and depth (yi-9b, "
-              "codeqwen1.5-7b, h2o-danube-3-4b): int8 stores deployed one "
+        phase("[31] the dense configs at full width ("
+              + ", ".join(f"{a} {n} layers" for a, n, _ in DENSE_FULL)
+              + "): int8 stores deployed one "
               "unit at a time, cicada with bf16 at A and int8-resident, "
               "greedy generation, slotted and paged DecodeScheduler, "
               f"danube {WINDOW_PROMPT - 4096} tokens past its window; card "

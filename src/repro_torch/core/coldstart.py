@@ -341,7 +341,7 @@ class ColdStartEngine:
                 synchronize(self.device)
                 if u == units[-1] and on_logits is not None:
                     on_logits(state["logits"])
-        params = self.model.assemble(applied)
+        params = self.model.assemble(applied, consume=True)
         synchronize(self.device)
         return LoadResult(state["logits"], params, trace,
                           self.strategy.name, self._shardings(params))
@@ -363,7 +363,8 @@ class ColdStartEngine:
             compute_stream=torch.cuda.Stream(self.device) if cuda else None)
         PipelineRuntime(standard_units(ctx), state).run()
         with torch.no_grad():
-            params = self.model.assemble(state.peek(APPLIED))
+            params = self.model.assemble(state.peek(APPLIED),
+                                         consume=True)
         synchronize(self.device)
         dec.trace_transforms()          # device-timed, so after the sync
         return LoadResult(state.get(OUTPUT, "logits"), params, trace,

@@ -457,8 +457,15 @@ class WeightDecoupler:
         self.cache.release(self.model_name, unit, skey)
 
     def checkin(self, unit: str):
-        """Weight application of ``unit`` is done: drop the cache pins of
-        all its shards (no-op without a cache)."""
+        """Weight application of ``unit`` is done: drop the load's hold on
+        its retrieved host leaves, so that a load keeps about
+        ``io_workers`` units' bytes on the host and not the whole model's
+        (a sharded unit's device data stays for :meth:`trace_transforms`;
+        the unit stays in ``ready``), and the cache pins of all its
+        shards (no-op without a cache)."""
+        with self.cv:
+            if not isinstance(self.ready.get(unit), ShardedUnitData):
+                self.ready[unit] = None
         if self.cache is None:
             return
         with self.cv:

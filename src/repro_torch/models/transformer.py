@@ -372,6 +372,26 @@ def _head(cfg, params: PyTree, x: torch.Tensor) -> torch.Tensor:
     return layers.head_logits(cfg, params, x)
 
 
+def _stack_spent(per: List[PyTree]) -> PyTree:
+    """``tree_map(torch.stack)`` over the unit trees ``per``, each unit's
+    dict entry dropped once its leaf is stacked; one unit stacks as a
+    view (``unsqueeze(0)``)."""
+    first = per[0]
+    if isinstance(first, dict):
+        out = {}
+        for k in list(first):
+            out[k] = _stack_spent([p[k] for p in per])
+            for p in per:
+                p[k] = None
+        return out
+    if isinstance(first, QuantLeaf):
+        return QuantLeaf(_stack_spent([p.q for p in per]),
+                         _stack_spent([p.scale for p in per]))
+    if len(per) == 1:
+        return first.unsqueeze(0)
+    return torch.stack(per)
+
+
 def _index(tree: PyTree, i: int) -> PyTree:
     """Unit ``i`` of a stacked tree (``None`` leaves stay ``None``)."""
     return tree_util.tree_map(lambda a: None if a is None else a[i], tree)
@@ -451,14 +471,22 @@ class LM:
                                                           "meta").tree()
         return self._abstract_units[name]
 
-    def assemble(self, units: Dict[str, PyTree]) -> PyTree:
+    def assemble(self, units: Dict[str, PyTree], *,
+                 consume: bool = False) -> PyTree:
+        """The stacked param tree from per-unit trees.  ``consume``: the
+        unit trees are spent: each unit's leaf leaves its tree as soon as
+        it is stacked (and a lone unit is stacked as a view), so the
+        stacked params never sit beside a second copy of the units' (a
+        cold start of mixtral-8x7b's 47 GB of int8-resident params would
+        not fit the card twice)."""
         u = len(self.pattern)
         blocks: Dict[str, PyTree] = {}
         for slot in range(u):
             per = [units[f"block_{i * u + slot:03d}"]
                    for i in range(self.n_units)]
-            blocks[f"s{slot}"] = tree_util.tree_map(
-                lambda *xs: torch.stack(xs), *per)
+            blocks[f"s{slot}"] = (_stack_spent(per) if consume else
+                                  tree_util.tree_map(
+                                      lambda *xs: torch.stack(xs), *per))
         for t in range(len(self.tail_kinds)):
             blocks[f"t{t}"] = units[f"block_{self.n_units * u + t:03d}"]
         return {"embed": units["embed"], "blocks": blocks,

@@ -314,7 +314,10 @@ class VisionModel:
                 _Leaves("meta"))
         return self._abstract_units[name]
 
-    def assemble(self, units: Dict[str, PyTree]) -> PyTree:
+    def assemble(self, units: Dict[str, PyTree], *,
+                 consume: bool = False) -> PyTree:
+        """The units' trees as they are (nothing is stacked, so
+        ``consume`` has nothing to spend)."""
         return dict(units)
 
     def init(self, seed: int = 0) -> PyTree:

@@ -225,6 +225,11 @@ def slice_byte_runs(shape: Tuple[int, ...], itemsize: int,
     return runs
 
 
+# the f32 bytes of the row block that quantize_int8 divides at once: an
+# arctic-480b expert leaf's whole quotient would take 17.8 GB beside it
+QUANT_BLOCK_BYTES = 1 << 30
+
+
 def quantize_int8(leaf) -> Tuple[np.ndarray, np.ndarray]:
     """Per-column int8 of a float leaf over its last axis, as the
     reference's store computes it in numpy: f32 scales amax / 127 (1 for
@@ -233,17 +238,30 @@ def quantize_int8(leaf) -> Tuple[np.ndarray, np.ndarray]:
     times faster on a multi-GB leaf.  A tensor is quantized on its own
     device (the same correctly rounded f32 division and rounding, so the
     same bytes) and only the int8 values and the scales come to the
-    host."""
+    host.  The leaf is taken in row blocks of at most QUANT_BLOCK_BYTES
+    at f32, once for the amax and once for the values, each block written
+    straight into the host's int8: every step is elementwise or a max,
+    so the bytes are the whole leaf's."""
     w = leaf.detach() if isinstance(leaf, torch.Tensor) else \
         torch.from_numpy(np.require(leaf, requirements="W"))
-    w2 = w.reshape(-1, w.shape[-1]).float()
-    amax = torch.maximum(w2.amax(dim=0), -w2.amin(dim=0))
+    w2 = w.reshape(-1, w.shape[-1])
+    n, m = w2.shape
+    rows = max(1, QUANT_BLOCK_BYTES // (4 * m))
+    starts = range(0, n, rows)
+    amax = None
+    for i in starts:
+        lo, hi = torch.aminmax(w2[i:i + rows].float(), dim=0)
+        a = torch.maximum(hi, -lo)
+        amax = a if amax is None else torch.maximum(amax, a)
     # a tensor divisor: CUDA multiplies by the reciprocal of a Python
     # scalar one, which can round the scale differently from numpy
     scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
                         torch.ones_like(amax))
-    q = (w2 / scale).round_().clamp_(-127, 127).to(torch.int8)
-    return q.cpu().numpy(), scale.cpu().numpy()
+    q = torch.empty((n, m), dtype=torch.int8)
+    for i in starts:
+        q[i:i + rows].copy_((w2[i:i + rows].float() / scale).round_()
+                            .clamp_(-127, 127).to(torch.int8))
+    return q.numpy(), scale.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -149,3 +149,34 @@ def test_int8_quantization_bytes_equal_reference_on_ties(tmp_path):
     q, scale = tstore.quantize_int8(w)
     assert q.dtype == np.int8 and q.shape == (6, 5) and scale[1] == 1.0
     np.testing.assert_array_equal(q[:, 0], [127, 2, -4, 0, -2, 4])
+
+
+@pytest.mark.parametrize("block_bytes", [4 * 7 * 5, 4 * 7 * 64, 1 << 30])
+def test_row_blocked_int8_bit_equal_to_numpy(tmp_path, monkeypatch,
+                                             block_bytes):
+    """``quantize_int8`` in row blocks (5 rows of a 7-column leaf, 64 rows,
+    and the default: one block) gives numpy's formula's bytes: the
+    reference store's ``.bin`` for an expert stack (120 rows, so the
+    largest column value lies in a later block than the first), f32 and
+    float64 leaves, an all-zero column and exact half-way values; and a
+    tensor gives the same bytes as its numpy array."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((4, 30, 7)).astype(np.float32)
+    w[3, 29, 2] = 9.0                       # the amax in the last row
+    w[..., 4] = 0.0
+    w[0, :4, 5] = [2.5, -3.5, 0.5, 127.0]
+    units = {"u": {"experts": {"wg": w}, "b": w[1].astype(np.float64)}}
+    jst = jstore.WeightStore(str(tmp_path / "j"))
+    jst.deploy("m", units, quant="int8")
+    with open(tmp_path / "j" / "m" / "u.bin", "rb") as f:
+        want = f.read()
+    monkeypatch.setattr(tstore, "QUANT_BLOCK_BYTES", block_bytes)
+    tst = tstore.WeightStore(str(tmp_path / "t"))
+    tst.deploy("m", units, quant="int8")
+    with open(tmp_path / "t" / "m" / "u.bin", "rb") as f:
+        assert f.read() == want
+    q, s = tstore.quantize_int8(w)
+    tq, ts = tstore.quantize_int8(torch.from_numpy(w))
+    np.testing.assert_array_equal(q, tq)
+    np.testing.assert_array_equal(s, ts)
+    assert q.shape == (120, 7) and s[4] == 1.0 and q[119, 2] == 127
